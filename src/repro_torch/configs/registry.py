@@ -1,0 +1,41 @@
+"""Arch config registry for the PyTorch port: `get_config(<id>)` resolves here.
+
+Each module under repro_torch.configs defines CONFIG (the full published
+width) and SMOKE (a reduced same-family config for CPU tests). The port
+carries its own copies of the JAX package's configs; only the configs of
+the models the port already serves are present so far — the other archs
+arrive with their model families (ROADMAP Queue A item 5).
+"""
+
+from __future__ import annotations
+
+import importlib
+
+ARCHS = ["llama32_1b"]
+
+_ALIASES = {
+    "llama3.2-1b": "llama32_1b",
+}
+
+# archs of the JAX package that the port does not serve yet
+_PENDING = {
+    "h2o_danube3_4b", "granite_34b", "chatglm3_6b", "qwen2_vl_7b",
+    "jamba_15_large", "rwkv6_3b", "granite_moe_1b", "moonshot_v1_16b",
+    "whisper_medium", "h2o-danube-3-4b", "granite-34b", "chatglm3-6b",
+    "qwen2-vl-7b", "jamba-1.5-large-398b", "rwkv6-3b",
+    "granite-moe-1b-a400m", "moonshot-v1-16b-a3b", "whisper-medium",
+}
+
+
+def get_config(name: str, smoke: bool = False):
+    if name in _PENDING:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported to PyTorch yet (ROADMAP Queue A "
+            f"item 5); ported archs: {ARCHS}")
+    key = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
+    mod = importlib.import_module(f"repro_torch.configs.{key}")
+    return mod.SMOKE if smoke else mod.CONFIG
+
+
+def all_archs():
+    return list(ARCHS)

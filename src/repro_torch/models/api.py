@@ -1,0 +1,82 @@
+"""Model facade of the PyTorch port: family dispatch and the device choice.
+
+`build_model(cfg)` runs on the card: with no `device` it takes "cuda" and
+raises when there is none — pass `device="cpu"` to run the plain PyTorch
+path on the CPU, as the tests do. It never falls back silently.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+from . import transformer
+from .config import ModelConfig
+
+_FAMILIES = {"dense": transformer}
+_PENDING = {
+    "moe": "ROADMAP Queue A item 5 (other model families: MoE)",
+    "vlm": "ROADMAP Queue A item 5 (other model families: vlm)",
+    "hybrid": "ROADMAP Queue A item 5 (other model families: hybrid)",
+    "ssm": "ROADMAP Queue A item 5 (other model families: ssm)",
+    "audio": "ROADMAP Queue A item 5 (other model families: enc-dec)",
+}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device the port runs on: "cuda" unless the caller asks for
+    another; raises when CUDA is asked for (or defaulted to) and absent."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the PyTorch port runs on the GPU by "
+            "default. Pass device='cpu' to run its plain PyTorch path on the "
+            "CPU.")
+    return dev
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+    mod: object
+    device: torch.device
+
+    def init_params(self, seed: int = 0):
+        """Random-init parameters on the model's device, drawn from a
+        `torch.Generator` on that device seeded with `seed`."""
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        return self.mod.init_params(self.cfg, generator, self.device)
+
+    def init_paged_decode_state(self, batch, max_len, *, num_pages, page_size,
+                                dtype=None):
+        return self.mod.init_paged_decode_state(
+            self.cfg, batch, max_len, num_pages=num_pages,
+            page_size=page_size, device=self.device, dtype=dtype)
+
+    def paged_state_batch_axes(self) -> Dict[str, int]:
+        return self.mod.paged_state_batch_axes(self.cfg)
+
+    def reset_slot_state(self, state, slot, *, seq_len_hint=None):
+        return self.mod.reset_slot_state(self.cfg, state, slot,
+                                         seq_len_hint=seq_len_hint)
+
+    def recycle_slot_state(self, state, slot):
+        return self.mod.recycle_slot_state(self.cfg, state, slot)
+
+    def serve_step_paged(self, params, state, tokens, *, min_write_pos=None):
+        """One paged decode step (see transformer.serve_step_paged)."""
+        return self.mod.serve_step_paged(params, state, tokens, self.cfg,
+                                         min_write_pos=min_write_pos)
+
+
+def build_model(cfg: ModelConfig, device=None) -> Model:
+    """The model for `cfg` on `device` ("cuda" by default)."""
+    if cfg.family in _PENDING:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: {_PENDING[cfg.family]}")
+    mod = _FAMILIES.get(cfg.family)
+    if mod is None:
+        raise ValueError(f"unknown model family {cfg.family!r}")
+    return Model(cfg=cfg, mod=mod, device=resolve_device(device))

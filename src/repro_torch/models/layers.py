@@ -1,0 +1,92 @@
+"""Shared model layers of the PyTorch port: norm, rotary embedding, decode
+attention, SwiGLU MLP.
+
+Dtype handling follows the JAX package's `models/layers.py` step for step
+(which ops run in f32, where results are cast back), so a float32 smoke
+model agrees with it to rounding and a bf16 model rounds at the same places.
+Weights are (in, out) and applied as `x @ W`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    var = x.float().square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
+
+
+def _rope_freqs(dim: int, base: float, device) -> torch.Tensor:
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return 1.0 / (torch.tensor(base, dtype=torch.float32, device=device) ** exps)
+
+
+def apply_rotary(x: torch.Tensor, positions: torch.Tensor, *, kind: str = "rope",
+                 base: float = 10000.0, fraction: float = 1.0) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int. Interleaved-pair RoPE over
+    the first `fraction` of the head dims (the rest pass through)."""
+    if kind != "rope":
+        raise NotImplementedError(
+            f"rotary kind {kind!r} is not ported yet (ROADMAP Queue A item "
+            f"5: the vlm and chatglm rope kinds)")
+    d = x.shape[-1]
+    rot_d = int(d * fraction) // 2 * 2
+    xr, xp = x[..., :rot_d], x[..., rot_d:]
+    freqs = _rope_freqs(rot_d, base, x.device)
+    ang = positions.float()[..., None] * freqs[None, None, :]
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)        # (B, S, 1, rot_d/2)
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    x1, x2 = xr[..., ::2], xr[..., 1::2]
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    xr = torch.stack([r1, r2], dim=-1).reshape(xr.shape)
+    return torch.cat([xr, xp], dim=-1) if rot_d < d else xr
+
+
+def decode_attention(q: torch.Tensor, kcache: torch.Tensor, vcache: torch.Tensor,
+                     length: torch.Tensor, *, scale: float,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """One-token decode attention over a contiguous cache (plain form).
+    q: (B, H, D); caches: (B, N, KVH, D); length: (B,). Returns (B, H, D) f32."""
+    b, h, d = q.shape
+    n, kvh = kcache.shape[1], kcache.shape[2]
+    g = h // kvh
+    logits = torch.einsum("bkgd,bskd->bkgs",
+                          q.reshape(b, kvh, g, d).to(kcache.dtype).float(),
+                          kcache.float()) * scale
+    pos = torch.arange(n, device=q.device)[None, None, None, :]
+    mask = pos < length[:, None, None, None]
+    if window is not None:
+        mask &= pos > (length[:, None, None, None] - 1 - window)
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(vcache.dtype).float(),
+                       vcache.float())
+    return out.reshape(b, h, d)
+
+
+def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, table: torch.Tensor,
+                           length: torch.Tensor, *, scale: float,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """The dense pre-DSA fallback straight off the page pools: one query
+    per slot attends its whole causal extent through the block table —
+    kernel B4 on the card (`ops.paged_dense_decode_attn`), its plain
+    version on the CPU. q: (B, H, D); k/v_pages: (P, ps, KVH, D);
+    table: (B, MP); length: (B,). Returns (B, H, D) f32."""
+    return ops.paged_dense_decode_attn(q.to(k_pages.dtype).contiguous(),
+                                       k_pages, v_pages, table, length,
+                                       scale=scale, window=window)
+
+
+def swiglu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+               w_down: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down

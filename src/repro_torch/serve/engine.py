@@ -1,0 +1,509 @@
+"""Continuous-batching decode engine over the paged KV layout, PyTorch port.
+
+One `DecodeEngine` owns a fixed pool of B slots (the batch axis of the
+decode state). Per tick it:
+
+  1. admits queued requests into freed slots (scheduler policy): the paged
+     manager plans the prompt's pages — shared prefix pages by ref-count,
+     the rest freshly allocated, queueing when the pool cannot hold them —
+     and the `FeedbackPool` resets the slot's GVR feedback;
+  2. streams one `prefill_chunk` of each PREFILL slot's prompt into the
+     pool, token by token through a batch-1 view of the step (other slots
+     untouched);
+  3. runs ONE `serve_step_paged` over the whole pool for the DECODE slots,
+     maps (and copy-on-write protects) each slot's write page first —
+     preempting the lowest-priority slot under page pressure — samples
+     their next tokens (greedy by default), and keeps the new per-slot
+     state only for active rows (inactive rows write to the sink page);
+  4. retires finished slots (eos or max_new_tokens), releasing their pages
+     and poisoning their feedback rows.
+
+Every served slot-tick is logged with the selector path that produced its
+Top-K (`gvr`/`radix`/`exact`, or `dense` before the DSA gate opens), taken
+from the step's own per-row report. `EngineReport` splits the counts by
+phase; `gvr_hit_rate` is defined over decode ticks only.
+
+Preemption order under page pressure: reclaim cold prefix-cache pages
+first; then preempt the PREFILL slot with the most remaining prompt tokens
+(ties toward the latest admission); only if every other slot is decoding,
+the DECODE slot with the fewest generated tokens. The victim returns to
+the front of the queue and replays deterministically.
+
+The engine runs on its model's device (the card unless the model was built
+with device="cpu"). It serves `kv_layout="paged"` with `paged_attn="fused"`;
+the dense layout, the gather oracle, speculative decoding and sequence
+sharding are later slices of the port and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import PAGED_NEVER_WRITE
+
+from . import sampling
+from .feedback_pool import FeedbackPool
+from .paged import PagedKVManager, PoolExhausted
+from .scheduler import DECODE, DONE, PREFILL, QUEUED, Scheduler, make_scheduler
+
+
+@dataclasses.dataclass(eq=False)       # identity equality: the scheduler
+class Request:                         # queue must never compare ndarray fields
+    uid: int
+    prompt: np.ndarray                 # (P,) int32 prompt tokens
+    max_new_tokens: int = 16
+    arrival: int = 0                   # tick at which the request may admit
+    # sampling policy: temperature == 0 → greedy (the default)
+    temperature: float = 0.0
+    top_p: float = 1.0
+    seed: Optional[int] = None         # sampling seed (default: uid)
+    # lifecycle bookkeeping (engine-owned)
+    phase: str = QUEUED
+    slot: Optional[int] = None
+    prefill_pos: int = 0
+    generated: List[int] = dataclasses.field(default_factory=list)
+    admitted_at: Optional[int] = None
+    finished_at: Optional[int] = None
+    logits_log: List[np.ndarray] = dataclasses.field(default_factory=list)
+    preemptions: int = 0
+    # paged-layout internals
+    _materialized: int = 0             # prompt positions backed by shared pages
+    _skip: int = 0                     # prefill_pos at admission (cache skip)
+    _key: Optional[torch.Generator] = None
+
+    def __post_init__(self):
+        self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
+        if len(self.prompt) == 0:
+            raise ValueError(f"request {self.uid}: empty prompt")
+        if not (0.0 < self.top_p <= 1.0):
+            raise ValueError(f"request {self.uid}: top_p must be in (0, 1], "
+                             f"got {self.top_p}")
+
+
+@dataclasses.dataclass
+class EngineReport:
+    """One `run()` window's telemetry (every field is a delta over it).
+
+    * `ticks` / `wall_s` — engine ticks driven and wall-clock seconds.
+    * `decoded_tokens` / `prefill_tokens` — delivered work only: a
+      preempted pass's tokens are rolled back when the request re-queues.
+    * `completed` — requests that reached DONE inside the window.
+    * `method_counts` — selector path per served slot-tick, both phases;
+      `prefill_method_counts` / `decode_method_counts` split it by phase.
+    * `gvr_hit_rate` (property) — GVR coverage of DECODE ticks only.
+    * `preemptions` — slots evicted back to the queue under page pressure.
+    * `prefix_hit_tokens` — prompt tokens served from the prefix cache.
+    * `peak_page_utilization` — max pool utilization over the window.
+    """
+    ticks: int
+    wall_s: float
+    decoded_tokens: int
+    prefill_tokens: int
+    completed: int
+    method_counts: Dict[str, int]
+    prefill_method_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
+    decode_method_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
+    preemptions: int = 0
+    prefix_hit_tokens: int = 0
+    peak_page_utilization: float = 0.0
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.decoded_tokens / self.wall_s if self.wall_s > 0 else 0.0
+
+    @property
+    def gvr_hit_rate(self) -> float:
+        total = sum(self.decode_method_counts.values())
+        return (self.decode_method_counts.get("gvr", 0) / total
+                if total else 0.0)
+
+
+class DecodeEngine:
+    """Fixed-slot continuous-batching decode engine (see module docstring)."""
+
+    def __init__(self, model, params, *, num_slots: int, max_len: int,
+                 prefill_chunk: int = 8, scheduler="fifo",
+                 eos_id: Optional[int] = None, record_logits: bool = False,
+                 kv_layout: str = "paged", page_size: int = 16,
+                 num_pages: Optional[int] = None, prefix_caching: bool = True,
+                 paged_attn: str = "fused", seq_shards: int = 1,
+                 spec_depth: int = 0):
+        if kv_layout != "paged":
+            raise NotImplementedError(
+                f"kv_layout={kv_layout!r} is not ported yet (ROADMAP Queue A "
+                f"item 1: the dense KV layout); the port serves 'paged'")
+        if paged_attn != "fused":
+            raise NotImplementedError(
+                f"paged_attn={paged_attn!r} is not ported yet (ROADMAP Queue "
+                f"A item 3: the gather oracle); the port serves 'fused'")
+        if spec_depth > 0:
+            raise NotImplementedError(
+                "spec_depth > 0 is not ported yet (ROADMAP Queue A item 2: "
+                "speculative decoding)")
+        if seq_shards > 1:
+            raise NotImplementedError(
+                "seq_shards > 1 is not ported yet (ROADMAP Queue A item 4: "
+                "sequence-sharded serving)")
+        self.model = model
+        self.params = params
+        self.cfg = model.cfg
+        self.device = model.device
+        self.num_slots = int(num_slots)
+        self.max_len = int(max_len)
+        self.prefill_chunk = int(prefill_chunk)
+        self.eos_id = eos_id
+        self.record_logits = record_logits
+        self.scheduler: Scheduler = (scheduler if isinstance(scheduler, Scheduler)
+                                     else make_scheduler(scheduler))
+        self.pool = FeedbackPool(model, self.num_slots)
+
+        self._axes = model.paged_state_batch_axes()
+        if self.max_len % int(page_size) != 0:
+            raise ValueError(f"max_len ({self.max_len}) must be a multiple of "
+                             f"page_size ({page_size})")
+        pages_per_slot = self.max_len // int(page_size)
+        self.num_pages = (int(num_pages) if num_pages is not None
+                          else self.num_slots * pages_per_slot)
+        self.kv = PagedKVManager(num_slots=self.num_slots, max_len=self.max_len,
+                                 page_size=int(page_size),
+                                 num_pages=self.num_pages,
+                                 prefix_caching=prefix_caching)
+        self.state = model.init_paged_decode_state(
+            self.num_slots, self.max_len, num_pages=self.num_pages,
+            page_size=int(page_size))
+
+        self.slots: List[Optional[Request]] = [None] * self.num_slots
+        self.tick_count = 0
+        self.decoded_tokens = 0
+        self.prefill_tokens = 0
+        self.preemptions = 0
+        self.peak_occupancy = 0
+        self.peak_pages_in_use = 0
+        self.peak_pool_util = 0.0
+        self.completed: List[Request] = []
+        # per-request: [(tick, phase, method), ...]
+        self.method_log: Dict[int, List[Tuple[int, str, str]]] = {}
+
+        cfg = self.cfg
+        self._use_dsa = bool(cfg.dsa.enabled) and self.max_len > cfg.dsa.min_n
+        # the selector's path for cold rows, from its auto gate over
+        # n = max_len (auto + use_dsa means n > min_n: radix, never exact)
+        if not self._use_dsa:
+            self._cold_method = "dense"
+        elif cfg.dsa.selector != "auto":
+            self._cold_method = cfg.dsa.selector
+        else:
+            self._cold_method = "radix"
+
+    # ---- device steps ---------------------------------------------------
+
+    def _step(self, state, tokens: torch.Tensor, min_write_pos):
+        return self.model.serve_step_paged(self.params, state, tokens,
+                                           min_write_pos=min_write_pos)
+
+    def _merge_active(self, new_state, state, active: torch.Tensor):
+        """Keep `new_state` only for active rows; the pool-global page
+        leaves pass through (inactive rows wrote to the sink page)."""
+        merged = {}
+        for key, arr in new_state.items():
+            ax = self._axes.get(key)
+            if ax is None:
+                merged[key] = arr
+                continue
+            shape = [1] * arr.dim()
+            shape[ax] = self.num_slots
+            merged[key] = torch.where(active.reshape(shape), arr, state[key])
+        return merged
+
+    def _prefill_slot(self, tokens: np.ndarray, slot: int,
+                      min_write_pos: int):
+        """Stream `tokens` of one slot's prompt through batch-1 steps,
+        leaving every other slot untouched. Positions below
+        `min_write_pos` skip their cache write (shared-prefix replay).
+        Returns the last token's logits (1, V) and whether layer 0's GVR
+        path served the first token."""
+        sub = {k: (v if ax is None else v.narrow(ax, slot, 1))
+               for k, v in self.state.items()
+               for ax in [self._axes.get(k)]}
+        mwp = torch.tensor([min_write_pos], dtype=torch.int32, device=self.device)
+        tok = torch.as_tensor(tokens, dtype=torch.int32).to(self.device)
+        logits, first_gvr = None, False
+        for i in range(len(tokens)):
+            logits, sub = self._step(sub, tok[i:i + 1], mwp)
+            if i == 0 and "sel_gvr" in sub:
+                first_gvr = bool(sub["sel_gvr"][0, 0])
+        state = dict(self.state)
+        for k, ax in self._axes.items():
+            full = state[k].clone()
+            full.narrow(ax, slot, 1).copy_(sub[k])
+            state[k] = full
+        self.state = state
+        return logits, first_gvr
+
+    # ---- host-side lifecycle --------------------------------------------
+
+    def submit(self, request: Request) -> None:
+        total = len(request.prompt) + request.max_new_tokens
+        if total > self.max_len:
+            raise ValueError(
+                f"request {request.uid}: prompt ({len(request.prompt)}) + "
+                f"max_new ({request.max_new_tokens}) exceeds max_len "
+                f"({self.max_len})")
+        if not self.kv.can_ever_hold(total):
+            raise ValueError(f"request {request.uid}: "
+                             f"{self.kv.sizing_error(total)} — it could never "
+                             f"admit")
+        self.method_log.setdefault(request.uid, [])
+        self.scheduler.submit(request)
+
+    def _log(self, req: Request, method: str) -> None:
+        self.method_log[req.uid].append((self.tick_count, req.phase, method))
+
+    def _method_name(self, gvr_row: bool) -> str:
+        return "gvr" if gvr_row else self._cold_method
+
+    def _next_token(self, req: Request, argmax_tok: int, logits_row) -> int:
+        """Greedy by default; temperature/top-p sampling from the request's
+        own generator otherwise."""
+        if req.temperature <= 0.0:
+            return int(argmax_tok)
+        return sampling.sample_token(logits_row, req._key,
+                                     temperature=req.temperature,
+                                     top_p=req.top_p)
+
+    def _push_page_table(self) -> None:
+        if self.kv.dirty:
+            self.state["page_table"] = torch.as_tensor(
+                self.kv.table_array()).to(self.device)
+            self.kv.dirty = False
+
+    def _copy_page(self, cow) -> None:
+        """Device-side page copy backing a copy-on-write remap (in place)."""
+        src, dst = cow
+        for key in ("k_pages", "v_pages", "idx_k_pages"):
+            if key in self.state:
+                arr = self.state[key]
+                arr[:, dst] = arr[:, src]
+
+    def _preempt_victim(self, exclude: Optional[int] = None) -> Optional[int]:
+        """Lowest-priority victim under page pressure: the PREFILL slot with
+        the most remaining prompt tokens (ties toward the latest admission);
+        if every other slot decodes, the DECODE slot with the fewest
+        generated tokens."""
+        best, best_key = None, None
+        for s, req in enumerate(self.slots):
+            if req is None or req.phase != PREFILL or s == exclude:
+                continue
+            key = (len(req.prompt) - req.prefill_pos, req.admitted_at)
+            if best_key is None or key > best_key:
+                best, best_key = s, key
+        if best is not None:
+            return best
+        for s, req in enumerate(self.slots):
+            if req is None or req.phase != DECODE or s == exclude:
+                continue
+            key = (-len(req.generated), req.admitted_at)
+            if best_key is None or key > best_key:
+                best, best_key = s, key
+        return best
+
+    def _preempt(self, victim: int) -> None:
+        """Evict a slot back to the front of the queue: pages released,
+        feedback poisoned, token counters rolled back (the replay
+        regenerates the same tokens); its method_log entries stay."""
+        req = self.slots[victim]
+        self.kv.release_slot(victim)
+        self.state = self.pool.evict(self.state, victim)
+        self.decoded_tokens -= len(req.generated)
+        self.prefill_tokens -= max(req.prefill_pos - req._skip, 0)
+        req.phase, req.slot = QUEUED, None
+        req.prefill_pos = 0
+        req._materialized = 0
+        req._skip = 0
+        req.generated.clear()
+        req.logits_log.clear()
+        req.preemptions += 1
+        self.slots[victim] = None
+        self.preemptions += 1
+        self.scheduler.requeue(req)
+
+    def _ensure_decode_page(self, slot: int, pos: int) -> None:
+        """Map (and COW-protect) the page a DECODE slot is about to write;
+        pool pressure preempts the lowest-priority other slot."""
+        while True:
+            try:
+                self.kv.ensure_mapped(slot, pos)
+                cow = self.kv.ensure_writable(slot, pos)
+                if cow is not None:
+                    self._copy_page(cow)
+                return
+            except PoolExhausted as exc:
+                victim = self._preempt_victim(exclude=slot)
+                if victim is None:
+                    raise RuntimeError(
+                        f"page pool exhausted ({exc}) with nothing left to "
+                        f"preempt: slot {slot} alone needs more pages than "
+                        f"the pool holds — increase num_pages") from None
+                self._preempt(victim)
+
+    def _admit(self) -> None:
+        for slot in range(self.num_slots):
+            if self.slots[slot] is not None:
+                continue
+            req = self.scheduler.peek(self.tick_count)
+            if req is None:
+                return
+            plan = self.kv.admit(slot, req.prompt)
+            if plan is None:
+                return               # pool exhausted: stay queued, retry
+            self.scheduler.take(req)
+            self.state = self.pool.admit(self.state, slot,
+                                         seq_len_hint=len(req.prompt))
+            req._materialized = plan.materialized
+            req._skip = plan.skip_len
+            req.prefill_pos = plan.skip_len
+            if plan.skip_len:
+                length = self.state["length"].clone()
+                length[slot] = plan.skip_len
+                self.state["length"] = length
+            if req.temperature > 0.0:
+                # re-created per admission: a preempted request replays the
+                # same draws on its second pass
+                req._key = sampling.request_key(
+                    req.seed if req.seed is not None else req.uid)
+            req.slot, req.phase = slot, PREFILL
+            req.admitted_at = self.tick_count
+            self.slots[slot] = req
+
+    def _prefill_tick(self) -> None:
+        for req in list(self.slots):
+            if req is None or req.phase != PREFILL:
+                continue
+            chunk = req.prompt[req.prefill_pos:req.prefill_pos + self.prefill_chunk]
+            self._push_page_table()
+            last_logits, first_gvr = self._prefill_slot(chunk, req.slot,
+                                                        req._materialized)
+            # the dispatch decision is made at tick entry: log the path that
+            # served the chunk's first token
+            self._log(req, self._method_name(first_gvr))
+            req.prefill_pos += len(chunk)
+            self.prefill_tokens += len(chunk)
+            if req.prefill_pos >= len(req.prompt):
+                self.kv.commit_prefix(req.slot, req.prompt)
+                # the last prompt token's logits yield the first generation
+                req.phase = DECODE
+                row = last_logits[0]
+                req.generated.append(self._next_token(
+                    req, int(torch.argmax(row)), row))
+                if self.record_logits:
+                    req.logits_log.append(row.cpu().numpy())
+                self.decoded_tokens += 1
+                self._maybe_finish(req.slot)
+
+    def _decode_tick(self) -> None:
+        for s, req in enumerate(self.slots):
+            if req is None or req.phase != DECODE:
+                continue
+            self._ensure_decode_page(s, len(req.prompt) + len(req.generated) - 1)
+        self._push_page_table()
+        active_np = np.array([r is not None and r.phase == DECODE
+                              for r in self.slots])
+        if not active_np.any():
+            return
+        tokens = np.zeros((self.num_slots,), np.int32)
+        for s, req in enumerate(self.slots):
+            if active_np[s]:
+                tokens[s] = req.generated[-1]
+        active = torch.as_tensor(active_np).to(self.device)
+        mwp = torch.where(active, 0, PAGED_NEVER_WRITE).to(torch.int32)
+        logits, new_state = self._step(
+            self.state, torch.as_tensor(tokens).to(self.device), mwp)
+        self.state = self._merge_active(new_state, self.state, active)
+        next_tok = torch.argmax(logits, dim=-1).cpu().numpy()
+        sel_gvr = (self.state["sel_gvr"][0].cpu().numpy()
+                   if "sel_gvr" in self.state
+                   else np.zeros((self.num_slots,), bool))
+        for s, req in enumerate(self.slots):
+            if not active_np[s]:
+                continue
+            self._log(req, self._method_name(bool(sel_gvr[s])))
+            req.generated.append(self._next_token(req, int(next_tok[s]),
+                                                  logits[s]))
+            if self.record_logits:
+                req.logits_log.append(logits[s].cpu().numpy())
+            self.decoded_tokens += 1
+            self._maybe_finish(s)
+
+    def _maybe_finish(self, slot: int) -> None:
+        req = self.slots[slot]
+        if (len(req.generated) >= req.max_new_tokens
+                or (self.eos_id is not None
+                    and req.generated[-1] == self.eos_id)):
+            req.phase = DONE
+            req.finished_at = self.tick_count
+            self.kv.release_slot(slot)
+            self.state = self.pool.evict(self.state, slot)
+            self.slots[slot] = None
+            self.completed.append(req)
+
+    def tick(self) -> None:
+        """One engine tick: admit → chunked prefill → pool decode → retire."""
+        self._admit()
+        self.peak_occupancy = max(self.peak_occupancy,
+                                  sum(r is not None for r in self.slots))
+        self._prefill_tick()
+        self._decode_tick()
+        self.peak_pages_in_use = max(self.peak_pages_in_use, self.kv.pages_in_use)
+        self.peak_pool_util = max(self.peak_pool_util,
+                                  self.kv.hot_pool_utilization)
+        self.tick_count += 1
+
+    def idle(self) -> bool:
+        return (all(r is None for r in self.slots)
+                and self.scheduler.pending() == 0)
+
+    def run(self, requests=None, max_ticks: int = 10_000) -> EngineReport:
+        """Drive until drained (or `max_ticks`). Returns throughput and
+        selector-path telemetry; per-request outputs live on the requests.
+        The wall clock ends after the device has finished."""
+        for r in (requests or []):
+            self.submit(r)
+        t0 = time.perf_counter()
+        self.peak_occupancy = sum(r is not None for r in self.slots)
+        self.peak_pages_in_use = self.kv.pages_in_use
+        self.peak_pool_util = self.kv.hot_pool_utilization
+        start_tick = self.tick_count
+        start_decoded = self.decoded_tokens
+        start_prefill = self.prefill_tokens
+        start_completed = len(self.completed)
+        start_preempt = self.preemptions
+        start_skipped = self.kv.skipped_tokens
+        while not self.idle() and self.tick_count - start_tick < max_ticks:
+            self.tick()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+        combined: Dict[str, int] = {}
+        by_phase: Dict[str, Dict[str, int]] = {PREFILL: {}, DECODE: {}}
+        for entries in self.method_log.values():
+            for tick, phase, method in entries:
+                if tick >= start_tick:
+                    combined[method] = combined.get(method, 0) + 1
+                    bucket = by_phase.setdefault(phase, {})
+                    bucket[method] = bucket.get(method, 0) + 1
+        return EngineReport(
+            ticks=self.tick_count - start_tick, wall_s=wall,
+            decoded_tokens=self.decoded_tokens - start_decoded,
+            prefill_tokens=self.prefill_tokens - start_prefill,
+            completed=len(self.completed) - start_completed,
+            method_counts=combined,
+            prefill_method_counts=by_phase[PREFILL],
+            decode_method_counts=by_phase[DECODE],
+            preemptions=self.preemptions - start_preempt,
+            prefix_hit_tokens=self.kv.skipped_tokens - start_skipped,
+            peak_page_utilization=self.peak_pool_util)

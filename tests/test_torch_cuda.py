@@ -1,0 +1,115 @@
+"""The port's Hopper kernels against their plain versions, on the card.
+
+Marked `cuda`: skips where `torch.cuda.is_available()` is false. Imports
+no JAX, so it runs on a machine with the card and PyTorch alone:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+Tolerances: Top-K bit-exact; the score row within 1e-5 (bf16 or f32
+products are exact or rounded once in f32, the sums run in another order);
+attention within 1e-4 (f32 softmax and PV sums over the same rows in
+another order). Shapes cover what `chip_smoke.py` does not: rows too long
+for shared memory (B1 then reads the row from global memory, up to the
+gate's N = 200,000), ragged N, other GQA groups, head dims and page sizes,
+and float32 pools.
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+NEG = -3.4028234663852886e38
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,m,dist", [
+    (5001, 300, 100, "normal"),          # ragged N, fewer predictions than K
+    (8192, 2048, 2048, "ties"),
+    (60_000, 2048, 2048, "normal"),      # row too long for shared memory
+    (200_000, 2048, 2048, "neg_tail"),   # the gate's largest N, NEG ties
+])
+def test_b1_gvr_topk_on_card(dev, n, k, m, dist):
+    g = torch.Generator(device=dev).manual_seed(n)
+    b = 3
+    if dist == "ties":
+        x = torch.randint(0, 9, (b, n), generator=g, device=dev).float()
+    else:
+        x = torch.randn((b, n), generator=g, device=dev)
+    if dist == "neg_tail":
+        x[0, 1000:] = NEG
+    prev = torch.randint(-1, n, (b, m), generator=g, device=dev).int()
+    v1, i1, st1 = ops.gvr_topk(x, prev, k, max_candidates=6144)
+    v0, i0, st0 = ref.gvr_topk_ref(x, prev, k, max_candidates=6144)
+    assert torch.equal(i1, i0) and torch.equal(v1, v0)
+    assert torch.equal(st1[:, 5:], st0[:, 5:])           # n_gt, n_ge, emitted
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ps,hi,di", [
+    (torch.bfloat16, 64, 64, 128), (torch.float32, 16, 4, 32),
+    (torch.bfloat16, 8, 8, 64)])
+def test_b2_paged_indexer_scores_on_card(dev, dtype, ps, hi, di):
+    g = torch.Generator(device=dev).manual_seed(ps)
+    b, mp = 3, 12
+    p = b * mp
+    table = torch.randperm(p, generator=g, device=dev).int().reshape(b, mp)
+    table[1, 7:] = -1
+    lengths = torch.tensor([mp * ps, 7 * ps - 3, 1], dtype=torch.int32, device=dev)
+    pages = torch.randn((p, ps, di), generator=g, device=dev).to(dtype)
+    q = torch.randn((b, hi, di), generator=g, device=dev).to(dtype)
+    w = torch.rand((hi,), generator=g, device=dev)
+    s1 = ops.paged_indexer_scores(q, pages, w, table, lengths)
+    s0 = ref.paged_indexer_scores_ref(q, pages, w, table, lengths)
+    assert torch.equal(s1 < -1e38, s0 < -1e38)
+    torch.testing.assert_close(s1, s0, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kvh,h,hd,ps", [
+    (torch.bfloat16, 8, 32, 64, 64), (torch.float32, 2, 4, 32, 8),
+    (torch.bfloat16, 1, 8, 128, 16), (torch.float32, 4, 4, 64, 4)])
+def test_b3_b4_paged_attention_on_card(dev, dtype, kvh, h, hd, ps):
+    g = torch.Generator(device=dev).manual_seed(hd + h)
+    b, mp, k = 3, 40, 300
+    n = mp * ps
+    p = b * mp + 1
+    table = torch.randperm(p, generator=g, device=dev)[:b * mp].int().reshape(b, mp)
+    table[2, 20:] = -1
+    lengths = torch.tensor([n, n // 3, 20 * ps - 5], dtype=torch.int32, device=dev)
+    kp = torch.randn((p, ps, kvh, hd), generator=g, device=dev).to(dtype)
+    vp = torch.randn((p, ps, kvh, hd), generator=g, device=dev).to(dtype)
+    q = torch.randn((b, h, hd), generator=g, device=dev).to(dtype)
+    idx = torch.randint(-1, n, (b, k), generator=g, device=dev).int()
+    torch.testing.assert_close(
+        ops.paged_sparse_decode_attn(q, kp, vp, table, idx, lengths),
+        ref.paged_sparse_attn_ref(q, kp, vp, table, idx, lengths),
+        rtol=1e-4, atol=1e-4)
+    for window in (None, 37):
+        torch.testing.assert_close(
+            ops.paged_dense_decode_attn(q, kp, vp, table, lengths, window=window),
+            ref.paged_dense_attn_ref(q, kp, vp, table, lengths, window=window),
+            rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_wrappers_count_launches_and_raise_on_bad_input(dev):
+    ops.reset_launch_counts()
+    x = torch.randn((2, 512), device=dev)
+    prev = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    ops.gvr_topk(x, prev, 16)
+    assert ops.launch_counts()["gvr_topk"] == 1
+    with pytest.raises(ValueError):
+        ops.gvr_topk(x.double(), prev, 16)                 # dtype
+    with pytest.raises(ValueError):
+        ops.gvr_topk(x, prev, 1024)                        # k > n
+    with pytest.raises(ValueError):
+        ops.gvr_topk(x, prev.cpu(), 16)                    # mixed devices
+    assert ops.launch_counts()["gvr_topk"] == 1

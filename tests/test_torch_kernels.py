@@ -1,0 +1,192 @@
+"""The port's kernel wrappers B1–B4 on CPU tensors (their plain versions)
+against the JAX package's Pallas kernels run in interpret mode, and B3
+against the served XLA form. Inputs are made with numpy from seeds.
+
+Tolerances: Top-K indices are exact. Score values are exact on the
+integer-valued inputs (every product and sum is exact in float32) and
+within 1e-6 relative otherwise (the two frameworks sum the dot products in
+different orders). Attention outputs are float32 softmax averages over the
+same rows summed in different orders: rtol = atol = 1e-5.
+
+The Hopper kernels themselves are held against these plain versions on
+the card by `tests/test_torch_cuda.py` and `python3 chip_smoke.py`.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.sparse.dsa import dsa_sparse_attention_paged
+from repro_torch.kernels import ops
+
+RNG = np.random.default_rng(5)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _table(b, mp, p, holes=()):
+    table = np.stack([RNG.choice(p, mp, replace=False) for _ in range(b)]).astype(np.int32)
+    for r, c in holes:
+        table[r, c] = -1
+    return table
+
+
+# ---------------------------------------------------------------- B1 ------
+
+@pytest.mark.parametrize("dist", ["normal", "ties", "neg_tail"])
+@pytest.mark.parametrize("n,k", [(1024, 32), (4096, 256)])
+def test_b1_gvr_topk_matches_pallas(dist, n, k):
+    b = 2
+    if dist == "ties":
+        x = RNG.integers(0, 7, size=(b, n)).astype(np.float32)
+    else:
+        x = RNG.normal(size=(b, n)).astype(np.float32)
+    if dist == "neg_tail":                  # length < K: ties at the sentinel
+        x[0, k // 2:] = -3.4028234663852886e38
+    prev = np.stack([RNG.choice(n, k, replace=False) for _ in range(b)]).astype(np.int32)
+    prev[1, :5] = -1
+    jv, ji, js = jops.gvr_topk(jnp.asarray(x), jnp.asarray(prev), k)
+    tv, ti, ts = ops.gvr_topk(_t(x), _t(prev), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    # threshold, n_gt, n_ge: exact in both forms
+    np.testing.assert_array_equal(ts[:, 4:7].numpy(), np.asarray(js)[:, 4:7])
+    assert ops.gvr_topk.launches == 0       # the CPU path launches nothing
+
+
+def test_b1_fewer_predictions_than_k():
+    b, n, k = 2, 2048, 128
+    x = RNG.normal(size=(b, n)).astype(np.float32)
+    prev = RNG.integers(0, n, (b, 20)).astype(np.int32)
+    jv, ji, _ = jops.gvr_topk(jnp.asarray(x), jnp.asarray(prev), k)
+    tv, ti, _ = ops.gvr_topk(_t(x), _t(prev), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+# ---------------------------------------------------------------- B2 ------
+
+@pytest.mark.parametrize("integer_valued", [True, False])
+@pytest.mark.parametrize("page_size", [4, 8])
+def test_b2_paged_indexer_topk_matches_pallas(page_size, integer_valued):
+    p, b, mp, h, d, k = 10, 2, 8, 4, 16, 12
+    n = mp * page_size
+    if integer_valued:
+        pages = RNG.integers(-2, 3, (p, page_size, d)).astype(np.float32)
+        q = RNG.integers(-2, 3, (b, h, d)).astype(np.float32)
+        w = np.full((h,), 0.25, np.float32)
+    else:
+        pages = RNG.normal(size=(p, page_size, d)).astype(np.float32)
+        q = RNG.normal(size=(b, h, d)).astype(np.float32)
+        w = np.abs(RNG.normal(size=(h,))).astype(np.float32)
+    table = _table(b, mp, p, holes=[(1, mp - 1)])
+    lengths = np.array([n, n - page_size - 3], np.int32)
+    prev = np.stack([RNG.choice(n, k, replace=False) for _ in range(b)]).astype(np.int32)
+    jv, ji, _ = jops.paged_indexer_topk(jnp.asarray(q), jnp.asarray(pages),
+                                        jnp.asarray(w), jnp.asarray(table),
+                                        jnp.asarray(prev), k,
+                                        lengths=jnp.asarray(lengths))
+    tv, ti, _ = ops.paged_indexer_topk(_t(q), _t(pages), _t(w), _t(table),
+                                       _t(prev), k, lengths=_t(lengths))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    if integer_valued:
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    else:
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-6)
+
+
+def test_b2_unmapped_and_out_of_length_positions_score_neg():
+    p, ps, b, mp, h, d = 4, 4, 1, 4, 2, 8
+    pages = RNG.normal(size=(p, ps, d)).astype(np.float32)
+    pages[0] = 100.0                        # what a clipped -1 would read
+    table = np.array([[1, -1, 2, 3]], np.int32)
+    q = np.abs(RNG.normal(size=(b, h, d))).astype(np.float32)
+    s = ops.paged_indexer_scores(_t(q), _t(pages), _t(np.ones(h, np.float32)),
+                                 _t(table), _t(np.array([14], np.int32)))
+    neg = s.numpy() < -1e38
+    assert neg[0, 4:8].all() and neg[0, 14:].all() and not neg[0, :4].any()
+
+
+# ------------------------------------------------------------ B3 / B4 -----
+
+def _pools(p, ps, kvh, d):
+    return (RNG.normal(size=(p, ps, kvh, d)).astype(np.float32),
+            RNG.normal(size=(p, ps, kvh, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("kvh,h", [(2, 8), (4, 4)])
+def test_b3_paged_sparse_attn_matches_pallas(kvh, h):
+    p, ps, b, mp, d, k = 9, 4, 2, 5, 16, 12
+    n = mp * ps
+    kp, vp = _pools(p, ps, kvh, d)
+    table = _table(b, mp, p, holes=[(0, 2)])
+    idx = np.stack([RNG.choice(n, k, replace=False) for _ in range(b)]).astype(np.int32)
+    idx[1, 7:] = -1
+    q = RNG.normal(size=(b, h, d)).astype(np.float32)
+    lengths = np.full((b,), n, np.int32)
+    want = jops.paged_sparse_decode_attn(jnp.asarray(q), jnp.asarray(kp),
+                                         jnp.asarray(vp), jnp.asarray(table),
+                                         jnp.asarray(idx))
+    got = ops.paged_sparse_decode_attn(_t(q), _t(kp), _t(vp), _t(table),
+                                       _t(idx), _t(lengths))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_b3_masks_idx_beyond_length_like_the_served_path():
+    """Whenever length < K the Top-K holds NEG-scored positions at or past
+    the length; the served XLA path masks them (the Pallas kernel does
+    not). B3 must agree with the served path on every slot that has a
+    valid entry."""
+    p, ps, b, mp, kvh, h, d, k = 8, 4, 3, 6, 2, 4, 8, 16
+    n = mp * ps
+    kp, vp = _pools(p, ps, kvh, d)
+    table = _table(b, mp, p)
+    lengths = np.array([5, 13, n], np.int32)
+    idx = np.stack([np.sort(RNG.choice(n, k, replace=False)) for _ in range(b)]).astype(np.int32)
+    idx[0, :3] = [0, 2, 4]                   # ensure valid entries in slot 0
+    q = RNG.normal(size=(b, h, d)).astype(np.float32)
+    want = dsa_sparse_attention_paged(jnp.asarray(q), jnp.asarray(kp),
+                                      jnp.asarray(vp), jnp.asarray(table),
+                                      jnp.asarray(idx), jnp.asarray(lengths),
+                                      scale=d ** -0.5)
+    got = ops.paged_sparse_decode_attn(_t(q), _t(kp), _t(vp), _t(table),
+                                       _t(idx), _t(lengths))
+    assert ((idx >= lengths[:, None]).sum(-1) > 0).any()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_b3_all_masked_slot_gives_zero():
+    p, ps, kvh, h, d = 3, 4, 1, 2, 8
+    kp, vp = _pools(p, ps, kvh, d)
+    out = ops.paged_sparse_decode_attn(
+        _t(RNG.normal(size=(1, h, d)).astype(np.float32)), _t(kp), _t(vp),
+        _t(np.array([[0, 1]], np.int32)), _t(np.array([[-1, 6, 7]], np.int32)),
+        _t(np.array([3], np.int32)))
+    assert np.array_equal(out.numpy(), np.zeros((1, h, d), np.float32))
+
+
+@pytest.mark.parametrize("window", [None, 5])
+@pytest.mark.parametrize("kvh,h", [(2, 8), (4, 4)])
+def test_b4_paged_dense_attn_matches_pallas(kvh, h, window):
+    p, ps, b, mp, d = 10, 4, 3, 4, 16
+    kp, vp = _pools(p, ps, kvh, d)
+    lengths = np.array([16, 9, 1], np.int32)
+    table = _table(b, mp, p)
+    table[1, 3] = -1                          # unmapped beyond the extent
+    table[2, 1:] = -1
+    q = RNG.normal(size=(b, h, d)).astype(np.float32)
+    want = jops.paged_dense_decode_attn(jnp.asarray(q), jnp.asarray(kp),
+                                        jnp.asarray(vp), jnp.asarray(table),
+                                        jnp.asarray(lengths), window=window)
+    got = ops.paged_dense_decode_attn(_t(q), _t(kp), _t(vp), _t(table),
+                                      _t(lengths), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_wrappers_reject_mixed_devices():
+    x = torch.zeros((1, 8))
+    with pytest.raises(ValueError):
+        ops._on_cpu(x, torch.zeros((1, 2), device="meta"))
