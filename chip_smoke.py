@@ -4,21 +4,36 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no exception is swallowed):
-  1. build   — compile kernels B1–B4 from src/repro_torch/kernels/csrc with
-               nvcc for sm_90a (one nvcc per source, all started together);
-  2. kernels — hold each kernel against its plain PyTorch version on the
-               card at the main path's shapes (B=4, N=8192, K=2048,
-               llama3.2-1b widths), edge cases included, and time kernel,
-               plain version and (B1) the library call with CUDA events;
-  3. main    — serve requests through `DecodeEngine` (paged, fused, greedy)
-               at the full width of llama3.2-1b, max_len=8192, 4 slots;
-               the launch counts are zeroed just before and read just after;
-  4. step    — one `serve_step_paged` from the same state on the card and
-               through the plain path on the CPU: logits and per-layer Top-K;
-  5. dense   — a second engine at max_len=4096 <= dsa.min_n, the dense
-               pre-DSA fallback (kernel B4), counted the same way;
-  6. summary — the `kernels` JSON line, the card's name and power limit,
-               and the contract line `{"ok": true, "device": {...}}` last.
+  1. build        — compile kernels B1–B7 and B10 from
+                    src/repro_torch/kernels/csrc with nvcc for sm_90a (one
+                    nvcc per source, all started together);
+  2. kernels      — hold each kernel against its plain PyTorch version on
+                    the card at the main path's shapes (B=4, N=8192,
+                    K=2048, llama3.2-1b widths), edge cases included; B5
+                    and B6 against B2 and B3 bit for bit on the same rows;
+                    time kernel, plain version and (B1, B7) the library call
+                    with CUDA events;
+  3. main         — serve requests through `DecodeEngine` (paged, fused,
+                    greedy) at the full width of llama3.2-1b, max_len=8192,
+                    4 slots; every path below zeroes the launch counts just
+                    before it and reads them just after;
+  4. dense-layout — the same trace through `DecodeEngine(kv_layout="dense")`
+                    (kernels B5, B1, B6): the same tokens as [main];
+  5. step         — one `serve_step_paged` from one state on the card and
+                    through the plain path on the CPU: logits, per-layer
+                    Top-K;
+  6. layouts      — one B=4 DSA step from one state in four forms (paged
+                    fused, paged gather, paged page-granular, dense): fused,
+                    gather and dense bit-identical; the dense form also
+                    against the CPU plain path;
+  7. gather, page — the paged engine with `paged_attn="gather"` (B7) and
+                    with `gather_granularity="page"` (B10) on a short trace,
+                    against a fused run of it;
+  8. dense        — engines at max_len=4096 <= dsa.min_n, the pre-DSA
+                    fallback: paged (kernel B4) and the dense layout (plain
+                    PyTorch attention);
+  9. summary      — the `kernels` JSON line, the card's name and power
+                    limit, and the contract line `{"ok": true, ...}` last.
 
 Weights are random (seeded), so nothing is downloaded. The script needs the
 repository's `src/` beside it and a CUDA device; without either it exits
@@ -40,6 +55,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
+STEP_LENGTHS = [5000, 2300, 700, 8000]   # the B=4 steps of [step], [layouts]
 
 
 def log(msg: str) -> None:
@@ -124,6 +140,7 @@ def phase_kernels(cfg, flush):
     from repro_torch.kernels import ops, ref
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
+    from repro_torch.sparse import dsa
     b, n, k, ps = 4, 8192, cfg.dsa.k, 64
     mp = n // ps
     cmax = cfg.dsa.max_candidates
@@ -238,6 +255,72 @@ def phase_kernels(cfg, flush):
         fail(f"B4: max |err| {e4} beyond atol=rtol=1e-4 (same reasoning as B3)")
     log(f"[kernels] B4 allclose (window None and 300), max|err| {e4:.3e}")
 
+    # ---- B5: the same keys in a contiguous cache ---------------------------
+    # pages past a slot's extent are unmapped; their rows lie beyond its
+    # length, so what stands there in the contiguous cache is masked
+    flat_table = table.clamp(min=0).long()
+    kc5 = inp["idx_pages"][flat_table].reshape(b, n, -1).contiguous()
+    s5 = ops.indexer_scores(inp["qi"], kc5, inp["w"], ln)
+    s5r = ref.indexer_scores_ref(inp["qi"], kc5, inp["w"], ln)
+    torch.cuda.synchronize()
+    if not torch.equal(s5, s_ker):
+        fail("B5: score row differs from B2's on the same keys")
+    e5 = float((s5 - s5r)[live].abs().max())
+    if not torch.equal(s5r > -1e38, live) or e5 > 1e-4 * s_scale:
+        fail(f"B5 scoring: max |err| {e5} > 1e-4 * {s_scale} (B2's reasoning)")
+    for pr, tag in ((prev, "main"), (few, "M<K"), (oob, "prev>=N")):
+        v5, i5, _ = ops.indexer_topk(inp["qi"], kc5, inp["w"], pr, k,
+                                     lengths=ln, max_candidates=cmax)
+        v5r, i5r, _ = ref.gvr_topk_ref(s5, pr, k, max_candidates=cmax)
+        torch.cuda.synchronize()
+        if not (torch.equal(i5, i5r) and torch.equal(v5, v5r)):
+            fail(f"B5 {tag}: selection differs from the plain Top-K of its row")
+        if tag == "main" and not (torch.equal(i5, i2) and torch.equal(v5, v2)):
+            fail("B5: selection differs from B2's on the same keys")
+    log(f"[kernels] B5 score row == B2's bit for bit, max|err| {e5:.3e} vs "
+        f"plain; selection exact (warm, random, -1, even, M<K, prev>=N) and "
+        f"== B2's")
+
+    # ---- B6: B3's rows in contiguous caches ------------------------------
+    kc6 = inp["k_pages"][flat_table].reshape(b, n, *inp["k_pages"].shape[2:]).contiguous()
+    vc6 = inp["v_pages"][flat_table].reshape(b, n, *inp["v_pages"].shape[2:]).contiguous()
+    args6 = (inp["q"], kc6, vc6, idx, ln)
+    o6 = ops.sparse_decode_attn(*args6)
+    o6r = ref.sparse_attn_ref(*args6)
+    torch.cuda.synchronize()
+    if not torch.equal(o6, o3):
+        fail("B6: output differs from B3's on the same rows")
+    e6 = float((o6 - o6r).abs().max())
+    if not torch.allclose(o6, o6r, atol=1e-4, rtol=1e-4):
+        fail(f"B6: max |err| {e6} beyond atol=rtol=1e-4 (B3's reasoning)")
+    log(f"[kernels] B6 == B3 bit for bit; allclose, max|err| {e6:.3e}")
+
+    # ---- B7: the logical views, unmapped pages zero ------------------------
+    for name, pool in (("K", inp["k_pages"]), ("indexer-K", inp["idx_pages"])):
+        g7 = ops.paged_gather(pool, table)
+        g7r = ref.paged_gather_ref(pool, table)
+        torch.cuda.synchronize()
+        if not torch.equal(g7, g7r):
+            fail(f"B7 {name} view differs from the plain gather")
+    unmapped = int((table < 0).sum())
+    log(f"[kernels] B7 exact (K and indexer-K views, {unmapped} unmapped "
+        f"pages zero)")
+
+    # ---- B10: B3's entries (-1 and duplicates) at page granularity -------
+    o10 = ops.paged_sparse_decode_attn_pg(*args3)
+    o10r = ref.paged_sparse_attn_pg_ref(*args3)
+    torch.cuda.synchronize()
+    # tolerance: as B3; the kernel also sums in page order, not Top-K order
+    e10 = float((o10 - o10r).abs().max())
+    if not torch.allclose(o10, o10r, atol=1e-4, rtol=1e-4):
+        fail(f"B10: max |err| {e10} beyond atol=rtol=1e-4")
+    valid10 = (idx >= 0) & (idx < ln[:, None])
+    pages10 = [len(set((row[m] // ps).tolist())) for row, m in zip(idx, valid10)]
+    stats10 = dsa.page_gather_stats(idx, page_size=ps, num_logical_pages=mp)
+    log(f"[kernels] B10 allclose, max|err| {e10:.3e}; distinct pages with a "
+        f"valid entry per slot {pages10} of {mp} (page_gather_stats over all "
+        f"entries {stats10.tolist()}), K={k}")
+
     # ---- times ------------------------------------------------------------
     hi, di = cfg.dsa.indexer_heads, cfg.dsa.indexer_dim
     kvh, hd, h = cfg.n_kv_heads, cfg.hd, cfg.n_heads
@@ -252,6 +335,16 @@ def phase_kernels(cfg, flush):
                time_ms(lambda: ref.paged_sparse_attn_ref(*args3), flush), None),
         "B4": (time_ms(lambda: ops.paged_dense_decode_attn(*args4), flush),
                time_ms(lambda: ref.paged_dense_attn_ref(*args4), flush), None),
+        "B5": (time_ms(lambda: ops.indexer_topk(inp["qi"], kc5, inp["w"], prev, k, lengths=ln, max_candidates=cmax), flush),
+               time_ms(lambda: ref.gvr_topk_ref(ref.indexer_scores_ref(inp["qi"], kc5, inp["w"], ln), prev, k, max_candidates=cmax), flush, iters=5),
+               None),
+        "B6": (time_ms(lambda: ops.sparse_decode_attn(*args6), flush),
+               time_ms(lambda: ref.sparse_attn_ref(*args6), flush), None),
+        "B7": (time_ms(lambda: ops.paged_gather(inp["k_pages"], table), flush),
+               time_ms(lambda: ref.paged_gather_ref(inp["k_pages"], table), flush),
+               time_ms(lambda: inp["k_pages"].index_select(0, flat_table.flatten()), flush)),
+        "B10": (time_ms(lambda: ops.paged_sparse_decode_attn_pg(*args3), flush),
+                time_ms(lambda: ref.paged_sparse_attn_pg_ref(*args3), flush), None),
     }
     # bounds from this run's inputs: each input read once, each output once
     pages_read = sum(-(-L // ps) for L in lengths)
@@ -269,6 +362,22 @@ def phase_kernels(cfg, flush):
     results["B2"] = dict(err=s_err, bound=bound_ms(b2_bytes, b2_flops))
     results["B3"] = dict(err=e3, bound=bound_ms(b3_bytes, 4 * h * hd * rows3))
     results["B4"] = dict(err=e4, bound=bound_ms(b4_bytes, 4 * h * hd * b4_rows))
+    # B5 reads each slot's keys up to its length, as B2 does
+    b5_bytes = b2_bytes - pages_read * ps * di * 2 + sum(lengths) * di * 2
+    results["B5"] = dict(err=e5, bound=bound_ms(b5_bytes, b2_flops))
+    results["B6"] = dict(err=e6, bound=bound_ms(b3_bytes - table.numel() * 4,
+                                                4 * h * hd * rows3))
+    page_bytes = ps * kvh * hd * 2
+    b7_bytes = (int((table >= 0).sum()) * page_bytes + table.numel() * 4
+                + b * mp * page_bytes)
+    results["B7"] = dict(err=0.0, bound=bound_ms(b7_bytes, 0))
+    # B10 computes B3's function (attention over the K selected rows), so
+    # its bound is B3's; reading whole touched pages is this design's cost
+    results["B10"] = dict(err=e10, bound=bound_ms(b3_bytes, 4 * h * hd * rows3))
+    rows10 = sum(pages10) * ps
+    log(f"[kernels] B10 design reads every row of its touched pages: {rows10} "
+        f"rows ({rows10 * kvh * hd * 2 * 2 / 1e6:.3f} MB of K/V) against the "
+        f"{rows3} selected ({rows3 * kvh * hd * 2 * 2 / 1e6:.3f} MB)")
     for key, (ms, plain, lib) in t.items():
         results[key].update(ms=ms, plain_ms=plain, library_ms=lib)
         log(f"[kernels] {key}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
@@ -277,13 +386,18 @@ def phase_kernels(cfg, flush):
     return results
 
 
-def _engine_run(model, params, *, max_len, specs, page_size=64):
+def _engine_run(model, params, *, max_len, specs, **layout):
+    """Serve `specs` [(prompt, max_new, arrival)] through a fresh 4-slot
+    engine of the given layout, with the launch counts zeroed just before
+    and read just after."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serve import DecodeEngine, Request
+    layout = layout or dict(kv_layout="paged", paged_attn="fused")
+    if layout["kv_layout"] == "paged":
+        layout.setdefault("page_size", 64)
     eng = DecodeEngine(model, params, num_slots=4, max_len=max_len,
-                       page_size=page_size, prefill_chunk=64,
-                       kv_layout="paged", paged_attn="fused")
+                       prefill_chunk=64, **layout)
     reqs = [Request(uid=i, prompt=p, max_new_tokens=m, arrival=a)
             for i, (p, m, a) in enumerate(specs)]
     ops.reset_launch_counts()
@@ -304,17 +418,37 @@ def _paths(eng, reqs):
             for r in reqs}
 
 
-def phase_main(model, params, rng):
-    """The main path: paged, fused, greedy engine at full width."""
-    vocab = model.cfg.vocab
+def main_specs(rng, vocab):
+    """The main trace: five requests, the last sharing a 192-token prefix
+    with the third."""
     shared = rng.integers(0, vocab, (192,))
-    specs = [
+    return [
         (rng.integers(0, vocab, (2300,)), 16, 0),      # > K: GVR's buffer path
         (rng.integers(0, vocab, (40,)), 16, 0),
         (np.concatenate([shared, rng.integers(0, vocab, (20,))]), 16, 0),
         (rng.integers(0, vocab, (300,)), 16, 1),
         (np.concatenate([shared, rng.integers(0, vocab, (9,))]), 16, 12),  # prefix reuse
     ]
+
+
+def _check_paths(tag, eng, reqs):
+    """Every request's selector path must be R (cold) then G only."""
+    paths = _paths(eng, reqs)
+    for r in reqs:
+        p = paths[r.uid]
+        if not (p[0] == "R" and set(p[1:]) <= {"G"} and "G" in p):
+            fail(f"{tag} request {r.uid}: cold→warm dispatch not R then G: {p}")
+    return paths
+
+
+def _need(tag, counts, names):
+    for name in names:
+        if counts[name] == 0:
+            fail(f"{tag} never launched {name}")
+
+
+def phase_main(model, params, specs):
+    """The main path: paged, fused, greedy engine at full width."""
     eng, reqs, rep, counts = _engine_run(model, params, max_len=8192, specs=specs)
     paths = _paths(eng, reqs)
     log(f"[main] llama3.2-1b full width, max_len 8192, 4 slots, "
@@ -328,13 +462,35 @@ def phase_main(model, params, rng):
         f"{rep.wall_s / max(steps, 1) * 1e3:.3f} ms host wall per step")
     log(f"[main] selector path per request (R radix/cold, G gvr): {paths}")
     log(f"[main] launches: {counts}")
-    for name in ("gvr_topk", "paged_indexer_scores", "paged_sparse_decode_attn"):
-        if counts[name] == 0:
-            fail(f"main path never launched {name}")
-    for r in reqs:
-        p = paths[r.uid]
-        if not (p[0] == "R" and set(p[1:]) <= {"G"} and "G" in p):
-            fail(f"request {r.uid}: cold→warm dispatch not R then G: {p}")
+    _need("main path", counts, ("gvr_topk", "paged_indexer_scores",
+                                "paged_sparse_decode_attn"))
+    _check_paths("[main]", eng, reqs)
+    return counts, [list(r.generated) for r in reqs]
+
+
+def phase_dense_layout(model, params, specs, main_tokens):
+    """The main trace through the dense KV layout: B5 + B1 select, B6
+    attends. The tokens must be [main]'s; the dense layout has no prefix
+    cache, so request 4 prefills its shared prefix (the method logs may
+    differ there, the reference pins only tokens)."""
+    eng, reqs, rep, counts = _engine_run(model, params, max_len=8192,
+                                         specs=specs, kv_layout="dense")
+    steps = counts["gvr_topk"] // model.cfg.n_layers
+    paths = _check_paths("[dense-layout]", eng, reqs)
+    log(f"[dense-layout] llama3.2-1b full width, max_len 8192, 4 slots: "
+        f"{rep.decoded_tokens} decoded + {rep.prefill_tokens} prefill tokens "
+        f"in {rep.ticks} ticks, {rep.wall_s:.3f} s wall, "
+        f"{rep.tokens_per_s:.2f} decoded tokens/s, {steps} model steps, "
+        f"{rep.wall_s / max(steps, 1) * 1e3:.3f} ms host wall per step, "
+        f"prefix_hit_tokens {rep.prefix_hit_tokens}")
+    log(f"[dense-layout] paths {paths}; launches: {counts}")
+    _need("dense layout", counts, ("indexer_scores", "gvr_topk",
+                                   "sparse_decode_attn"))
+    got = [list(r.generated) for r in reqs]
+    if got != main_tokens:
+        bad = [i for i, (a, c) in enumerate(zip(got, main_tokens)) if a != c]
+        fail(f"[dense-layout] tokens differ from [main]'s for requests {bad}")
+    log("[dense-layout] tokens == [main]'s for every request")
     return counts
 
 
@@ -383,20 +539,12 @@ def _profile_step(params, st, tokens, cfg):
         f"per step (ms): " + ", ".join(f"{k[:48]}={v:.4f}" for k, v in top))
 
 
-def phase_step(model, params, rng):
-    """One serve_step_paged on the card and through the plain path on the
-    CPU, from the same state."""
+def _random_step_state(model, g, dev, lengths, b=4, max_len=8192, ps=64):
+    """A paged DSA state with random pools, a shuffled full block table,
+    the given lengths and random (partly cold) feedback."""
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.models import transformer
-    from repro_torch.models.layers import rms_norm
-    from repro_torch.sparse import dsa
     cfg = model.cfg
-    dev = torch.device("cuda")
-    b, max_len, ps = 4, 8192, 64
     mp = max_len // ps
-    g = torch.Generator(device=dev).manual_seed(99)
-    lengths = [5000, 2300, 700, 8000]
     st = model.init_paged_decode_state(b, max_len, num_pages=b * mp, page_size=ps)
     for key in ("k_pages", "v_pages", "idx_k_pages"):
         st[key].copy_(torch.randn(st[key].shape, generator=g, device=dev))
@@ -409,10 +557,26 @@ def phase_step(model, params, rng):
         for L in lengths], dim=1).int()
     st["topk_valid"] = torch.tensor([True, True, False, True], device=dev
                                     ).expand(cfg.n_layers, b).contiguous()
+    return st
+
+
+def phase_step(model, params, cpu_params, rng):
+    """One serve_step_paged on the card and through the plain path on the
+    CPU, from the same state."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.sparse import dsa
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    b = 4
+    g = torch.Generator(device=dev).manual_seed(99)
+    st = _random_step_state(model, g, dev, STEP_LENGTHS)
+    kk = st["prev_topk"].shape[-1]
     tokens = torch.tensor(rng.integers(0, cfg.vocab, (b,)), dtype=torch.int32,
                           device=dev)
     cpu_state = {k: v.cpu().clone() for k, v in st.items()}
-    cpu_params = _to_cpu(params)
     logits_gpu, new_gpu = transformer.serve_step_paged(params, st, tokens, cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -422,21 +586,9 @@ def phase_step(model, params, rng):
     lg, lc = logits_gpu.cpu(), logits_cpu
     if not (torch.isfinite(lg).all() and lg.shape == (b, cfg.vocab)):
         fail("step: logits not finite or of the wrong shape")
-    # tolerance: the two devices run the same bf16 model with different
-    # matmul kernels (cuBLAS vs oneDNN, both f32-accumulating, rounding to
-    # bf16 at every layer boundary): ~2^-8 relative per rounding, compounded
-    # over 16 layers; relative L2 error of the logits <= 5e-2
-    rel = float((lg - lc).norm() / lc.norm())
-    argmax_agree = float((lg.argmax(-1) == lc.argmax(-1)).float().mean())
-    if rel > 5e-2:
-        fail(f"step: logits relative L2 error {rel} > 5e-2")
-    agree = []
+    rel, argmax_agree = _logits_vs("step", lg, lc)
+    agree = _topk_agreement(new_gpu["prev_topk"], new_cpu["prev_topk"])
     flips = []
-    for layer in range(cfg.n_layers):
-        a = new_gpu["prev_topk"][layer].cpu()
-        c = new_cpu["prev_topk"][layer]
-        agree.append(round(sum(len(set(x.tolist()) & set(y.tolist()))
-                               for x, y in zip(a, c)) / a.numel(), 5))
     # near-tie flips of layer 0 (its input, the embedding, is identical):
     # each entry in one Top-K but not the other, with its plain score minus
     # the plain K-th score
@@ -463,15 +615,144 @@ def phase_step(model, params, rng):
         fail(f"step: layer-0 Top-K agreement {agree[0]} < 0.99")
 
 
+def _logits_vs(tag, lg, lc):
+    """Relative L2 error and argmax agreement of two logits tensors.
+    Tolerance: the same bf16 model run two ways that round differently
+    (other matmul kernels or another order of the attention sums, rounding
+    to bf16 at every layer boundary): ~2^-8 relative per rounding,
+    compounded over 16 layers; relative L2 error of the logits <= 5e-2."""
+    import torch
+    if not (torch.isfinite(lg).all() and lg.shape == lc.shape):
+        fail(f"{tag}: logits not finite or of the wrong shape")
+    rel = float((lg.float() - lc.float()).norm() / lc.float().norm())
+    if rel > 5e-2:
+        fail(f"{tag}: logits relative L2 error {rel} > 5e-2")
+    return rel, float((lg.argmax(-1) == lc.argmax(-1)).float().mean())
+
+
+def _topk_agreement(a, c):
+    """Per-layer share of Top-K entries two (L, B, K) selections share."""
+    a, c = a.cpu(), c.cpu()
+    return [round(sum(len(set(x.tolist()) & set(y.tolist()))
+                      for x, y in zip(a[i], c[i])) / a[i].numel(), 5)
+            for i in range(a.shape[0])]
+
+
+def phase_layouts(model, params, cpu_params, rng):
+    """One B=4 DSA step from one state in four forms: paged fused, paged
+    gather (B7 views, then B5/B1/B6), paged page-granular (B10) and the
+    dense layout holding the same rows. Fused, gather and dense must agree
+    bit for bit in logits and every layer's Top-K."""
+    import torch
+    from repro_torch.models import transformer
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    b, max_len = 4, 8192
+    g = torch.Generator(device=dev).manual_seed(7)
+    st = _random_step_state(model, g, dev, STEP_LENGTHS)
+    table = st["page_table"].long()
+    dense = model.init_decode_state(b, max_len)
+    for src, dst in (("k_pages", "k"), ("v_pages", "v"), ("idx_k_pages", "idx_k")):
+        for i in range(cfg.n_layers):
+            dense[dst][i].copy_(st[src][i][table].reshape(dense[dst][i].shape))
+    for key in ("length", "prev_topk", "topk_valid", "sel_gvr"):
+        dense[key] = st[key].clone()
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, (b,)), dtype=torch.int32,
+                          device=dev)
+    cpu_dense = {k: v.cpu().clone() for k, v in dense.items()}
+
+    def clone(x):
+        return {k: v.clone() for k, v in x.items()}
+
+    out = {}
+    for form, kw in (("fused", dict(paged_attn="fused")),
+                     ("gather", dict(paged_attn="gather")),
+                     ("page", dict(gather_granularity="page"))):
+        out[form] = transformer.serve_step_paged(params, clone(st), tokens, cfg, **kw)
+    out["dense"] = transformer.serve_step(params, dense, tokens, cfg)
+    torch.cuda.synchronize()
+    lf, sf = out["fused"]
+    for form in ("gather", "dense"):
+        lg, sg = out[form]
+        if not torch.equal(lg, lf):
+            fail(f"[layouts] {form} logits differ from fused (max |diff| "
+                 f"{float((lg - lf).abs().max())})")
+        bad = [i for i in range(cfg.n_layers)
+               if not torch.equal(sg["prev_topk"][i], sf["prev_topk"][i])]
+        if bad:
+            fail(f"[layouts] {form} Top-K differs from fused at layers {bad}")
+    lp, sp = out["page"]
+    rel_p, arg_p = _logits_vs("[layouts] page vs token", lp, lf)
+    agree_p = _topk_agreement(sp["prev_topk"], sf["prev_topk"])
+    if agree_p[0] != 1.0 or min(agree_p) < 0.99:
+        fail(f"[layouts] page-granular Top-K agreement {agree_p}")
+    log(f"[layouts] B=4 DSA step, lengths {STEP_LENGTHS}: fused == gather == "
+        f"dense bit for bit (logits and all {cfg.n_layers} layers' Top-K); "
+        f"page vs token logits rel L2 {rel_p:.3e}, argmax agreement {arg_p:.2f}, "
+        f"per-layer Top-K agreement {agree_p}")
+    t0 = time.perf_counter()
+    lc, sc = transformer.serve_step(cpu_params, cpu_dense, tokens.cpu(), cfg)
+    cpu_s = time.perf_counter() - t0
+    rel, arg = _logits_vs("[layouts] dense card vs CPU", out["dense"][0].cpu(), lc)
+    agree = _topk_agreement(out["dense"][1]["prev_topk"], sc["prev_topk"])
+    if agree[0] < 0.99:
+        fail(f"[layouts] dense layer-0 Top-K agreement card vs CPU {agree[0]} < 0.99")
+    log(f"[layouts] dense card vs CPU plain path: logits rel L2 {rel:.3e} "
+        f"(argmax agreement {arg:.2f}); CPU plain step {cpu_s:.3f} s; "
+        f"per-layer Top-K agreement {agree}")
+
+
+def phase_gather_page(model, params, rng):
+    """The paged engine with the gather oracle (B7) and with page-granular
+    attention (B10) on a short trace, against a fused run of it."""
+    vocab = model.cfg.vocab
+    specs = [(rng.integers(0, vocab, (n,)), 8, a)
+             for n, a in ((200, 0), (80, 0), (40, 2))]
+    runs = {}
+    for form, kw in (("fused", dict(paged_attn="fused")),
+                     ("gather", dict(paged_attn="gather")),
+                     ("page", dict(gather_granularity="page"))):
+        eng, reqs, rep, counts = _engine_run(model, params, max_len=8192,
+                                             specs=specs, kv_layout="paged", **kw)
+        _check_paths(f"[{form}]", eng, reqs)
+        runs[form] = ([list(r.generated) for r in reqs], counts)
+        log(f"[{form}] short trace (prompts 200/80/40, 8 new each): "
+            f"{rep.decoded_tokens} decoded tokens in {rep.ticks} ticks, "
+            f"{rep.wall_s:.3f} s wall; launches: {counts}")
+    _need("gather oracle", runs["gather"][1], ("paged_gather", "indexer_scores",
+                                              "sparse_decode_attn"))
+    _need("page-granular path", runs["page"][1], ("paged_sparse_decode_attn_pg",))
+    if runs["gather"][0] != runs["fused"][0]:
+        fail("[gather] tokens differ from the fused run of the same trace")
+    same = sum(a == c for ra, rc in zip(runs["page"][0], runs["fused"][0])
+               for a, c in zip(ra, rc))
+    total = sum(len(r) for r in runs["fused"][0])
+    log(f"[gather] tokens == fused; [page] token agreement with fused "
+        f"{same}/{total}")
+    return runs["gather"][1], runs["page"][1]
+
+
 def phase_dense(model, params, rng):
+    """The pre-DSA fallback (max_len 4096 <= min_n): the paged engine
+    (kernel B4), then a short run of the dense layout (plain attention)."""
     vocab = model.cfg.vocab
     specs = [(rng.integers(0, vocab, (n,)), 12, 0) for n in (500, 64, 1200, 250)]
     eng, reqs, rep, counts = _engine_run(model, params, max_len=4096, specs=specs)
     log(f"[dense] max_len 4096 <= min_n: {rep.decoded_tokens} decoded tokens "
         f"in {rep.ticks} ticks, {rep.wall_s:.3f} s; paths "
         f"{set(_paths(eng, reqs).values())}; launches: {counts}")
-    if counts["paged_dense_decode_attn"] == 0:
-        fail("dense fallback never launched paged_dense_decode_attn")
+    _need("dense fallback", counts, ("paged_dense_decode_attn",))
+    eng2, reqs2, rep2, counts2 = _engine_run(model, params, max_len=4096,
+                                             specs=specs[1::2], kv_layout="dense")
+    same = sum(a == c for r2, r in zip(reqs2, reqs[1::2])
+               for a, c in zip(r2.generated, r.generated))
+    log(f"[dense] dense layout, max_len 4096, the 64- and 250-token requests: "
+        f"{rep2.decoded_tokens} decoded tokens in {rep2.ticks} ticks, "
+        f"{rep2.wall_s:.3f} s; paths {set(_paths(eng2, reqs2).values())}; "
+        f"token agreement with the paged run {same}/"
+        f"{sum(len(r.generated) for r in reqs2)}; launches: {counts2}")
+    if any(set(p) != {"D"} for p in _paths(eng2, reqs2).values()):
+        fail("[dense] dense layout at max_len 4096 did not take the fallback")
     return counts
 
 
@@ -512,25 +793,51 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[main] params {cfg.param_count() / 1e9:.3f} B (approx), bf16, "
         f"random init in {time.perf_counter() - t0:.3f} s")
+    cpu_params = _to_cpu(params)
     rng = np.random.default_rng(0)
-    main_counts = phase_main(model, params, rng)
-    phase_step(model, params, rng)
-    dense_counts = phase_dense(model, params, rng)
+    specs = main_specs(rng, cfg.vocab)
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"[phase] {name}: {time.perf_counter() - t:.3f} s")
+        return out
+
+    main_counts, main_tokens = timed("main", phase_main, model, params, specs)
+    dl_counts = timed("dense-layout", phase_dense_layout, model, params, specs,
+                      main_tokens)
+    timed("step", phase_step, model, params, cpu_params, rng)
+    timed("layouts", phase_layouts, model, params, cpu_params, rng)
+    gather_counts, page_counts = timed("gather+page", phase_gather_page, model,
+                                       params, rng)
+    dense_counts = timed("dense", phase_dense, model, params, rng)
 
     rows = [("B1 gvr_topk", "gvr_topk.cu", "src/repro/kernels/gvr_topk.py:334",
              main_counts["gvr_topk"]),
-            ("B2 paged_indexer_topk", "paged_indexer.cu",
+            ("B2 paged_indexer_topk", "indexer_scores.cu",
              "src/repro/kernels/indexer_topk.py:246",
              main_counts["paged_indexer_scores"]),
-            ("B3 paged_sparse_decode_attn", "paged_attn.cu",
+            ("B3 paged_sparse_decode_attn", "decode_attn.cu",
              "src/repro/kernels/sparse_attn.py:272",
              main_counts["paged_sparse_decode_attn"]),
-            ("B4 paged_dense_decode_attn", "paged_attn.cu",
+            ("B4 paged_dense_decode_attn", "decode_attn.cu",
              "src/repro/kernels/sparse_attn.py:634",
-             dense_counts["paged_dense_decode_attn"])]
+             dense_counts["paged_dense_decode_attn"]),
+            ("B5 indexer_topk", "indexer_scores.cu",
+             "src/repro/kernels/indexer_topk.py:111",
+             dl_counts["indexer_scores"]),
+            ("B6 sparse_decode_attn", "decode_attn.cu",
+             "src/repro/kernels/sparse_attn.py:159",
+             dl_counts["sparse_decode_attn"]),
+            ("B7 paged_gather", "paged_gather.cu",
+             "src/repro/kernels/paged_gather.py:68",
+             gather_counts["paged_gather"]),
+            ("B10 paged_sparse_decode_attn_pg", "decode_attn.cu",
+             "src/repro/kernels/sparse_attn.py:522",
+             page_counts["paged_sparse_decode_attn_pg"])]
     kernels = []
-    for (name, src_file, replaces, launches), key in zip(rows, ("B1", "B2", "B3", "B4")):
-        r = kres[key]
+    for name, src_file, replaces, launches in rows:
+        r = kres[name.split()[0]]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src_file}",

@@ -25,25 +25,28 @@ from pathlib import Path
 from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gvr_topk", "paged_indexer", "paged_attn")
+SOURCES = ("gvr_topk", "indexer_scores", "decode_attn", "paged_gather")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                       "-lineinfo", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures (every pointer and the stream are c_void_p, so ctypes never
 # truncates them to 32 bits)
 SIGNATURES = {
     "gvr_topk": {"gvr_topk_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                                      _I, _P, _P, _P, _P]},
-    "paged_indexer": {"paged_indexer_scores_launch": [_I, _I, _P, _P, _P, _P,
-                                                      _P, _I, _I, _I, _I, _I,
-                                                      _I, _P, _P]},
-    "paged_attn": {"paged_attn_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                         _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                                         _P, _P]},
+    "indexer_scores": {"indexer_scores_launch": [_I, _I, _I, _P, _P, _P, _I,
+                                                 _P, _P, _I, _I, _I, _I, _I,
+                                                 _I, _I, _P, _P]},
+    "decode_attn": {"decode_attn_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                           _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                           _P, _P]},
+    "paged_gather": {"paged_gather_launch": [_P, _P, _I, _I, _I, _L, _I, _P,
+                                             _P]},
 }
 
 

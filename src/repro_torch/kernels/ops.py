@@ -13,6 +13,10 @@ here, never in a kernel.
 | B2     | `paged_indexer_scores` (+ B1 = `paged_indexer_topk`) | indexer_topk.py:paged_indexer_topk_pallas |
 | B3     | `paged_sparse_decode_attn` | sparse_attn.py:paged_sparse_decode_attn_pallas |
 | B4     | `paged_dense_decode_attn`  | sparse_attn.py:paged_dense_decode_attn_pallas  |
+| B5     | `indexer_scores` (+ B1 = `indexer_topk`) | indexer_topk.py:indexer_topk_pallas |
+| B6     | `sparse_decode_attn`       | sparse_attn.py:sparse_decode_attn_pallas   |
+| B7     | `paged_gather`             | paged_gather.py:paged_gather_pallas        |
+| B10    | `paged_sparse_decode_attn_pg` | sparse_attn.py:paged_sparse_decode_attn_pg_pallas |
 
 Each wrapper's `launches` attribute is a plain integer; `launch_counts()`
 reads them all and `reset_launch_counts()` zeroes them.
@@ -105,16 +109,41 @@ def gvr_topk(scores: torch.Tensor, prev_idx: torch.Tensor, k: int, *,
     return vals, idx, stats
 
 
-# ---------------------------------------------------------------- B2 ------
+# ----------------------------------------------------------- B2 / B5 ------
 
-def _heads_per_thread(h: int, ps: int) -> int:
-    for hg in (1, 2, 4, 8, 16):
-        if h % hg == 0 and ps * (h // hg) <= 256:
-            return hg
-    if h % 16 == 0 and ps * (h // 16) <= 1024:
-        return 16
-    raise ValueError(f"paged_indexer_scores: no thread layout for H={h}, "
-                     f"page_size={ps}")
+def _heads_per_thread(h: int) -> int:
+    """Heads one thread sums (HG). It fixes the order of every score's sum,
+    so it depends on H alone: B2 and B5 then score the same keys to the
+    same bits whatever the page size or tile."""
+    return next(hg for hg in (16, 8, 4, 2, 1) if h % hg == 0)
+
+
+def _scores(contig: bool, q, keys, w, table, lengths, tile: int, n: int,
+            name: str) -> torch.Tensor:
+    _check(keys.dtype in _DTYPE_CODE,
+           f"{name}: keys must be f32 or bf16, got {keys.dtype}")
+    _contig(q, keys.dtype, f"{name} q")
+    _contig(keys, keys.dtype, f"{name} keys")
+    _contig(w, torch.float32, f"{name} w")
+    _contig(lengths, torch.int32, f"{name} lengths")
+    b, h, d = q.shape
+    _check(keys.shape[-1] == d and lengths.shape == (b,)
+           and w.shape in ((h,), (b, h)), f"{name}: shape mismatch")
+    hg = _heads_per_thread(h)
+    groups = h // hg
+    _check(tile * groups <= 1024,
+           f"{name}: {tile} positions x {groups} head groups exceed 1024 threads")
+    smem = 4 * (h * d + d * tile + groups * tile)
+    _check(smem <= _SMEM_BUDGET, f"{name}: {smem} B of shared memory per tile")
+    scores = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    mp = table.shape[1] if table is not None else 0
+    rc = LIBRARIES.get("indexer_scores").indexer_scores_launch(
+        _DTYPE_CODE[keys.dtype], int(contig), hg, q.data_ptr(),
+        keys.data_ptr(), w.data_ptr(), h if w.dim() == 2 else 0,
+        table.data_ptr() if table is not None else None, lengths.data_ptr(),
+        b, h, d, tile, mp, keys.shape[0], n, scores.data_ptr(), _stream(q))
+    _raise_on(rc, name)
+    return scores
 
 
 def paged_indexer_scores(q: torch.Tensor, k_pages: torch.Tensor,
@@ -126,28 +155,12 @@ def paged_indexer_scores(q: torch.Tensor, k_pages: torch.Tensor,
     length and on unmapped pages."""
     if _on_cpu(q, k_pages, w, table, lengths):
         return ref.paged_indexer_scores_ref(q, k_pages, w, table, lengths)
-    _check(k_pages.dtype in _DTYPE_CODE,
-           f"paged_indexer_scores: pools must be f32 or bf16, got {k_pages.dtype}")
-    _contig(q, k_pages.dtype, "paged_indexer_scores q")
-    _contig(k_pages, k_pages.dtype, "paged_indexer_scores k_pages")
-    _contig(w, torch.float32, "paged_indexer_scores w")
     _contig(table, torch.int32, "paged_indexer_scores table")
-    _contig(lengths, torch.int32, "paged_indexer_scores lengths")
-    b, h, d = q.shape
-    p, ps, d2 = k_pages.shape
-    _check(d2 == d and w.shape == (h,) and table.shape[0] == b
-           and lengths.shape == (b,), "paged_indexer_scores: shape mismatch")
-    mp = table.shape[1]
-    hg = _heads_per_thread(h, ps)
-    smem = 4 * (h * d + d * ps + (h // hg) * ps)
-    _check(smem <= _SMEM_BUDGET,
-           f"paged_indexer_scores: {smem} B of shared memory per page")
-    scores = torch.empty((b, mp * ps), dtype=torch.float32, device=q.device)
-    rc = LIBRARIES.get("paged_indexer").paged_indexer_scores_launch(
-        _DTYPE_CODE[k_pages.dtype], hg, q.data_ptr(), k_pages.data_ptr(),
-        w.data_ptr(), table.data_ptr(), lengths.data_ptr(), b, h, d, ps, mp,
-        p, scores.data_ptr(), _stream(q))
-    _raise_on(rc, "paged_indexer_scores")
+    _check(w.dim() == 1 and table.shape[0] == q.shape[0],
+           "paged_indexer_scores: w (H,), table (B, MP)")
+    ps = k_pages.shape[1]
+    scores = _scores(False, q, k_pages, w, table, lengths, ps,
+                     table.shape[1] * ps, "paged_indexer_scores")
     paged_indexer_scores.launches += 1
     return scores
 
@@ -164,39 +177,119 @@ def paged_indexer_topk(q: torch.Tensor, k_pages: torch.Tensor,
     return gvr_topk(scores, prev_idx, k, max_candidates=max_candidates)
 
 
+def indexer_scores(q: torch.Tensor, kcache: torch.Tensor, w: torch.Tensor,
+                   lengths: torch.Tensor) -> torch.Tensor:
+    """B5 scoring — Eq. 1 over a contiguous indexer cache. q (B, H, D) in
+    the cache dtype; kcache (B, N, D); w (H,) or (B, H) f32; lengths (B,)
+    int32. Returns the (B, N) f32 score row, NEG beyond length; bit-equal on
+    the card to `paged_indexer_scores` over pages holding the same keys."""
+    if _on_cpu(q, kcache, w, lengths):
+        return ref.indexer_scores_ref(q, kcache, w, lengths)
+    _check(kcache.dim() == 3 and kcache.shape[0] == q.shape[0],
+           "indexer_scores: kcache (B, N, D)")
+    n = kcache.shape[1]
+    _check(0 < n and q.shape[0] * n < 2 ** 31,
+           "indexer_scores: B*N beyond int32 indexing")
+    groups = q.shape[1] // _heads_per_thread(q.shape[1])
+    tile = max(1, min(64, 1024 // groups))
+    scores = _scores(True, q, kcache, w, None, lengths, tile, n,
+                     "indexer_scores")
+    indexer_scores.launches += 1
+    return scores
+
+
+def indexer_topk(q: torch.Tensor, kcache: torch.Tensor, w: torch.Tensor,
+                 prev_idx: torch.Tensor, k: int, *, lengths: torch.Tensor,
+                 max_candidates: Optional[int] = None):
+    """B5 — contiguous indexer scoring, then the GVR Top-K (B1) on the score
+    row (two launches on the card). Returns (values, indices, stats) as
+    `gvr_topk`."""
+    scores = indexer_scores(q, kcache, w, lengths)
+    return gvr_topk(scores, prev_idx, k, max_candidates=max_candidates)
+
+
+# ----------------------------------------------------------------- B7 ------
+
+def paged_gather(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """B7 — the contiguous logical view of a page pool: pages (P, ps, ...)
+    with any trailing feature dims, table (B, MP) int32. Returns
+    (B, MP*ps, ...) in the pool dtype, zero rows on unmapped pages."""
+    if _on_cpu(pages, table):
+        return ref.paged_gather_ref(pages, table)
+    _check(pages.dim() >= 2 and pages.is_contiguous(),
+           "paged_gather: pages (P, ps, ...) contiguous")
+    _contig(table, torch.int32, "paged_gather table")
+    _check(table.dim() == 2, "paged_gather: table (B, MP)")
+    p, ps = pages.shape[:2]
+    b, mp = table.shape
+    feat = tuple(pages.shape[2:])
+    out = torch.empty((b, mp, ps) + feat, dtype=pages.dtype,
+                      device=pages.device)
+    page_bytes = pages[0].numel() * pages.element_size()
+    vec = int(page_bytes % 16 == 0 and pages.data_ptr() % 16 == 0
+              and out.data_ptr() % 16 == 0)
+    if out.numel():
+        rc = LIBRARIES.get("paged_gather").paged_gather_launch(
+            pages.data_ptr(), table.data_ptr(), b, mp, p, page_bytes, vec,
+            out.data_ptr(), _stream(pages))
+        _raise_on(rc, "paged_gather")
+        paged_gather.launches += 1
+    return out.reshape((b, mp * ps) + feat)
+
+
 # ------------------------------------------------------------ B3 / B4 -----
 
-def _attn(mode: int, q, k_pages, v_pages, table, idx, lengths, scale, window,
+_MODE = {"paged_sparse": 0, "paged_dense": 1, "contig_sparse": 2,
+         "paged_pages": 3}
+
+
+def _attn(mode: str, q, kc, vc, table, idx, lengths, scale, window,
           name: str) -> torch.Tensor:
-    _check(k_pages.dtype in _DTYPE_CODE,
-           f"{name}: pools must be f32 or bf16, got {k_pages.dtype}")
-    dt = k_pages.dtype
-    for t, nm in ((q, "q"), (k_pages, "k_pages"), (v_pages, "v_pages")):
+    """Launch the shared decode-attention body. Paged modes take pools
+    (P, ps, KVH, hd) and a table; "contig_sparse" takes caches
+    (B, N, KVH, hd), read as B pages of N rows with no table."""
+    _check(kc.dtype in _DTYPE_CODE,
+           f"{name}: caches must be f32 or bf16, got {kc.dtype}")
+    dt = kc.dtype
+    for t, nm in ((q, "q"), (kc, "k cache"), (vc, "v cache")):
         _contig(t, dt, f"{name} {nm}")
-    _contig(table, torch.int32, f"{name} table")
     _contig(lengths, torch.int32, f"{name} lengths")
     b, h, hd = q.shape
-    p, ps, kvh, hd2 = k_pages.shape
-    _check(v_pages.shape == k_pages.shape and hd2 == hd,
-           f"{name}: pools (P, ps, KVH, hd) matching q")
+    p, ps, kvh, hd2 = kc.shape
+    _check(vc.shape == kc.shape and hd2 == hd,
+           f"{name}: caches (.., .., KVH, hd) matching q")
     _check(h % kvh == 0 and h // kvh in (1, 2, 4, 8),
            f"{name}: H/KVH must be 1, 2, 4 or 8, got {h}/{kvh}")
     _check(hd in (32, 64, 128), f"{name}: head_dim must be 32, 64 or 128")
-    _check(table.shape[0] == b and lengths.shape == (b,),
-           f"{name}: table (B, MP), lengths (B,)")
-    _check(p * ps < 2 ** 31, f"{name}: pool rows beyond int32 indexing")
+    _check(lengths.shape == (b,), f"{name}: lengths (B,)")
+    _check(p * ps < 2 ** 31, f"{name}: cache rows beyond int32 indexing")
+    if mode == "contig_sparse":
+        _check(p == b, f"{name}: caches (B, N, KVH, hd)")
+        ps, mp = 1, kc.shape[1]
+    else:
+        _contig(table, torch.int32, f"{name} table")
+        _check(table.shape[0] == b, f"{name}: table (B, MP)")
+        mp = table.shape[1]
     kcols = 0
     if idx is not None:
         _contig(idx, torch.int32, f"{name} idx")
         _check(idx.dim() == 2 and idx.shape[0] == b, f"{name}: idx (B, K)")
         kcols = idx.shape[1]
+    if mode == "paged_pages":
+        _check(kcols < 65536, f"{name}: K={kcols} beyond 16-bit row counts")
+        g = h // kvh
+        smem = 4 * (2 * 1024 + 2 * 16 * g + 16 * g * hd
+                    + (mp * ps + 1) // 2 + 2 * mp)
+        _check(smem <= _SMEM_BUDGET,
+               f"{name}: {mp * ps} logical rows need {smem} B of shared memory")
     out = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
-    rc = LIBRARIES.get("paged_attn").paged_attn_launch(
-        _DTYPE_CODE[dt], mode, h // kvh, hd // 32, q.data_ptr(),
-        k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
+    rc = LIBRARIES.get("decode_attn").decode_attn_launch(
+        _DTYPE_CODE[dt], _MODE[mode], h // kvh, hd // 32, q.data_ptr(),
+        kc.data_ptr(), vc.data_ptr(),
+        table.data_ptr() if table is not None else None,
         idx.data_ptr() if idx is not None else None, lengths.data_ptr(), b,
-        kvh, ps, table.shape[1], p, kcols, window, float(scale),
-        out.data_ptr(), _stream(q))
+        kvh, ps, mp, p, kcols, window, float(scale), out.data_ptr(),
+        _stream(q))
     _raise_on(rc, name)
     return out
 
@@ -214,8 +307,8 @@ def paged_sparse_decode_attn(q: torch.Tensor, k_pages: torch.Tensor,
     if _on_cpu(q, k_pages, v_pages, table, idx, lengths):
         return ref.paged_sparse_attn_ref(q, k_pages, v_pages, table, idx,
                                          lengths, scale=scale)
-    out = _attn(0, q, k_pages, v_pages, table, idx, lengths, scale, 0,
-                "paged_sparse_decode_attn")
+    out = _attn("paged_sparse", q, k_pages, v_pages, table, idx, lengths,
+                scale, 0, "paged_sparse_decode_attn")
     paged_sparse_decode_attn.launches += 1
     return out
 
@@ -233,9 +326,48 @@ def paged_dense_decode_attn(q: torch.Tensor, k_pages: torch.Tensor,
         return ref.paged_dense_attn_ref(q, k_pages, v_pages, table, lengths,
                                         scale=scale, window=window)
     _check(window is None or window > 0, "paged_dense_decode_attn: window > 0")
-    out = _attn(1, q, k_pages, v_pages, table, None, lengths, scale,
-                window or 0, "paged_dense_decode_attn")
+    out = _attn("paged_dense", q, k_pages, v_pages, table, None, lengths,
+                scale, window or 0, "paged_dense_decode_attn")
     paged_dense_decode_attn.launches += 1
+    return out
+
+
+def sparse_decode_attn(q: torch.Tensor, kcache: torch.Tensor,
+                       vcache: torch.Tensor, idx: torch.Tensor,
+                       lengths: torch.Tensor, *,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """B6 — one query token per slot over exactly the K selected rows of
+    its own contiguous caches. q (B, H, hd) in the cache dtype; caches
+    (B, N, KVH, hd); idx (B, K) int32 (-1 padded); lengths (B,). Entries
+    outside [0, length) are masked. Returns (B, H, hd) f32 (0 for a slot
+    with no valid entry); bit-equal on the card to
+    `paged_sparse_decode_attn` over pages holding the same rows."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if _on_cpu(q, kcache, vcache, idx, lengths):
+        return ref.sparse_attn_ref(q, kcache, vcache, idx, lengths,
+                                   scale=scale)
+    out = _attn("contig_sparse", q, kcache, vcache, None, idx, lengths,
+                scale, 0, "sparse_decode_attn")
+    sparse_decode_attn.launches += 1
+    return out
+
+
+def paged_sparse_decode_attn_pg(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor, table: torch.Tensor,
+                                idx: torch.Tensor, lengths: torch.Tensor, *,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """B10 — `paged_sparse_decode_attn` at page granularity: each distinct
+    touched page is read whole and its unselected rows masked. Same
+    arguments and masking; the kernel sums in page order, so it agrees with
+    the token-granular form to rounding (the plain version, used on the
+    CPU, restores Top-K order and agrees bit for bit)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if _on_cpu(q, k_pages, v_pages, table, idx, lengths):
+        return ref.paged_sparse_attn_pg_ref(q, k_pages, v_pages, table, idx,
+                                            lengths, scale=scale)
+    out = _attn("paged_pages", q, k_pages, v_pages, table, idx, lengths,
+                scale, 0, "paged_sparse_decode_attn_pg")
+    paged_sparse_decode_attn_pg.launches += 1
     return out
 
 
@@ -244,6 +376,10 @@ KERNELS = {
     "paged_indexer_scores": paged_indexer_scores,
     "paged_sparse_decode_attn": paged_sparse_decode_attn,
     "paged_dense_decode_attn": paged_dense_decode_attn,
+    "indexer_scores": indexer_scores,
+    "sparse_decode_attn": sparse_decode_attn,
+    "paged_gather": paged_gather,
+    "paged_sparse_decode_attn_pg": paged_sparse_decode_attn_pg,
 }
 for _fn in KERNELS.values():
     _fn.launches = 0

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's kernels B1–B4.
+"""Plain PyTorch versions of the port's kernels B1–B7 and B10.
 
 Each function computes what its Hopper kernel computes, from the same
 arguments, in straightforward tensor code. The CPU path of
@@ -69,6 +69,56 @@ def paged_indexer_scores_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return torch.where(keep, scores, torch.full_like(scores, NEG))
 
 
+def indexer_scores_ref(q: torch.Tensor, kcache: torch.Tensor, w: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+    """B5 scoring stage, paper Eq. 1 over a contiguous indexer cache:
+    score[b, n] = sum_h w_h ReLU(q[b,h] . k[b,n]) in f32, NEG at positions
+    >= length.
+
+    q: (B, H, D) in the cache dtype; kcache: (B, N, D); w: (H,) or (B, H)
+    f32; lengths: (B,). Returns (B, N) f32.
+    """
+    s = torch.einsum("bhd,bnd->bhn", q.float(), kcache.float()).clamp_min(0.0)
+    if w.dim() == 1:
+        scores = torch.einsum("h,bhn->bn", w.float(), s)
+    else:
+        scores = torch.einsum("bh,bhn->bn", w.float(), s)
+    pos = torch.arange(kcache.shape[1], device=q.device)
+    return torch.where(pos[None, :] < lengths[:, None], scores,
+                       torch.full_like(scores, NEG))
+
+
+def paged_gather_ref(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """B7: the contiguous logical view of a page pool. pages: (P, ps, ...)
+    with any trailing feature dims; table: (B, MP) int32. Row [b, m*ps + o]
+    is pages[table[b, m], o], zeros where the page is unmapped (table < 0 or
+    >= P). Returns (B, MP*ps, ...) in the pool dtype."""
+    p, ps = pages.shape[:2]
+    b, mp = table.shape
+    mapped = (table >= 0) & (table < p)
+    out = pages[table.long().clamp(0, p - 1)]             # (B, MP, ps, ...)
+    mask = mapped.reshape((b, mp) + (1,) * (pages.dim() - 1))
+    out = torch.where(mask, out, torch.zeros_like(out))
+    return out.reshape((b, mp * ps) + tuple(pages.shape[2:]))
+
+
+def distinct_pages(topk_idx: torch.Tensor, *, page_size: int,
+                   num_logical_pages: int) -> torch.Tensor:
+    """Per-row ascending distinct LOGICAL pages touched by the selected
+    indices (already clipped to [0, MP*page_size)), padded with the
+    sentinel MP: the descriptor list a page-granular gather walks.
+    Shape (B, min(K, MP))."""
+    b, k = topk_idx.shape
+    mp = num_logical_pages
+    pg = torch.sort(topk_idx // page_size, dim=1).values.int()
+    first = torch.cat([torch.ones((b, 1), dtype=torch.bool, device=pg.device),
+                       pg[:, 1:] > pg[:, :-1]], dim=1)
+    slot = torch.cumsum(first.int(), dim=1) - 1                     # (B, K)
+    out = torch.full((b, min(k, mp)), mp, dtype=torch.int32, device=pg.device)
+    # duplicates of a page write the same value into the same slot
+    return out.scatter_(1, slot.long(), pg)
+
+
 def _attend_rows(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                  flat: torch.Tensor, valid: torch.Tensor,
                  scale: float) -> torch.Tensor:
@@ -92,6 +142,19 @@ def _attend_rows(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     return out.reshape(b, h, hd)
 
 
+def _paged_entries(idx: torch.Tensor, table: torch.Tensor,
+                   lengths: torch.Tensor, p: int, ps: int):
+    """Top-K entries idx (B, K) through the block table: (logical row
+    clipped to the extent, physical page, valid). An entry is valid iff
+    0 <= idx < length and its page is mapped."""
+    n = table.shape[1] * ps
+    li = idx.long().clamp(0, n - 1)
+    phys = table.long().gather(1, li // ps)
+    valid = ((idx >= 0) & (idx < lengths[:, None]) & (idx < n)
+             & (phys >= 0) & (phys < p))
+    return li, phys, valid
+
+
 def paged_sparse_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, table: torch.Tensor,
                           idx: torch.Tensor, lengths: torch.Tensor, *,
@@ -103,13 +166,54 @@ def paged_sparse_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
     hd = q.shape[-1]
     scale = scale if scale is not None else hd ** -0.5
     p, ps = k_pages.shape[:2]
-    mp = table.shape[1]
-    li = idx.long().clamp(0, mp * ps - 1)
-    phys = table.long().gather(1, li // ps)
-    valid = ((idx >= 0) & (idx < lengths[:, None]) & (idx < mp * ps)
-             & (phys >= 0) & (phys < p))
+    li, phys, valid = _paged_entries(idx, table, lengths, p, ps)
     flat = phys.clamp(0, p - 1) * ps + li % ps
     return _attend_rows(q, k_pages, v_pages, flat, valid, scale)
+
+
+def sparse_attn_ref(q: torch.Tensor, kcache: torch.Tensor, vcache: torch.Tensor,
+                    idx: torch.Tensor, lengths: torch.Tensor, *,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """B6: one query token per slot attends over exactly the K selected
+    rows idx (B, K) of its own contiguous caches (B, N, KVH, hd). An entry
+    counts iff 0 <= idx < min(length, N). Returns (B, H, hd) f32."""
+    hd = q.shape[-1]
+    scale = scale if scale is not None else hd ** -0.5
+    n = kcache.shape[1]
+    valid = (idx >= 0) & (idx < lengths[:, None]) & (idx < n)
+    # a (B, N) cache is a pool of B pages of N rows: slot b's row i is b*N + i
+    base = torch.arange(q.shape[0], device=q.device)[:, None] * n
+    flat = base + idx.long().clamp(0, n - 1)
+    return _attend_rows(q, kcache, vcache, flat, valid, scale)
+
+
+def paged_sparse_attn_pg_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor, table: torch.Tensor,
+                             idx: torch.Tensor, lengths: torch.Tensor, *,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """B10: B3 at page granularity. Each distinct touched page is taken
+    whole (`distinct_pages`), the selected rows are sliced out of the page
+    buffer and put back in Top-K order, so the result is bit-identical to
+    `paged_sparse_attn_ref` (the kernel accumulates in page order instead).
+    Same masking: an entry counts iff 0 <= idx < length and its page is
+    mapped. Returns (B, H, hd) f32."""
+    hd = q.shape[-1]
+    scale = scale if scale is not None else hd ** -0.5
+    p, ps = k_pages.shape[:2]
+    b, mp = table.shape
+    li, _, valid = _paged_entries(idx, table, lengths, p, ps)
+    up = distinct_pages(li, page_size=ps, num_logical_pages=mp)     # (B, S)
+    s = up.shape[1]
+    tpad = torch.cat([table, torch.full((b, 1), -1, dtype=table.dtype,
+                                        device=table.device)], dim=1)
+    uphys = tpad.long().gather(1, up.long()).clamp(0, p - 1)
+    slot = torch.searchsorted(up.long(), li // ps)                 # (B, K)
+    # the page buffers (B*S pages) act as the pool the rows are read from
+    kbuf = k_pages[uphys].reshape((b * s,) + tuple(k_pages.shape[1:]))
+    vbuf = v_pages[uphys].reshape((b * s,) + tuple(v_pages.shape[1:]))
+    base = torch.arange(b, device=q.device)[:, None] * s
+    flat = (base + slot) * ps + li % ps
+    return _attend_rows(q, kbuf, vbuf, flat, valid, scale)
 
 
 def paged_dense_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,

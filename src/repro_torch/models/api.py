@@ -49,6 +49,16 @@ class Model:
         generator = torch.Generator(device=self.device).manual_seed(seed)
         return self.mod.init_params(self.cfg, generator, self.device)
 
+    def init_decode_state(self, batch, max_len, *, dtype=None):
+        return self.mod.init_decode_state(self.cfg, batch, max_len,
+                                          device=self.device, dtype=dtype)
+
+    def state_batch_axes(self) -> Dict[str, int]:
+        return self.mod.state_batch_axes(self.cfg)
+
+    def state_merge_axes(self) -> Dict[str, int]:
+        return self.mod.state_merge_axes(self.cfg)
+
     def init_paged_decode_state(self, batch, max_len, *, num_pages, page_size,
                                 dtype=None):
         return self.mod.init_paged_decode_state(
@@ -65,10 +75,18 @@ class Model:
     def recycle_slot_state(self, state, slot):
         return self.mod.recycle_slot_state(self.cfg, state, slot)
 
-    def serve_step_paged(self, params, state, tokens, *, min_write_pos=None):
+    def serve_step(self, params, state, tokens, *, min_write_pos=None):
+        """One dense-layout decode step (see transformer.serve_step)."""
+        return self.mod.serve_step(params, state, tokens, self.cfg,
+                                   min_write_pos=min_write_pos)
+
+    def serve_step_paged(self, params, state, tokens, *, min_write_pos=None,
+                         paged_attn="fused", gather_granularity="token"):
         """One paged decode step (see transformer.serve_step_paged)."""
         return self.mod.serve_step_paged(params, state, tokens, self.cfg,
-                                         min_write_pos=min_write_pos)
+                                         min_write_pos=min_write_pos,
+                                         paged_attn=paged_attn,
+                                         gather_granularity=gather_granularity)
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

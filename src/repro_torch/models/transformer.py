@@ -5,15 +5,25 @@ JAX package's layout (weights (in, out), used as `x @ W`), so the JAX
 parameters carry over one to one (`repro_torch.bridge`). A Python loop over
 the layers takes the place of `lax.scan`.
 
-`serve_step_paged` is the served step: per layer, projections + RoPE, the
-new K/V/indexer-K rows scattered into the page pools, then DSA (indexer →
-exact Top-K → sparse attention over the K selected rows, kernels B2/B1/B3
-on the card) once the logical extent exceeds `dsa.min_n`, else the dense
-paged fallback (kernel B4). The page pools are updated IN PLACE
-(`index_put_`) — copying a multi-GB pool per tick is what JAX's functional
-update costs and what this port avoids — while the small per-slot leaves
-(length, prev_topk, topk_valid, sel_gvr) come back as new tensors, so the
-engine can merge them row by row.
+Two cache layouts, one computation. Per layer: projections + RoPE, the new
+K/V/indexer-K rows written at position `length`, then DSA (indexer → exact
+Top-K → sparse attention over the K selected rows) once the logical extent
+exceeds `dsa.min_n`, else dense attention over the whole extent.
+
+* `serve_step` — the dense layout: contiguous (L, B, N, ...) caches; DSA
+  runs kernels B5/B1/B6 on the card, the pre-DSA fallback is plain
+  PyTorch (`layers.decode_attention`), as the JAX package leaves it to XLA.
+* `serve_step_paged` — the paged layout: page pools and a block table.
+  `paged_attn="fused"` addresses the pools through the table (B2/B1/B3,
+  or B10 under `gather_granularity="page"`; fallback B4);
+  `paged_attn="gather"` is the oracle that first builds the contiguous
+  logical views (kernel B7) and then runs the dense layout's attention.
+
+Caches and pools are updated IN PLACE — copying a multi-GB cache per tick
+is what JAX's functional update costs and what this port avoids; a row
+whose write is masked keeps its old contents (dense) or writes the sink
+page (paged). The small per-slot leaves (length, prev_topk, topk_valid,
+sel_gvr) come back as new tensors, so the engine can merge them row by row.
 """
 
 from __future__ import annotations
@@ -24,9 +34,11 @@ import torch
 
 from repro_torch.core.temporal import (recycle_slot_arrays, reset_slot_arrays,
                                        seed_slot_idx)
+from repro_torch.kernels import ops
 from repro_torch.sparse import dsa as dsa_mod
 from .config import ModelConfig
-from .layers import apply_rotary, decode_attention_paged, rms_norm, swiglu_mlp
+from .layers import (apply_rotary, decode_attention, decode_attention_paged,
+                     rms_norm, swiglu_mlp)
 
 # min_write_pos sentinel larger than any position: the row never writes.
 # Rows whose write is masked (inactive slots, shared-prefix replay over
@@ -98,8 +110,60 @@ def layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 
 # --------------------------------------------------------------------------
-# Paged decode state
+# Decode state
 # --------------------------------------------------------------------------
+
+def _feedback_state(cfg: ModelConfig, batch: int, max_len: int,
+                    device) -> Dict[str, torch.Tensor]:
+    """The GVR feedback leaves: even-spacing seed, invalid until the first
+    DSA step, no GVR row served yet."""
+    l = cfg.n_layers
+    kk = min(cfg.dsa.k, max_len)
+    base = seed_slot_idx(kk, max_len, device)
+    return {
+        "prev_topk": base[None, None].expand(l, batch, kk).clone(),
+        "topk_valid": torch.zeros((l, batch), dtype=torch.bool, device=device),
+        "sel_gvr": torch.zeros((l, batch), dtype=torch.bool, device=device),
+    }
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *, device,
+                      dtype=None) -> Dict[str, torch.Tensor]:
+    """Contiguous K/V (and DSA indexer-K) caches of `max_len` rows per slot,
+    (L, batch, max_len, ...), with the reference's leaf names."""
+    _check_family(cfg)
+    dtype = dtype or torch_dtype(cfg.dtype)
+    l, hd = cfg.n_layers, cfg.hd
+    cache = (l, batch, max_len)
+    state = {
+        "k": torch.zeros(cache + (cfg.n_kv_heads, hd), dtype=dtype, device=device),
+        "v": torch.zeros(cache + (cfg.n_kv_heads, hd), dtype=dtype, device=device),
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+    if cfg.dsa.enabled:
+        state["idx_k"] = torch.zeros(cache + (cfg.dsa.indexer_dim,),
+                                     dtype=dtype, device=device)
+        state.update(_feedback_state(cfg, batch, max_len, device))
+    return state
+
+
+def state_merge_axes(cfg: ModelConfig) -> Dict[str, int]:
+    """Slot axis of each dense-state leaf that `serve_step` returns anew.
+    The caches are absent: the step writes them in place and keeps the
+    rows it masks, so they are never merged nor copied back."""
+    axes = {"length": 0}
+    if cfg.dsa.enabled:
+        axes.update(prev_topk=1, topk_valid=1, sel_gvr=1)
+    return axes
+
+
+def state_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
+    """Slot axis of every leaf of the dense decode state."""
+    axes = {"k": 1, "v": 1, **state_merge_axes(cfg)}
+    if cfg.dsa.enabled:
+        axes["idx_k"] = 1
+    return axes
+
 
 def init_paged_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                             num_pages: int, page_size: int, device,
@@ -125,11 +189,7 @@ def init_paged_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     if cfg.dsa.enabled:
         state["idx_k_pages"] = torch.zeros(pool + (cfg.dsa.indexer_dim,),
                                            dtype=dtype, device=device)
-        kk = min(cfg.dsa.k, max_len)
-        base = seed_slot_idx(kk, max_len, device)
-        state["prev_topk"] = base[None, None].expand(l, batch, kk).clone()
-        state["topk_valid"] = torch.zeros((l, batch), dtype=torch.bool, device=device)
-        state["sel_gvr"] = torch.zeros((l, batch), dtype=torch.bool, device=device)
+        state.update(_feedback_state(cfg, batch, max_len, device))
     return state
 
 
@@ -192,8 +252,127 @@ def _project_qkv(p, h, b, positions, cfg: ModelConfig):
     return q, kn, vn[:, 0]
 
 
+def _dsa_kw(cfg: ModelConfig, state, i: int) -> Dict[str, Any]:
+    """Layer i's keyword arguments of the DSA decode block."""
+    valid = state.get("topk_valid")
+    return dict(k=state["prev_topk"].shape[-1], scale=cfg.hd ** -0.5,
+                heads=cfg.dsa.indexer_heads, dim=cfg.dsa.indexer_dim,
+                rope_base=cfg.rope_base, selector=cfg.dsa.selector,
+                prev_valid=None if valid is None else valid[i],
+                max_candidates=cfg.dsa.max_candidates,
+                gate_max_n=cfg.dsa.gate_max_n, min_n=cfg.dsa.min_n,
+                swa_window=cfg.swa_window)
+
+
+def _attend_views(cfg: ModelConfig, state, i: int, p, h, q, kc, vc, idx_kc,
+                  new_len, use_dsa: bool):
+    """Attention over contiguous logical views (B, N, ...): the dense
+    layout's, and the paged gather oracle's once it has built the views.
+    Returns (attn (B, H, HD) f32, the DSA output or None)."""
+    if use_dsa:
+        res = dsa_mod.dsa_decode(q, kc, vc, p["indexer"], h, idx_kc,
+                                 state["prev_topk"][i], new_len,
+                                 **_dsa_kw(cfg, state, i))
+        return res.attn_out, res
+    return decode_attention(q, kc, vc, new_len, scale=cfg.hd ** -0.5,
+                            window=cfg.swa_window), None
+
+
+def _decode_layers(params, state, tokens: torch.Tensor, cfg: ModelConfig,
+                   attend):
+    """The layer loop shared by both layouts. `attend(i, p, h, q, kn, vn)`
+    writes layer i's new rows and returns (attn, DSA output or None).
+    Returns (logits (B, V) f32, new_state)."""
+    _check_family(cfg)
+    b = tokens.shape[0]
+    x = params["embed"][tokens.long()]                   # (B, D)
+    positions = state["length"]
+    prev_out, sel_out = [], []
+    for i in range(cfg.n_layers):
+        p = layer_params(params["layers"], i)
+        h = rms_norm(x, p["ln1"])
+        q, kn, vn = _project_qkv(p, h, b, positions, cfg)
+        attn, res = attend(i, p, h, q, kn, vn)
+        if res is not None:
+            prev_out.append(res.topk_idx.int())
+            sel_out.append(res.gvr_rows)
+        attn = attn.reshape(b, cfg.n_heads * cfg.hd).to(x.dtype)
+        x = x + attn @ p["wo"]
+        h = rms_norm(x, p["ln2"])
+        x = x + swiglu_mlp(h, p["w_gate"], p["w_up"], p["w_down"])
+
+    new_state = dict(state)
+    if prev_out:
+        new_state["prev_topk"] = torch.stack(prev_out)
+        new_state["topk_valid"] = torch.ones_like(state["topk_valid"])
+        new_state["sel_gvr"] = torch.stack(sel_out)
+    elif cfg.dsa.enabled:
+        new_state["sel_gvr"] = torch.zeros_like(state["sel_gvr"])
+    new_state["length"] = positions + 1
+
+    x = rms_norm(x, params["final_norm"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (x @ head).float(), new_state
+
+
+def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
+               min_write_pos: Optional[torch.Tensor] = None):
+    """One decode step over the dense layout. tokens: (B,) int. Returns
+    (logits (B, V) f32, new_state).
+
+    The new token's rows are written in place at position `length` of each
+    slot's caches, clamped to N-1 as JAX's `dynamic_update_slice` clamps
+    it. A row whose position is below `min_write_pos` (B,) keeps its old
+    contents: the engine masks inactive slots so, where the reference
+    writes every row and restores the inactive ones afterwards.
+    """
+    n = state["k"].shape[2]
+    b = tokens.shape[0]
+    positions = state["length"]
+    new_len = positions + 1
+    use_dsa = cfg.dsa.enabled and n > cfg.dsa.min_n
+    rows = torch.arange(b, device=positions.device)
+    wpos = positions.clamp(max=n - 1).long()
+    keep = None if min_write_pos is None else positions < min_write_pos
+
+    def write(cache, new):
+        new = new.to(cache.dtype)
+        if keep is not None:
+            new = torch.where(keep.reshape((b,) + (1,) * (new.dim() - 1)),
+                              cache[rows, wpos], new)
+        cache[rows, wpos] = new
+
+    def attend(i, p, h, q, kn, vn):
+        kc, vc = state["k"][i], state["v"][i]
+        write(kc, kn)
+        write(vc, vn)
+        idx_kc = None
+        if use_dsa:
+            idx_kc = state["idx_k"][i]
+            write(idx_kc, dsa_mod.indexer_k(p["indexer"], h, positions,
+                                            dim=cfg.dsa.indexer_dim,
+                                            rope_base=cfg.rope_base))
+        return _attend_views(cfg, state, i, p, h, q, kc, vc, idx_kc, new_len,
+                             use_dsa)
+
+    return _decode_layers(params, state, tokens, cfg, attend)
+
+
+def check_paged_options(paged_attn: str, gather_granularity: str) -> None:
+    """Raise ValueError unless both options name a form `serve_step_paged`
+    serves."""
+    if paged_attn not in ("fused", "gather"):
+        raise ValueError(f"unknown paged_attn {paged_attn!r} "
+                         f"(expected 'fused' or 'gather')")
+    if gather_granularity not in ("token", "page"):
+        raise ValueError(f"unknown gather_granularity {gather_granularity!r} "
+                         f"(expected 'token' or 'page')")
+
+
 def serve_step_paged(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
-                     min_write_pos: Optional[torch.Tensor] = None):
+                     min_write_pos: Optional[torch.Tensor] = None,
+                     paged_attn: str = "fused",
+                     gather_granularity: str = "token"):
     """One paged decode step. tokens: (B,) int. Returns (logits (B, V) f32,
     new_state).
 
@@ -203,13 +382,18 @@ def serve_step_paged(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
     it to the sink page: the engine uses it to mask inactive slots and to
     replay the last prompt token over a shared prefix without touching the
     shared page. Everything the feedback loop touches stays in logical
-    token space. Attention is always block-table-native ("fused"): the
-    K/V logical views are never built.
+    token space.
+
+    `paged_attn` picks the physical form of attention, bit-identical on
+    the CPU in logits and new state: "fused" addresses the pools through
+    the block table and never builds the logical views; "gather" (the
+    oracle) builds the K, V and indexer-K logical views first (kernel B7)
+    and attends as the dense layout does. `gather_granularity` picks the
+    fused sparse gather's shape: "token" reads one row per Top-K entry
+    (B3), "page" each distinct touched page whole (B10; on the card it sums
+    in page order, so it agrees with "token" to rounding).
     """
-    _check_family(cfg)
-    b = tokens.shape[0]
-    hd = cfg.hd
-    x = params["embed"][tokens.long()]                   # (B, D)
+    check_paged_options(paged_attn, gather_granularity)
     positions = state["length"]
     new_len = positions + 1
     table = state["page_table"]
@@ -225,54 +409,33 @@ def serve_step_paged(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
     if min_write_pos is not None:
         writable &= positions >= min_write_pos
     dest = torch.where(writable, phys, torch.full_like(phys, sink)).long()
-
     use_dsa = cfg.dsa.enabled and n > cfg.dsa.min_n
-    prev_out, valid_out, sel_out = [], [], []
-    for i in range(cfg.n_layers):
-        p = layer_params(params["layers"], i)
+
+    def attend(i, p, h, q, kn, vn):
         kp, vp = state["k_pages"][i], state["v_pages"][i]
-        h = rms_norm(x, p["ln1"])
-        q, kn, vn = _project_qkv(p, h, b, positions, cfg)
         kp[dest, off] = kn.to(kp.dtype)
         vp[dest, off] = vn.to(vp.dtype)
+        idx_kp = None
         if use_dsa:
             idx_kp = state["idx_k_pages"][i]
             ik = dsa_mod.indexer_k(p["indexer"], h, positions,
                                    dim=cfg.dsa.indexer_dim,
                                    rope_base=cfg.rope_base)
             idx_kp[dest, off] = ik.to(idx_kp.dtype)
-            valid = state.get("topk_valid")
+        if paged_attn == "gather":
+            kc, vc = ops.paged_gather(kp, table), ops.paged_gather(vp, table)
+            idx_kc = ops.paged_gather(idx_kp, table) if use_dsa else None
+            return _attend_views(cfg, state, i, p, h, q, kc, vc, idx_kc,
+                                 new_len, use_dsa)
+        if use_dsa:
             res = dsa_mod.dsa_decode_paged(
                 q, kp, vp, table, p["indexer"], h, idx_kp,
                 state["prev_topk"][i], new_len,
-                k=state["prev_topk"].shape[-1], scale=hd ** -0.5,
-                heads=cfg.dsa.indexer_heads, dim=cfg.dsa.indexer_dim,
-                rope_base=cfg.rope_base, selector=cfg.dsa.selector,
-                prev_valid=None if valid is None else valid[i],
-                max_candidates=cfg.dsa.max_candidates,
-                gate_max_n=cfg.dsa.gate_max_n, min_n=cfg.dsa.min_n,
-                swa_window=cfg.swa_window)
-            attn = res.attn_out
-            prev_out.append(res.topk_idx.int())
-            sel_out.append(res.gvr_rows)
-        else:
-            attn = decode_attention_paged(q, kp, vp, table, new_len,
-                                          scale=hd ** -0.5,
-                                          window=cfg.swa_window)
-        attn = attn.reshape(b, cfg.n_heads * hd).to(x.dtype)
-        x = x + attn @ p["wo"]
-        h = rms_norm(x, p["ln2"])
-        x = x + swiglu_mlp(h, p["w_gate"], p["w_up"], p["w_down"])
+                gather_granularity=gather_granularity,
+                **_dsa_kw(cfg, state, i))
+            return res.attn_out, res
+        return decode_attention_paged(q, kp, vp, table, new_len,
+                                      scale=cfg.hd ** -0.5,
+                                      window=cfg.swa_window), None
 
-    new_state = dict(state)
-    if cfg.dsa.enabled and use_dsa:
-        new_state["prev_topk"] = torch.stack(prev_out)
-        new_state["topk_valid"] = torch.ones_like(state["topk_valid"])
-        new_state["sel_gvr"] = torch.stack(sel_out)
-    elif cfg.dsa.enabled:
-        new_state["sel_gvr"] = torch.zeros_like(state["sel_gvr"])
-    new_state["length"] = new_len
-
-    x = rms_norm(x, params["final_norm"])
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ head).float(), new_state
+    return _decode_layers(params, state, tokens, cfg, attend)

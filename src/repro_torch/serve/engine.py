@@ -1,20 +1,24 @@
-"""Continuous-batching decode engine over the paged KV layout, PyTorch port.
+"""Continuous-batching decode engine over the dense or paged KV layout,
+PyTorch port.
 
 One `DecodeEngine` owns a fixed pool of B slots (the batch axis of the
 decode state). Per tick it:
 
-  1. admits queued requests into freed slots (scheduler policy): the paged
-     manager plans the prompt's pages — shared prefix pages by ref-count,
-     the rest freshly allocated, queueing when the pool cannot hold them —
-     and the `FeedbackPool` resets the slot's GVR feedback;
+  1. admits queued requests into freed slots (scheduler policy): under the
+     paged layout the manager plans the prompt's pages — shared prefix
+     pages by ref-count, the rest freshly allocated, queueing when the pool
+     cannot hold them — and the `FeedbackPool` resets the slot's GVR
+     feedback;
   2. streams one `prefill_chunk` of each PREFILL slot's prompt into the
-     pool, token by token through a batch-1 view of the step (other slots
-     untouched);
-  3. runs ONE `serve_step_paged` over the whole pool for the DECODE slots,
-     maps (and copy-on-write protects) each slot's write page first —
-     preempting the lowest-priority slot under page pressure — samples
+     caches, token by token through a batch-1 view of the step (other
+     slots untouched);
+  3. runs ONE model step over the whole pool for the DECODE slots (paged:
+     mapping, and copy-on-write protecting, each slot's write page first,
+     preempting the lowest-priority slot under page pressure), samples
      their next tokens (greedy by default), and keeps the new per-slot
-     state only for active rows (inactive rows write to the sink page);
+     state only for active rows (inactive rows write nothing: the dense
+     step keeps their cache rows, the paged step sends them to the sink
+     page);
   4. retires finished slots (eos or max_new_tokens), releasing their pages
      and poisoning their feedback rows.
 
@@ -30,9 +34,12 @@ the DECODE slot with the fewest generated tokens. The victim returns to
 the front of the queue and replays deterministically.
 
 The engine runs on its model's device (the card unless the model was built
-with device="cpu"). It serves `kv_layout="paged"` with `paged_attn="fused"`;
-the dense layout, the gather oracle, speculative decoding and sequence
-sharding are later slices of the port and raise NotImplementedError.
+with device="cpu"). It serves `kv_layout="dense"` (the default) and
+`kv_layout="paged"` with `paged_attn="fused"` or `"gather"` and
+`gather_granularity="token"` or `"page"`; speculative decoding and
+sequence sharding are later slices of the port and raise
+NotImplementedError. The dense layout has no prefix cache, so it reports
+`prefix_hit_tokens` 0 and `peak_page_utilization` 0.0, as the reference.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import PAGED_NEVER_WRITE
+from repro_torch.models.transformer import PAGED_NEVER_WRITE, check_paged_options
 
 from . import sampling
 from .feedback_pool import FeedbackPool
@@ -129,18 +136,17 @@ class DecodeEngine:
     def __init__(self, model, params, *, num_slots: int, max_len: int,
                  prefill_chunk: int = 8, scheduler="fifo",
                  eos_id: Optional[int] = None, record_logits: bool = False,
-                 kv_layout: str = "paged", page_size: int = 16,
+                 kv_layout: str = "dense", page_size: int = 16,
                  num_pages: Optional[int] = None, prefix_caching: bool = True,
-                 paged_attn: str = "fused", seq_shards: int = 1,
-                 spec_depth: int = 0):
-        if kv_layout != "paged":
-            raise NotImplementedError(
-                f"kv_layout={kv_layout!r} is not ported yet (ROADMAP Queue A "
-                f"item 1: the dense KV layout); the port serves 'paged'")
-        if paged_attn != "fused":
-            raise NotImplementedError(
-                f"paged_attn={paged_attn!r} is not ported yet (ROADMAP Queue "
-                f"A item 3: the gather oracle); the port serves 'fused'")
+                 paged_attn: str = "fused", gather_granularity: str = "token",
+                 seq_shards: int = 1, spec_depth: int = 0):
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        check_paged_options(paged_attn, gather_granularity)
+        if gather_granularity == "page" and kv_layout != "paged":
+            raise ValueError(
+                "gather_granularity='page' requires kv_layout='paged' "
+                "(page-granular reads address the page pools)")
         if spec_depth > 0:
             raise NotImplementedError(
                 "spec_depth > 0 is not ported yet (ROADMAP Queue A item 2: "
@@ -160,22 +166,35 @@ class DecodeEngine:
         self.record_logits = record_logits
         self.scheduler: Scheduler = (scheduler if isinstance(scheduler, Scheduler)
                                      else make_scheduler(scheduler))
+        self.kv_layout = kv_layout
+        self.paged_attn = paged_attn
+        self.gather_granularity = gather_granularity
         self.pool = FeedbackPool(model, self.num_slots)
 
-        self._axes = model.paged_state_batch_axes()
-        if self.max_len % int(page_size) != 0:
-            raise ValueError(f"max_len ({self.max_len}) must be a multiple of "
-                             f"page_size ({page_size})")
-        pages_per_slot = self.max_len // int(page_size)
-        self.num_pages = (int(num_pages) if num_pages is not None
-                          else self.num_slots * pages_per_slot)
-        self.kv = PagedKVManager(num_slots=self.num_slots, max_len=self.max_len,
-                                 page_size=int(page_size),
-                                 num_pages=self.num_pages,
-                                 prefix_caching=prefix_caching)
-        self.state = model.init_paged_decode_state(
-            self.num_slots, self.max_len, num_pages=self.num_pages,
-            page_size=int(page_size))
+        self.kv: Optional[PagedKVManager] = None
+        if kv_layout == "paged":
+            # the page pools are pool-global: every per-slot leaf is merged
+            self._axes = self._merge_axes = model.paged_state_batch_axes()
+            if self.max_len % int(page_size) != 0:
+                raise ValueError(f"max_len ({self.max_len}) must be a "
+                                 f"multiple of page_size ({page_size})")
+            pages_per_slot = self.max_len // int(page_size)
+            self.num_pages = (int(num_pages) if num_pages is not None
+                              else self.num_slots * pages_per_slot)
+            self.kv = PagedKVManager(num_slots=self.num_slots,
+                                     max_len=self.max_len,
+                                     page_size=int(page_size),
+                                     num_pages=self.num_pages,
+                                     prefix_caching=prefix_caching)
+            self.state = model.init_paged_decode_state(
+                self.num_slots, self.max_len, num_pages=self.num_pages,
+                page_size=int(page_size))
+        else:
+            self._axes = model.state_batch_axes()
+            # the caches are written in place by the step (inactive rows
+            # kept): only the leaves it returns anew are merged
+            self._merge_axes = model.state_merge_axes()
+            self.state = model.init_decode_state(self.num_slots, self.max_len)
 
         self.slots: List[Optional[Request]] = [None] * self.num_slots
         self.tick_count = 0
@@ -203,15 +222,21 @@ class DecodeEngine:
     # ---- device steps ---------------------------------------------------
 
     def _step(self, state, tokens: torch.Tensor, min_write_pos):
-        return self.model.serve_step_paged(self.params, state, tokens,
-                                           min_write_pos=min_write_pos)
+        """Layout dispatch: one model step over the given (sub-)pool."""
+        if self.kv is None:
+            return self.model.serve_step(self.params, state, tokens,
+                                         min_write_pos=min_write_pos)
+        return self.model.serve_step_paged(
+            self.params, state, tokens, min_write_pos=min_write_pos,
+            paged_attn=self.paged_attn,
+            gather_granularity=self.gather_granularity)
 
     def _merge_active(self, new_state, state, active: torch.Tensor):
-        """Keep `new_state` only for active rows; the pool-global page
-        leaves pass through (inactive rows wrote to the sink page)."""
+        """Keep `new_state` only for active rows; the caches pass through
+        (inactive rows kept their cache rows or wrote to the sink page)."""
         merged = {}
         for key, arr in new_state.items():
-            ax = self._axes.get(key)
+            ax = self._merge_axes.get(key)
             if ax is None:
                 merged[key] = arr
                 continue
@@ -238,7 +263,7 @@ class DecodeEngine:
             if i == 0 and "sel_gvr" in sub:
                 first_gvr = bool(sub["sel_gvr"][0, 0])
         state = dict(self.state)
-        for k, ax in self._axes.items():
+        for k, ax in self._merge_axes.items():
             full = state[k].clone()
             full.narrow(ax, slot, 1).copy_(sub[k])
             state[k] = full
@@ -254,7 +279,7 @@ class DecodeEngine:
                 f"request {request.uid}: prompt ({len(request.prompt)}) + "
                 f"max_new ({request.max_new_tokens}) exceeds max_len "
                 f"({self.max_len})")
-        if not self.kv.can_ever_hold(total):
+        if self.kv is not None and not self.kv.can_ever_hold(total):
             raise ValueError(f"request {request.uid}: "
                              f"{self.kv.sizing_error(total)} — it could never "
                              f"admit")
@@ -277,7 +302,7 @@ class DecodeEngine:
                                      top_p=req.top_p)
 
     def _push_page_table(self) -> None:
-        if self.kv.dirty:
+        if self.kv is not None and self.kv.dirty:
             self.state["page_table"] = torch.as_tensor(
                 self.kv.table_array()).to(self.device)
             self.kv.dirty = False
@@ -358,16 +383,18 @@ class DecodeEngine:
             req = self.scheduler.peek(self.tick_count)
             if req is None:
                 return
-            plan = self.kv.admit(slot, req.prompt)
-            if plan is None:
-                return               # pool exhausted: stay queued, retry
+            plan = None
+            if self.kv is not None:
+                plan = self.kv.admit(slot, req.prompt)
+                if plan is None:
+                    return           # pool exhausted: stay queued, retry
             self.scheduler.take(req)
             self.state = self.pool.admit(self.state, slot,
                                          seq_len_hint=len(req.prompt))
-            req._materialized = plan.materialized
-            req._skip = plan.skip_len
-            req.prefill_pos = plan.skip_len
-            if plan.skip_len:
+            req._materialized = plan.materialized if plan else 0
+            req._skip = plan.skip_len if plan else 0
+            req.prefill_pos = req._skip
+            if plan is not None and plan.skip_len:
                 length = self.state["length"].clone()
                 length[slot] = plan.skip_len
                 self.state["length"] = length
@@ -394,7 +421,8 @@ class DecodeEngine:
             req.prefill_pos += len(chunk)
             self.prefill_tokens += len(chunk)
             if req.prefill_pos >= len(req.prompt):
-                self.kv.commit_prefix(req.slot, req.prompt)
+                if self.kv is not None:
+                    self.kv.commit_prefix(req.slot, req.prompt)
                 # the last prompt token's logits yield the first generation
                 req.phase = DECODE
                 row = last_logits[0]
@@ -406,11 +434,13 @@ class DecodeEngine:
                 self._maybe_finish(req.slot)
 
     def _decode_tick(self) -> None:
-        for s, req in enumerate(self.slots):
-            if req is None or req.phase != DECODE:
-                continue
-            self._ensure_decode_page(s, len(req.prompt) + len(req.generated) - 1)
-        self._push_page_table()
+        if self.kv is not None:
+            for s, req in enumerate(self.slots):
+                if req is None or req.phase != DECODE:
+                    continue
+                self._ensure_decode_page(
+                    s, len(req.prompt) + len(req.generated) - 1)
+            self._push_page_table()
         active_np = np.array([r is not None and r.phase == DECODE
                               for r in self.slots])
         if not active_np.any():
@@ -446,7 +476,8 @@ class DecodeEngine:
                     and req.generated[-1] == self.eos_id)):
             req.phase = DONE
             req.finished_at = self.tick_count
-            self.kv.release_slot(slot)
+            if self.kv is not None:
+                self.kv.release_slot(slot)
             self.state = self.pool.evict(self.state, slot)
             self.slots[slot] = None
             self.completed.append(req)
@@ -458,9 +489,11 @@ class DecodeEngine:
                                   sum(r is not None for r in self.slots))
         self._prefill_tick()
         self._decode_tick()
-        self.peak_pages_in_use = max(self.peak_pages_in_use, self.kv.pages_in_use)
-        self.peak_pool_util = max(self.peak_pool_util,
-                                  self.kv.hot_pool_utilization)
+        if self.kv is not None:
+            self.peak_pages_in_use = max(self.peak_pages_in_use,
+                                         self.kv.pages_in_use)
+            self.peak_pool_util = max(self.peak_pool_util,
+                                      self.kv.hot_pool_utilization)
         self.tick_count += 1
 
     def idle(self) -> bool:
@@ -475,14 +508,16 @@ class DecodeEngine:
             self.submit(r)
         t0 = time.perf_counter()
         self.peak_occupancy = sum(r is not None for r in self.slots)
-        self.peak_pages_in_use = self.kv.pages_in_use
-        self.peak_pool_util = self.kv.hot_pool_utilization
+        self.peak_pages_in_use = (self.kv.pages_in_use
+                                  if self.kv is not None else 0)
+        self.peak_pool_util = (self.kv.hot_pool_utilization
+                               if self.kv is not None else 0.0)
         start_tick = self.tick_count
         start_decoded = self.decoded_tokens
         start_prefill = self.prefill_tokens
         start_completed = len(self.completed)
         start_preempt = self.preemptions
-        start_skipped = self.kv.skipped_tokens
+        start_skipped = self.kv.skipped_tokens if self.kv is not None else 0
         while not self.idle() and self.tick_count - start_tick < max_ticks:
             self.tick()
         if self.device.type == "cuda":
@@ -505,5 +540,6 @@ class DecodeEngine:
             prefill_method_counts=by_phase[PREFILL],
             decode_method_counts=by_phase[DECODE],
             preemptions=self.preemptions - start_preempt,
-            prefix_hit_tokens=self.kv.skipped_tokens - start_skipped,
+            prefix_hit_tokens=(self.kv.skipped_tokens - start_skipped
+                               if self.kv is not None else 0),
             peak_page_utilization=self.peak_pool_util)

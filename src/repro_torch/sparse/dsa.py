@@ -5,14 +5,21 @@ Indices live in logical token space end to end: `prev_topk` (the temporal
 feedback buffer) and the selected indices are positions within the
 request's own context, whatever the physical page layout.
 
-The served paged step runs `dsa_decode_paged`:
-  1. `dsa_select_paged` — the indexer query (RoPE'd, cast to the cache
-     dtype) scores every logical position through the block table and the
-     exact Top-K is selected: kernels B2 (scoring) + B1 (GVR) on the card;
-  2. `ops.paged_sparse_decode_attn` — attention over exactly the K
-     selected rows, each read from `table[b, idx // ps]` (kernel B3).
-On the CPU the same wrappers run their plain versions. `indexer_scores`
-is the plain score row over a contiguous indexer view, kept for tests.
+Two physical forms share the same front half (indexer scoring + exact
+Top-K, bit-identical on the card because B2 and B5 sum every score in the
+same order):
+
+* `dsa_decode` — caches arrive as contiguous logical views (the dense
+  layout, or the paged `paged_attn="gather"` oracle, which builds the
+  views first with kernel B7): `dsa_select` scores and selects (kernels B5
+  + B1 on the card), then `dsa_sparse_attention` attends the K selected
+  rows (kernel B6);
+* `dsa_decode_paged` — block-table-native: `dsa_select_paged` scores
+  through the block table (B2 + B1), then `dsa_sparse_attention_paged`
+  reads exactly the K selected rows from the page pools, one row per entry
+  (B3) or each distinct touched page whole (`granularity="page"`, B10).
+
+On the CPU the same wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -22,10 +29,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import distinct_pages
 from repro_torch.models.layers import apply_rotary
 from .selector import SelectorOutput, resolve_method, select_topk
-
-NEG = -3.4028234663852886e38
 
 
 def indexer_init(generator: torch.Generator, d_model: int, heads: int,
@@ -59,17 +65,14 @@ def indexer_q(params, x: torch.Tensor, positions: torch.Tensor, *, heads: int,
 def indexer_scores(params, x: torch.Tensor, idx_kcache: torch.Tensor,
                    positions: torch.Tensor, lengths: torch.Tensor, *,
                    heads: int, dim: int, rope_base: float) -> torch.Tensor:
-    """Eq. 1 over a contiguous indexer view (plain form): I = sum_j w_j
-    ReLU(q_j · K_I^T). idx_kcache: (B, N, dim). Returns (B, N) f32, NEG
-    beyond `lengths`."""
-    n = idx_kcache.shape[1]
+    """Eq. 1 over a contiguous indexer view: I = sum_j w_j ReLU(q_j ·
+    K_I^T) (kernel B5's scoring launch on the card). idx_kcache: (B, N,
+    dim). Returns (B, N) f32, NEG beyond `lengths`."""
     q = indexer_q(params, x, positions, heads=heads, dim=dim,
                   rope_base=rope_base, dtype=idx_kcache.dtype)
-    s = torch.einsum("bhd,bnd->bhn", q.float(), idx_kcache.float()).clamp_min(0.0)
-    scores = torch.einsum("h,bhn->bn", params["w"].float(), s)
-    pos = torch.arange(n, device=x.device)
-    return torch.where(pos[None, :] < lengths[:, None], scores,
-                       torch.full_like(scores, NEG))
+    return ops.indexer_scores(q, idx_kcache.contiguous(),
+                              params["w"].float().contiguous(),
+                              lengths.int().contiguous())
 
 
 def indexer_k(params, x: torch.Tensor, positions: torch.Tensor, *, dim: int,
@@ -87,19 +90,57 @@ class DSAOutput(NamedTuple):
     gvr_rows: Optional[torch.Tensor] = None  # (B,) bool — selector path
 
 
+def _no_swa(swa_window: Optional[int]) -> None:
+    if swa_window is not None:
+        raise NotImplementedError(
+            "DSA selection under a sliding window is not ported yet (ROADMAP "
+            "Queue A item 5: the SWA families)")
+
+
+def _select(scoring, topk, q, w, prev_topk, lengths, n: int, *, k: int,
+            selector: str, prev_valid, max_candidates, gate_max_n: int,
+            min_n: int) -> SelectorOutput:
+    """Shared Top-K dispatch of both layouts. Under the GVR methods every
+    row goes through the scoring + GVR kernels (`topk`: exact for warm and
+    cold rows alike, so `gvr_rows` stays the `prev_valid` warm mask the
+    selector's per-row dispatch reports); the other methods score with
+    `scoring` and select with the plain `select_topk`."""
+    method = resolve_method(selector, n, has_prev=prev_topk is not None,
+                            has_valid=prev_valid is not None,
+                            gate_max_n=gate_max_n, min_n_for_selection=min_n)
+    if method in ("gvr", "mixed"):
+        vals, idx, stats = topk(q, w, prev_topk.int().contiguous(), k,
+                                lengths=lengths, max_candidates=max_candidates)
+        rows = (prev_valid.bool() if method == "mixed"
+                else torch.ones_like(lengths, dtype=torch.bool))
+        return SelectorOutput(idx, vals, method, stats[:, 0].int(), rows)
+    scores = scoring(q, w, lengths)
+    return select_topk(scores, k, prev_idx=prev_topk, prev_valid=prev_valid,
+                       method=method, max_candidates=max_candidates,
+                       gate_max_n=gate_max_n, min_n_for_selection=min_n)
+
+
 def dsa_select(indexer_params, x: torch.Tensor, idx_kcache: torch.Tensor,
                prev_topk: torch.Tensor, lengths: torch.Tensor, *, k: int,
                heads: int, dim: int, rope_base: float, selector: str = "auto",
                prev_valid: Optional[torch.Tensor] = None,
                max_candidates: Optional[int] = None,
-               gate_max_n: int = 200_000, min_n: int = 4096) -> SelectorOutput:
-    """Indexer scoring + Top-K selection over a contiguous indexer view
-    (plain form of the front half of the DSA pipeline)."""
-    scores = indexer_scores(indexer_params, x, idx_kcache, lengths - 1,
-                            lengths, heads=heads, dim=dim, rope_base=rope_base)
-    return select_topk(scores, k, prev_idx=prev_topk, prev_valid=prev_valid,
-                       method=selector, max_candidates=max_candidates,
-                       gate_max_n=gate_max_n, min_n_for_selection=min_n)
+               gate_max_n: int = 200_000, min_n: int = 4096,
+               swa_window: Optional[int] = None) -> SelectorOutput:
+    """Indexer scoring + exact Top-K over a contiguous indexer view
+    (B, N, dim): kernels B5 (scoring) + B1 (GVR) on the card."""
+    _no_swa(swa_window)
+    kc = idx_kcache.contiguous()
+    lengths = lengths.int().contiguous()
+    q = indexer_q(indexer_params, x, lengths - 1, heads=heads, dim=dim,
+                  rope_base=rope_base, dtype=kc.dtype)
+    w = indexer_params["w"].float().contiguous()
+    return _select(
+        lambda q_, w_, ln: ops.indexer_scores(q_, kc, w_, ln),
+        lambda q_, w_, prev, kk, **kw: ops.indexer_topk(q_, kc, w_, prev, kk, **kw),
+        q, w, prev_topk, lengths, kc.shape[1], k=k, selector=selector,
+        prev_valid=prev_valid, max_candidates=max_candidates,
+        gate_max_n=gate_max_n, min_n=min_n)
 
 
 def dsa_select_paged(indexer_params, x: torch.Tensor, idx_k_pages: torch.Tensor,
@@ -110,38 +151,81 @@ def dsa_select_paged(indexer_params, x: torch.Tensor, idx_k_pages: torch.Tensor,
                      max_candidates: Optional[int] = None,
                      gate_max_n: int = 200_000, min_n: int = 4096,
                      swa_window: Optional[int] = None) -> SelectorOutput:
-    """Indexer scoring + exact Top-K over the paged indexer-K pool.
-
-    Under the GVR methods every row goes through `ops.paged_indexer_topk`
-    (B2 scoring + B1 selection) — exact for warm and cold rows alike, so
-    `gvr_rows` stays the `prev_valid` warm mask the selector's per-row
-    dispatch reports. The other methods score with B2 and select with the
-    plain `select_topk`.
-    """
-    if swa_window is not None:
-        raise NotImplementedError(
-            "DSA selection under a sliding window is not ported yet (ROADMAP "
-            "Queue A item 5: the SWA families)")
-    ps = idx_k_pages.shape[1]
-    n = table.shape[1] * ps
-    positions = lengths - 1
-    q = indexer_q(indexer_params, x, positions, heads=heads, dim=dim,
+    """Indexer scoring + exact Top-K over the paged indexer-K pool: kernels
+    B2 (scoring through the block table) + B1 (GVR) on the card."""
+    _no_swa(swa_window)
+    lengths = lengths.int().contiguous()
+    q = indexer_q(indexer_params, x, lengths - 1, heads=heads, dim=dim,
                   rope_base=rope_base, dtype=idx_k_pages.dtype)
-    method = resolve_method(selector, n, has_prev=prev_topk is not None,
-                            has_valid=prev_valid is not None,
-                            gate_max_n=gate_max_n, min_n_for_selection=min_n)
     w = indexer_params["w"].float().contiguous()
-    if method in ("gvr", "mixed"):
-        vals, idx, stats = ops.paged_indexer_topk(
-            q, idx_k_pages, w, table, prev_topk.int().contiguous(), k,
-            lengths=lengths, max_candidates=max_candidates)
-        rows = (prev_valid.bool() if method == "mixed"
-                else torch.ones_like(lengths, dtype=torch.bool))
-        return SelectorOutput(idx, vals, method, stats[:, 0].int(), rows)
-    scores = ops.paged_indexer_scores(q, idx_k_pages, w, table, lengths)
-    return select_topk(scores, k, prev_idx=prev_topk, prev_valid=prev_valid,
-                       method=method, max_candidates=max_candidates,
-                       gate_max_n=gate_max_n, min_n_for_selection=min_n)
+    return _select(
+        lambda q_, w_, ln: ops.paged_indexer_scores(q_, idx_k_pages, w_, table, ln),
+        lambda q_, w_, prev, kk, **kw: ops.paged_indexer_topk(
+            q_, idx_k_pages, w_, table, prev, kk, **kw),
+        q, w, prev_topk, lengths, table.shape[1] * idx_k_pages.shape[1], k=k,
+        selector=selector, prev_valid=prev_valid,
+        max_candidates=max_candidates, gate_max_n=gate_max_n, min_n=min_n)
+
+
+def dsa_sparse_attention(q: torch.Tensor, kcache: torch.Tensor,
+                         vcache: torch.Tensor, topk_idx: torch.Tensor,
+                         lengths: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """Attention over the Top-K selected rows of contiguous caches
+    (B, N, KVH, HD) — kernel B6 on the card. An entry counts iff it lies in
+    [0, length). Returns (B, H, HD) f32."""
+    return ops.sparse_decode_attn(q.to(kcache.dtype).contiguous(), kcache,
+                                  vcache, topk_idx.int().contiguous(),
+                                  lengths.int().contiguous(), scale=scale)
+
+
+def page_gather_stats(topk_idx: torch.Tensor, *, page_size: int,
+                      num_logical_pages: int) -> torch.Tensor:
+    """(B,) int32 distinct-page counts of a Top-K selection: the
+    page-granular gather moves count × page_size rows where the
+    token-granular one moves K."""
+    n = num_logical_pages * page_size
+    up = distinct_pages(topk_idx.long().clamp(0, n - 1), page_size=page_size,
+                        num_logical_pages=num_logical_pages)
+    return (up < num_logical_pages).sum(1).int()
+
+
+def dsa_sparse_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, table: torch.Tensor,
+                               topk_idx: torch.Tensor, lengths: torch.Tensor,
+                               *, scale: float,
+                               granularity: str = "token") -> torch.Tensor:
+    """Block-table-native attention over the K selected LOGICAL rows: each
+    read from page `table[b, idx // page_size]` at offset `idx % page_size`
+    ("token": kernel B3), or each distinct touched page read whole and the
+    unselected rows masked ("page": kernel B10). Masking: an entry counts
+    iff it lies in [0, length) and its page is mapped."""
+    attn = {"token": ops.paged_sparse_decode_attn,
+            "page": ops.paged_sparse_decode_attn_pg}[granularity]
+    return attn(q.to(k_pages.dtype).contiguous(), k_pages, v_pages, table,
+                topk_idx.int().contiguous(), lengths.int().contiguous(),
+                scale=scale)
+
+
+def dsa_decode(q: torch.Tensor, kcache: torch.Tensor, vcache: torch.Tensor,
+               indexer_params, x: torch.Tensor, idx_kcache: torch.Tensor,
+               prev_topk: torch.Tensor, lengths: torch.Tensor, *, k: int,
+               scale: float, heads: int, dim: int, rope_base: float,
+               selector: str = "auto",
+               prev_valid: Optional[torch.Tensor] = None,
+               max_candidates: Optional[int] = None,
+               gate_max_n: int = 200_000, min_n: int = 4096,
+               swa_window: Optional[int] = None) -> DSAOutput:
+    """DSA decode step for one layer over contiguous logical views: select
+    over the indexer cache (B5 + B1), then attend over exactly the K
+    selected rows (B6)."""
+    sel = dsa_select(indexer_params, x, idx_kcache, prev_topk, lengths, k=k,
+                     heads=heads, dim=dim, rope_base=rope_base,
+                     selector=selector, prev_valid=prev_valid,
+                     max_candidates=max_candidates, gate_max_n=gate_max_n,
+                     min_n=min_n, swa_window=swa_window)
+    out = dsa_sparse_attention(q, kcache, vcache, sel.indices, lengths,
+                               scale=scale)
+    return DSAOutput(out, sel.indices, sel.secant_iters, sel.gvr_rows)
 
 
 def dsa_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
@@ -153,11 +237,11 @@ def dsa_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                      prev_valid: Optional[torch.Tensor] = None,
                      max_candidates: Optional[int] = None,
                      gate_max_n: int = 200_000, min_n: int = 4096,
-                     swa_window: Optional[int] = None) -> DSAOutput:
+                     swa_window: Optional[int] = None,
+                     gather_granularity: str = "token") -> DSAOutput:
     """Block-table-native DSA decode step for one layer: select over the
-    paged indexer keys, then attend over exactly the K selected rows
-    straight from the page pools (kernel B3). Masking: an entry counts iff
-    it lies in [0, length) and its page is mapped."""
+    paged indexer keys (B2 + B1), then attend over exactly the K selected
+    rows straight from the page pools (B3, or B10 at page granularity)."""
     sel = dsa_select_paged(indexer_params, x, idx_k_pages, table, prev_topk,
                            lengths, k=k, heads=heads, dim=dim,
                            rope_base=rope_base, selector=selector,
@@ -165,8 +249,7 @@ def dsa_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                            max_candidates=max_candidates,
                            gate_max_n=gate_max_n, min_n=min_n,
                            swa_window=swa_window)
-    out = ops.paged_sparse_decode_attn(q.to(k_pages.dtype).contiguous(),
-                                       k_pages, v_pages, table,
-                                       sel.indices.contiguous(), lengths,
-                                       scale=scale)
+    out = dsa_sparse_attention_paged(q, k_pages, v_pages, table, sel.indices,
+                                     lengths, scale=scale,
+                                     granularity=gather_granularity)
     return DSAOutput(out, sel.indices, sel.secant_iters, sel.gvr_rows)

@@ -8,10 +8,12 @@ no JAX, so it runs on a machine with the card and PyTorch alone:
 Tolerances: Top-K bit-exact; the score row within 1e-5 (bf16 or f32
 products are exact or rounded once in f32, the sums run in another order);
 attention within 1e-4 (f32 softmax and PV sums over the same rows in
-another order). Shapes cover what `chip_smoke.py` does not: rows too long
-for shared memory (B1 then reads the row from global memory, up to the
-gate's N = 200,000), ragged N, other GQA groups, head dims and page sizes,
-and float32 pools.
+another order); the page gather exact. The contiguous forms must equal the
+paged ones over the same keys bit for bit (B5 == B2, B6 == B3). Shapes
+cover what `chip_smoke.py` does not: rows too long for shared memory (B1
+then reads the row from global memory, up to the gate's N = 200,000),
+ragged N, other GQA groups, head dims and page sizes, float32 caches, and
+pages whose size in bytes is not a multiple of 16 (B7's byte path).
 """
 
 import pytest
@@ -97,6 +99,77 @@ def test_b3_b4_paged_attention_on_card(dev, dtype, kvh, h, hd, ps):
             ops.paged_dense_decode_attn(q, kp, vp, table, lengths, window=window),
             ref.paged_dense_attn_ref(q, kp, vp, table, lengths, window=window),
             rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ps,hi,di", [
+    (torch.bfloat16, 64, 64, 128), (torch.float32, 16, 4, 32),
+    (torch.bfloat16, 8, 8, 64)])
+def test_b5_indexer_scores_on_card_equal_b2(dev, dtype, ps, hi, di):
+    g = torch.Generator(device=dev).manual_seed(ps + 5)
+    b, mp, k = 3, 12, 40
+    n = mp * ps
+    table = torch.randperm(b * mp, generator=g, device=dev).int().reshape(b, mp)
+    pages = torch.randn((b * mp, ps, di), generator=g, device=dev).to(dtype)
+    kc = pages[table.long()].reshape(b, n, di).contiguous()
+    q = torch.randn((b, hi, di), generator=g, device=dev).to(dtype)
+    w = torch.rand((hi,), generator=g, device=dev)
+    lengths = torch.tensor([n, 7 * ps - 3, 1], dtype=torch.int32, device=dev)
+    s5 = ops.indexer_scores(q, kc, w, lengths)
+    assert torch.equal(s5, ops.paged_indexer_scores(q, pages, w, table, lengths))
+    torch.testing.assert_close(s5, ref.indexer_scores_ref(q, kc, w, lengths),
+                               rtol=1e-5, atol=1e-5)
+    wb = torch.rand((b, hi), generator=g, device=dev)
+    torch.testing.assert_close(ops.indexer_scores(q, kc, wb, lengths),
+                               ref.indexer_scores_ref(q, kc, wb, lengths),
+                               rtol=1e-5, atol=1e-5)
+    prev = torch.randint(-1, n, (b, k), generator=g, device=dev).int()
+    v1, i1, _ = ops.indexer_topk(q, kc, w, prev, k, lengths=lengths)
+    v0, i0, _ = ref.gvr_topk_ref(s5, prev, k)
+    assert torch.equal(i1, i0) and torch.equal(v1, v0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kvh,h,hd,ps", [
+    (torch.bfloat16, 8, 32, 64, 64), (torch.float32, 2, 4, 32, 8),
+    (torch.bfloat16, 1, 8, 128, 16)])
+def test_b6_b10_sparse_attention_on_card(dev, dtype, kvh, h, hd, ps):
+    g = torch.Generator(device=dev).manual_seed(hd + ps)
+    b, mp, k = 3, 40, 300
+    n = mp * ps
+    p = b * mp + 1
+    table = torch.randperm(p, generator=g, device=dev)[:b * mp].int().reshape(b, mp)
+    lengths = torch.tensor([n, n // 3, 20 * ps - 5], dtype=torch.int32, device=dev)
+    table[2, 20:] = -1
+    kp = torch.randn((p, ps, kvh, hd), generator=g, device=dev).to(dtype)
+    vp = torch.randn((p, ps, kvh, hd), generator=g, device=dev).to(dtype)
+    q = torch.randn((b, h, hd), generator=g, device=dev).to(dtype)
+    idx = torch.randint(-1, n, (b, k), generator=g, device=dev).int()
+    idx[0, :7] = idx[0, 7]                                # duplicates
+    kc = kp[table.clamp(min=0).long()].reshape(b, n, kvh, hd).contiguous()
+    vc = vp[table.clamp(min=0).long()].reshape(b, n, kvh, hd).contiguous()
+    o6 = ops.sparse_decode_attn(q, kc, vc, idx, lengths)
+    assert torch.equal(o6, ops.paged_sparse_decode_attn(q, kp, vp, table, idx, lengths))
+    torch.testing.assert_close(o6, ref.sparse_attn_ref(q, kc, vc, idx, lengths),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(
+        ops.paged_sparse_decode_attn_pg(q, kp, vp, table, idx, lengths),
+        ref.paged_sparse_attn_pg_ref(q, kp, vp, table, idx, lengths),
+        rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,feat", [
+    (torch.bfloat16, (8, 64)), (torch.float32, (128,)), (torch.bfloat16, (3,))])
+def test_b7_paged_gather_on_card(dev, dtype, feat):
+    g = torch.Generator(device=dev).manual_seed(len(feat))
+    p, ps, b, mp = 30, 16, 3, 9
+    pages = torch.randn((p, ps) + feat, generator=g, device=dev).to(dtype)
+    table = torch.randperm(p, generator=g, device=dev)[:b * mp].int().reshape(b, mp)
+    table[1, 4:] = -1
+    table[2, 0] = p + 3                                   # out of the pool
+    assert torch.equal(ops.paged_gather(pages, table),
+                       ref.paged_gather_ref(pages, table))
 
 
 @pytest.mark.cuda

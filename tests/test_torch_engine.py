@@ -107,7 +107,7 @@ def test_engine_matches_raw_serve_step_loop(models):
                                             torch.tensor([ref[-1]], dtype=torch.int32))
         ref.append(int(torch.argmax(logits[0])))
     eng = DecodeEngine(tm, tparams, num_slots=2, max_len=64, prefill_chunk=4,
-                       page_size=8)
+                       kv_layout="paged", page_size=8)
     reqs = [Request(uid=0, prompt=prompt, max_new_tokens=6),
             Request(uid=1, prompt=rng.integers(0, 512, (11,)), max_new_tokens=6)]
     rep = eng.run(reqs, max_ticks=500)
@@ -118,12 +118,23 @@ def test_engine_matches_raw_serve_step_loop(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(kv_layout="dense"), "item 1"), (dict(paged_attn="gather"), "item 3"),
     (dict(spec_depth=2), "item 2"), (dict(seq_shards=2), "item 4")])
 def test_unported_engine_options_raise(models, kw, item):
     _, _, tm, tparams = models
     with pytest.raises(NotImplementedError, match=item):
         DecodeEngine(tm, tparams, num_slots=1, max_len=64, page_size=8, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kv_layout="dense"), dict(kv_layout="paged", paged_attn="gather"),
+    dict(kv_layout="paged", gather_granularity="page")])
+def test_ported_engine_options_serve_a_request(models, kw):
+    _, _, tm, tparams = models
+    eng = DecodeEngine(tm, tparams, num_slots=1, max_len=64, page_size=8, **kw)
+    req = Request(uid=0, prompt=np.arange(6), max_new_tokens=4)
+    rep = eng.run([req], max_ticks=100)
+    assert rep.completed == 1 and len(req.generated) == 4
+    assert [m for _, _, m in eng.method_log[0]][1:] == ["gvr"] * 3
 
 
 def test_sampling_deterministic_and_seed_sensitive(models):

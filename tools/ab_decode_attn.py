@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""Time kernels B3 (paged sparse decode attention) and B4 (paged dense
+decode attention) of two checkouts of the PyTorch port on one card.
+
+    python3 tools/ab_decode_attn.py CHECKOUT_A CHECKOUT_B
+
+Runs A, B, B, A, each in a process of its own (the two packages share the
+name `repro_torch`), and prints one line per run:
+
+    AB <checkout>: B3 <ms> ms, B4 <ms> ms
+
+Each kernel is built from the checkout's own sources into its
+`build/kernels/`. Shapes are those of `chip_smoke.py`'s kernel phase:
+B=4, N=8192, page 64, K=2048, llama3.2-1b widths (32 query heads, 8 KV
+heads, head_dim 64), bf16 pools through a shuffled block table. B3 attends
+over K random distinct rows per slot at lengths 8192, 5000, 1000 and 3001;
+B4 over every slot's whole extent (N rows). A time is the median of 50
+calls by CUDA events, with the L2 flushed before each call. Compare two
+checkouts only within one run of this script: cards and machines differ.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+B, N, PS, K, H, KVH, HD = 4, 8192, 64, 2048, 32, 8, 64
+SPARSE_LENGTHS = (8192, 5000, 1000, 3001)
+
+
+def _time_ms(fn, flush, iters: int = 50, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for s, e in ev:
+        flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+def child(root: Path) -> None:
+    """Time B3 and B4 of the checkout at `root` and print the AB line."""
+    import torch
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1234)
+    mp = N // PS
+    table = torch.randperm(B * mp, generator=g, device=dev).int().reshape(B, mp)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    k_pages, v_pages = rnd(B * mp, PS, KVH, HD), rnd(B * mp, PS, KVH, HD)
+    q = rnd(B, H, HD)
+    idx = torch.stack([torch.randperm(N, generator=g, device=dev)[:K].sort().values
+                       for _ in range(B)]).int().contiguous()
+    sparse_len = torch.tensor(SPARSE_LENGTHS, dtype=torch.int32, device=dev)
+    full_len = torch.full((B,), N, dtype=torch.int32, device=dev)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    b3 = _time_ms(lambda: ops.paged_sparse_decode_attn(
+        q, k_pages, v_pages, table, idx, sparse_len), flush)
+    b4 = _time_ms(lambda: ops.paged_dense_decode_attn(
+        q, k_pages, v_pages, table, full_len), flush)
+    print(f"AB {root}: B3 {b3:.5f} ms, B4 {b4:.5f} ms", flush=True)
+
+
+def main(argv) -> int:
+    if len(argv) == 3 and argv[1] == "--child":
+        child(Path(argv[2]).resolve())
+        return 0
+    if len(argv) != 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    a, b = (Path(p).resolve() for p in argv[1:])
+    for root in (a, b, b, a):
+        out = subprocess.run([sys.executable, __file__, "--child", str(root)],
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode != 0:
+            print(out.stdout + out.stderr, file=sys.stderr)
+            return out.returncode
+        print(out.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
