@@ -4,15 +4,17 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no exception is swallowed):
-  1. build        — compile kernels B1–B7 and B10 from
+  1. build        — compile kernels B1–B10 from
                     src/repro_torch/kernels/csrc with nvcc for sm_90a (one
                     nvcc per source, all started together);
   2. kernels      — hold each kernel against its plain PyTorch version on
                     the card at the main path's shapes (B=4, N=8192,
-                    K=2048, llama3.2-1b widths), edge cases included; B5
-                    and B6 against B2 and B3 bit for bit on the same rows;
-                    time kernel, plain version and (B1, B7) the library call
-                    with CUDA events;
+                    K=2048, llama3.2-1b widths; B8/B9 with Q=3 query rows
+                    per slot), edge cases included; B5 and B6 against B2
+                    and B3 bit for bit on the same rows, B8 against B3 on
+                    the folded rows, B9's scores against B2's and its chain
+                    against sequential B1 launches; time kernel, plain
+                    version and (B1, B7) the library call with CUDA events;
   3. main         — serve requests through `DecodeEngine` (paged, fused,
                     greedy) at the full width of llama3.2-1b, max_len=8192,
                     4 slots; every path below zeroes the launch counts just
@@ -29,10 +31,18 @@ Phases (any failure exits non-zero; no exception is swallowed):
   7. gather, page — the paged engine with `paged_attn="gather"` (B7) and
                     with `gather_granularity="page"` (B10) on a short trace,
                     against a fused run of it;
-  8. dense        — engines at max_len=4096 <= dsa.min_n, the pre-DSA
+  8. spec         — speculative decoding at depth 2 on the short trace,
+                    against the fused run's tokens: scan verify with oracle
+                    drafts (B2/B1/B3), mq verify (B9/B8) with oracle drafts,
+                    with every second draft wrong (the pages checked after
+                    every tick) and with the default n-gram drafter;
+  9. verify-step  — one full-width verify tick of B=4 slots from one state
+                    through scan and mq: tokens, acceptance and the
+                    rolled-back state equal; logits and Top-K compared;
+ 10. dense        — engines at max_len=4096 <= dsa.min_n, the pre-DSA
                     fallback: paged (kernel B4) and the dense layout (plain
                     PyTorch attention);
-  9. summary      — the `kernels` JSON line, the card's name and power
+ 11. summary      — the `kernels` JSON line, the card's name and power
                     limit, and the contract line `{"ok": true, ...}` last.
 
 Weights are random (seeded), so nothing is downloaded. The script needs the
@@ -56,6 +66,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
 STEP_LENGTHS = [5000, 2300, 700, 8000]   # the B=4 steps of [step], [layouts]
+VERIFY_L0 = [4999, 2299, 699, 7997]      # the verify ticks of [kernels], [verify-step]
+SPEC_DEPTH = 2
 
 
 def log(msg: str) -> None:
@@ -321,9 +333,103 @@ def phase_kernels(cfg, flush):
         f"valid entry per slot {pages10} of {mp} (page_gather_stats over all "
         f"entries {stats10.tolist()}), K={k}")
 
-    # ---- times ------------------------------------------------------------
+    # ---- B8 / B9: the verify tick's Q = d+1 query rows per slot ----------
     hi, di = cfg.dsa.indexer_heads, cfg.dsa.indexer_dim
     kvh, hd, h = cfg.n_kv_heads, cfg.hd, cfg.n_heads
+    qn = SPEC_DEPTH + 1
+    lq = (torch.tensor(VERIFY_L0, device=dev)[:, None]
+          + torch.arange(1, qn + 1, device=dev)).int().contiguous()   # L0+q+1
+    inp9 = _paged_inputs(g, dev, b=b, mp=mp, ps=ps,
+                         lengths=[L + qn for L in VERIFY_L0], kvh=kvh, hd=hd,
+                         h=h, di=di, hi=hi)
+    t9 = inp9["table"]
+    qi9 = torch.randn((b, qn, hi, di), generator=g, device=dev).to(torch.bfloat16)
+    q8 = torch.randn((b, qn, h, hd), generator=g, device=dev).to(torch.bfloat16)
+    args9 = (inp9["idx_pages"], inp9["w"], t9)
+    s9 = ops.paged_indexer_scores_mq(qi9, *args9, lq)
+    s9r = ref.paged_indexer_scores_mq_ref(qi9, *args9, lq)
+    torch.cuda.synchronize()
+    for j in range(qn):
+        s2j = ops.paged_indexer_scores(qi9[:, j].contiguous(), *args9,
+                                       lq[:, j].contiguous())
+        if not torch.equal(s9[:, j], s2j):
+            fail(f"B9 scoring: query row {j} differs from B2's score row")
+    live9 = s9r > -1e38
+    if not torch.equal(live9, s9 > -1e38):
+        fail("B9 scoring: NEG mask (per-row length / unmapped pages) differs")
+    # tolerance: B2's (same body, same sums)
+    e9 = float((s9 - s9r)[live9].abs().max())
+    s9_scale = float(s9r[live9].abs().max())
+    if e9 > 1e-4 * s9_scale:
+        fail(f"B9 scoring: max |err| {e9} > 1e-4 * {s9_scale}")
+    noisy9 = s9r[:, 0] + 0.01 * s9_scale * torch.randn(s9r[:, 0].shape, generator=g, device=dev)
+    warm9 = ref.gvr_topk_ref(noisy9, torch.zeros((b, k), dtype=torch.int32, device=dev), k)[1]
+    prev9 = torch.stack([
+        warm9[0],
+        torch.randint(0, n, (k,), generator=g, device=dev).int(),
+        torch.full((k,), -1, dtype=torch.int32, device=dev),     # recycled slot
+        torch.linspace(0, VERIFY_L0[3] - 1, k, device=dev).int()]).contiguous()
+    oob9 = prev9.clone()
+    oob9[1, :100] = n + 7
+    for pr, tag in ((prev9, "main"), (oob9, "prev>=N")):
+        v9, i9, st9 = ops.gvr_topk_chain(s9, pr, k, max_candidates=cmax)
+        v9r, i9r, st9r = ref.gvr_topk_chain_ref(s9, pr, k, max_candidates=cmax)
+        torch.cuda.synchronize()
+        if not (torch.equal(i9, i9r) and torch.equal(v9, v9r)
+                and torch.equal(st9[..., 4:], st9r[..., 4:])):
+            fail(f"B9 chain {tag}: differs from the plain chain")
+        pv = pr
+        for j in range(qn):
+            v1, i1, st1 = ops.gvr_topk(s9[:, j].contiguous(), pv, k,
+                                       max_candidates=cmax)
+            if not (torch.equal(v9[:, j], v1) and torch.equal(i9[:, j], i1)
+                    and torch.equal(st9[:, j], st1)):
+                fail(f"B9 chain {tag}: row {j} differs from sequential B1 "
+                     f"(values, indices or stats)")
+            pv = i1
+        if tag == "main":
+            i9_main, st9_main = i9, st9
+    v9w, i9w, _ = ops.paged_indexer_topk_mq(qi9, *args9, prev9, k, lengths=lq,
+                                            max_candidates=cmax)
+    if not (torch.equal(i9w, i9_main) and torch.equal(v9w, ops.gvr_topk_chain(
+            s9, prev9, k, max_candidates=cmax)[0])):
+        fail("B9: scoring + chain through paged_indexer_topk_mq differs")
+    log(f"[kernels] B9 score rows == B2's bit for bit, max|err| {e9:.3e} "
+        f"(scale {s9_scale:.3e}); chain == {qn} sequential B1 launches bit for "
+        f"bit (values, indices, 8 stats) and == the plain chain (stats 4-7) on "
+        f"warm/random/-1/even and prev>=N predictions; per-row [secant, "
+        f"refine, cand, full-row] = {st9_main[..., :4].int().tolist()}")
+
+    idx8 = i9_main.clone()                 # each row's own Top-K, logical
+    idx8[1, :, :16] = -1
+    idx8[0, 1, 16:32] = VERIFY_L0[0]       # duplicates
+    args8 = (q8, inp9["k_pages"], inp9["v_pages"], t9, idx8, lq)
+    o8 = ops.paged_sparse_decode_attn_mq(*args8)
+    o8r = ref.paged_sparse_attn_mq_ref(*args8)
+    fold3 = ops.paged_sparse_decode_attn(
+        q8.reshape(b * qn, h, hd), inp9["k_pages"], inp9["v_pages"],
+        t9.repeat_interleave(qn, 0).contiguous(), idx8.reshape(b * qn, k),
+        lq.reshape(b * qn))
+    beyond = idx8 >= lq[..., None]
+    o8m = ops.paged_sparse_decode_attn_mq(
+        q8, inp9["k_pages"], inp9["v_pages"], t9,
+        torch.where(beyond, -1, idx8).int().contiguous(), lq)
+    torch.cuda.synchronize()
+    if not torch.equal(o8.reshape(b * qn, h, hd), fold3):
+        fail("B8: output differs from B3's on the folded rows")
+    if not torch.equal(o8, o8m):
+        fail("B8: entries >= the row's length are not masked")
+    # tolerance: B3's
+    e8 = float((o8 - o8r).abs().max())
+    if not torch.allclose(o8, o8r, atol=1e-4, rtol=1e-4):
+        fail(f"B8: max |err| {e8} beyond atol=rtol=1e-4")
+    valid8 = (idx8 >= 0) & ~beyond
+    log(f"[kernels] B8 == B3 on the folded rows bit for bit; allclose, "
+        f"max|err| {e8:.3e}; entries >= length masked ({int(beyond.sum())} "
+        f"in all, slot 2 at L0 {VERIFY_L0[2]} < K); valid entries per row "
+        f"{valid8.sum(-1).tolist()}")
+
+    # ---- times ------------------------------------------------------------
     t = {
         "B1": (time_ms(lambda: ops.gvr_topk(s_ref, prev, k, max_candidates=cmax), flush),
                time_ms(lambda: ref.gvr_topk_ref(s_ref, prev, k, max_candidates=cmax), flush, iters=5),
@@ -345,7 +451,19 @@ def phase_kernels(cfg, flush):
                time_ms(lambda: inp["k_pages"].index_select(0, flat_table.flatten()), flush)),
         "B10": (time_ms(lambda: ops.paged_sparse_decode_attn_pg(*args3), flush),
                 time_ms(lambda: ref.paged_sparse_attn_pg_ref(*args3), flush), None),
+        "B8": (time_ms(lambda: ops.paged_sparse_decode_attn_mq(*args8), flush),
+               time_ms(lambda: ref.paged_sparse_attn_mq_ref(*args8), flush), None),
+        "B9": (time_ms(lambda: ops.paged_indexer_topk_mq(qi9, *args9, prev9, k, lengths=lq, max_candidates=cmax), flush),
+               time_ms(lambda: ref.gvr_topk_chain_ref(ref.paged_indexer_scores_mq_ref(qi9, *args9, lq), prev9, k, max_candidates=cmax), flush, iters=3),
+               None),
     }
+    # the halves of B2 and B9, for the per-row cost of the mq forms
+    halves = {
+        "B2 scoring": time_ms(lambda: ops.paged_indexer_scores(inp["qi"], inp["idx_pages"], inp["w"], table, ln), flush),
+        "B9 scoring": time_ms(lambda: ops.paged_indexer_scores_mq(qi9, *args9, lq), flush),
+        "B9 chain": time_ms(lambda: ops.gvr_topk_chain(s9, prev9, k, max_candidates=cmax), flush),
+    }
+    log("[kernels] halves: " + ", ".join(f"{key} {v:.4f} ms" for key, v in halves.items()))
     # bounds from this run's inputs: each input read once, each output once
     pages_read = sum(-(-L // ps) for L in lengths)
     b1_bytes = b * n * 4 + prev.numel() * 4 + b * k * 8 + b * 32
@@ -374,6 +492,27 @@ def phase_kernels(cfg, flush):
     # B10 computes B3's function (attention over the K selected rows), so
     # its bound is B3's; reading whole touched pages is this design's cost
     results["B10"] = dict(err=e10, bound=bound_ms(b3_bytes, 4 * h * hd * rows3))
+    # B8: each distinct selected (slot, row) pair read once across its Q
+    # query rows; the design reads every valid entry of every row
+    rows8 = int(valid8.sum())
+    pairs8 = sum(len(set(idx8[i][valid8[i]].tolist())) for i in range(b))
+    row_bytes = kvh * hd * 2 * 2
+    b8_bytes = (q8.numel() * 2 + pairs8 * row_bytes + idx8.numel() * 4
+                + t9.numel() * 4 + lq.numel() * 4 + b * qn * h * hd * 4)
+    results["B8"] = dict(err=e8, bound=bound_ms(b8_bytes, 4 * h * hd * rows8))
+    log(f"[kernels] B8 bound reads {pairs8} distinct (slot, row) pairs "
+        f"({pairs8 * row_bytes / 1e6:.3f} MB of K/V); the design reads "
+        f"{rows8} rows ({rows8 * row_bytes / 1e6:.3f} MB)")
+    # B9: each slot's keys up to its longest row read once; the design
+    # reads them once per query row
+    keys9 = sum(-(-int(lq[i].max()) // ps) for i in range(b)) * ps * di * 2
+    keys9_read = sum(-(-int(L) // ps) for L in lq.flatten().tolist()) * ps * di * 2
+    b9_bytes = (qi9.numel() * 2 + keys9 + hi * 4 + t9.numel() * 4
+                + lq.numel() * 4 + prev9.numel() * 4 + b * qn * (k * 8 + 32))
+    results["B9"] = dict(err=e9, bound=bound_ms(
+        b9_bytes, 2 * hi * di * int(lq.sum())))
+    log(f"[kernels] B9 bound reads {keys9 / 1e6:.3f} MB of keys; the design "
+        f"reads {keys9_read / 1e6:.3f} MB (once per query row)")
     rows10 = sum(pages10) * ps
     log(f"[kernels] B10 design reads every row of its touched pages: {rows10} "
         f"rows ({rows10 * kvh * hd * 2 * 2 / 1e6:.3f} MB of K/V) against the "
@@ -386,10 +525,10 @@ def phase_kernels(cfg, flush):
     return results
 
 
-def _engine_run(model, params, *, max_len, specs, **layout):
+def _engine_run(model, params, *, max_len, specs, hook=None, **layout):
     """Serve `specs` [(prompt, max_new, arrival)] through a fresh 4-slot
     engine of the given layout, with the launch counts zeroed just before
-    and read just after."""
+    and read just after. `hook(engine)` runs before the requests."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serve import DecodeEngine, Request
@@ -400,6 +539,8 @@ def _engine_run(model, params, *, max_len, specs, **layout):
                        prefill_chunk=64, **layout)
     reqs = [Request(uid=i, prompt=p, max_new_tokens=m, arrival=a)
             for i, (p, m, a) in enumerate(specs)]
+    if hook is not None:
+        hook(eng)
     ops.reset_launch_counts()
     rep = eng.run(reqs, max_ticks=5000)
     counts = ops.launch_counts()
@@ -706,19 +847,23 @@ def phase_gather_page(model, params, rng):
     """The paged engine with the gather oracle (B7) and with page-granular
     attention (B10) on a short trace, against a fused run of it."""
     vocab = model.cfg.vocab
-    specs = [(rng.integers(0, vocab, (n,)), 8, a)
-             for n, a in ((200, 0), (80, 0), (40, 2))]
+    specs = short_specs(rng, vocab)
     runs = {}
     for form, kw in (("fused", dict(paged_attn="fused")),
                      ("gather", dict(paged_attn="gather")),
                      ("page", dict(gather_granularity="page"))):
+        timer = DecodeTimer()
         eng, reqs, rep, counts = _engine_run(model, params, max_len=8192,
-                                             specs=specs, kv_layout="paged", **kw)
+                                             specs=specs, hook=timer.install,
+                                             kv_layout="paged", **kw)
         _check_paths(f"[{form}]", eng, reqs)
         runs[form] = ([list(r.generated) for r in reqs], counts)
         log(f"[{form}] short trace (prompts 200/80/40, 8 new each): "
             f"{rep.decoded_tokens} decoded tokens in {rep.ticks} ticks, "
-            f"{rep.wall_s:.3f} s wall; launches: {counts}")
+            f"{rep.wall_s:.3f} s wall; {timer.summary(rep, len(reqs))}; "
+            f"launches: {counts}")
+        if form == "fused":
+            fused = (specs, runs[form][0], timer.rate(rep, len(reqs)))
     _need("gather oracle", runs["gather"][1], ("paged_gather", "indexer_scores",
                                               "sparse_decode_attn"))
     _need("page-granular path", runs["page"][1], ("paged_sparse_decode_attn_pg",))
@@ -729,7 +874,192 @@ def phase_gather_page(model, params, rng):
     total = sum(len(r) for r in runs["fused"][0])
     log(f"[gather] tokens == fused; [page] token agreement with fused "
         f"{same}/{total}")
-    return runs["gather"][1], runs["page"][1]
+    return runs["gather"][1], runs["page"][1], fused
+
+
+def short_specs(rng, vocab):
+    """The short trace of [gather], [page] and [spec]: prompts of 200, 80
+    and 40 tokens, 8 new tokens each."""
+    return [(rng.integers(0, vocab, (n,)), 8, a)
+            for n, a in ((200, 0), (80, 0), (40, 2))]
+
+
+class DecodeTimer:
+    """Host wall of each engine decode tick that served a DECODE slot (the
+    verify tick under speculation), the device synchronised at its end."""
+
+    def __init__(self):
+        self.seconds = []
+
+    def install(self, eng):
+        import torch
+        from repro_torch.serve import DECODE
+        inner = eng._decode_tick
+
+        def timed():
+            busy = any(r is not None and r.phase == DECODE for r in eng.slots)
+            t0 = time.perf_counter()
+            inner()
+            torch.cuda.synchronize()
+            if busy:
+                self.seconds.append(time.perf_counter() - t0)
+
+        eng._decode_tick = timed
+
+    def rate(self, rep, n_requests):
+        """Tokens the decode ticks emitted (each request's first token
+        comes from its last prefill step) per second of decode tick."""
+        return (rep.decoded_tokens - n_requests) / sum(self.seconds)
+
+    def summary(self, rep, n_requests):
+        return (f"{len(self.seconds)} decode ticks, "
+                f"{statistics.mean(self.seconds) * 1e3:.3f} ms host wall per "
+                f"tick, {self.rate(rep, n_requests):.2f} decode-tick tokens/s")
+
+
+def _assert_nonspec_page_shape(eng):
+    """After a tick every DECODE slot's mapped logical pages cover exactly
+    [0, length), as non-speculative decode keeps them."""
+    from repro_torch.serve import DECODE
+    lengths = eng.state["length"].cpu().tolist()
+    for s, req in enumerate(eng.slots):
+        if req is None or req.phase != DECODE:
+            continue
+        want = list(range((lengths[s] - 1) // eng.kv.page_size + 1))
+        got = [lp for lp in range(eng.kv.pages_per_slot)
+               if eng.kv.tables[s].get(lp) >= 0]
+        if got != want:
+            fail(f"[spec] slot {s} at length {lengths[s]} maps logical pages "
+                 f"{got}, not {want}")
+    eng.kv.pool.assert_consistent()
+
+
+_MQ_KERNELS = ("paged_indexer_scores_mq", "gvr_topk_chain",
+               "paged_sparse_decode_attn_mq")
+
+
+def phase_spec(model, params, fused):
+    """Speculative decoding at depth 2 on the short trace, each run against
+    the fused run's tokens: (a) scan + oracle drafts, (b) mq + oracle
+    drafts, (c) mq + every second draft wrong, pages checked after every
+    tick, (d) mq + the default n-gram drafter."""
+    from repro_torch.serve import ReplayDrafter, ScriptedDrafter
+    specs, fused_tokens, fused_rate = fused
+    vocab = model.cfg.vocab
+    cont = {i: t for i, t in enumerate(fused_tokens)}
+
+    def second_wrong(req, d):
+        draft = list(cont[req.uid][len(req.generated):len(req.generated) + d])
+        if len(draft) >= 2:
+            draft[1] = (draft[1] + 1) % vocab
+        return draft
+
+    runs = {}
+    for tag, vk, drafter, check in (
+            ("a", "scan", ReplayDrafter(cont), False),
+            ("b", "mq", ReplayDrafter(cont), False),
+            ("c", "mq", ScriptedDrafter(second_wrong), True),
+            ("d", "mq", None, False)):
+        timer = DecodeTimer()
+
+        def hook(eng, timer=timer, check=check):
+            timer.install(eng)
+            if check:
+                inner = eng.tick
+
+                def checked():
+                    inner()
+                    _assert_nonspec_page_shape(eng)
+
+                eng.tick = checked
+
+        eng, reqs, rep, counts = _engine_run(
+            model, params, max_len=8192, specs=specs, hook=hook,
+            kv_layout="paged", spec_depth=SPEC_DEPTH, verify_kernel=vk,
+            drafter=drafter)
+        name = f"[spec] ({tag}) {vk}, {type(eng.drafter).__name__}"
+        paths = _check_paths(name, eng, reqs)
+        got = [list(r.generated) for r in reqs]
+        if got != fused_tokens:
+            fail(f"{name}: tokens differ from the fused run's: {got} vs "
+                 f"{fused_tokens}")
+        if vk == "scan":
+            _need(name, counts, ("paged_indexer_scores", "gvr_topk",
+                                 "paged_sparse_decode_attn"))
+            if any(counts[kk] for kk in _MQ_KERNELS):
+                fail(f"{name} launched an mq kernel: {counts}")
+        else:
+            _need(name, counts, _MQ_KERNELS)
+        rate = timer.rate(rep, len(reqs))
+        log(f"{name}: tokens == fused; paths {paths}; spec_ticks "
+            f"{rep.spec_ticks}, drafted {rep.spec_drafted}, accepted "
+            f"{rep.spec_accepted}, acceptance {rep.spec_acceptance_rate:.4f}, "
+            f"gvr_hit_rate_by_draft_pos {rep.gvr_hit_rate_by_draft_pos}; "
+            f"{rep.wall_s:.3f} s wall, {timer.summary(rep, len(reqs))} "
+            f"({rate / fused_rate:.3f}x the fused run's); launches: {counts}")
+        runs[tag] = counts
+    return runs["b"]
+
+
+def phase_verify_step(model, params, rng):
+    """One verify tick of B=4 slots at lengths VERIFY_L0 from one state,
+    draft lengths (2, 1, 0, 2), through scan and mq. Slot 0 accepts both
+    drafts, slot 1 rejects its one, slot 3 accepts one of two."""
+    import torch
+    from repro_torch.models import transformer
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    st = _random_step_state(model, g, dev, VERIFY_L0)
+    b, d1 = len(VERIFY_L0), SPEC_DEPTH + 1
+    dl = torch.tensor([2, 1, 0, 2], dtype=torch.int32, device=dev)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, (b, d1)),
+                          dtype=torch.int32, device=dev)
+
+    def verify(vk):
+        clone = {key: v.clone() for key, v in st.items()}
+        return transformer.serve_step_spec_paged(
+            params, clone, tokens, cfg, draft_len=dl, max_accept=dl,
+            verify_kernel=vk)
+
+    for j, wrong in ((1, 1), (2, 3)):            # draft j from position j-1
+        tokens[:, j] = verify("scan")[0][:, j - 1]
+        tokens[wrong, j] = (tokens[wrong, j] + 1) % cfg.vocab
+    t0 = time.perf_counter()
+    scan = verify("scan")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mq = verify("mq")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    acc = scan[1].tolist()
+    if acc != [2, 0, 0, 1]:
+        fail(f"[verify-step] accept lengths {acc}, expected [2, 0, 0, 1]")
+    for name, a, c in (("out_tokens", scan[0], mq[0]), ("accept_len", scan[1], mq[1]),
+                       ("sel_gvr_pos", scan[3], mq[3])):
+        if not torch.equal(a, c):
+            fail(f"[verify-step] {name} differs between scan and mq: "
+                 f"{a.tolist()} vs {c.tolist()}")
+    for key in ("length", "topk_valid", "sel_gvr"):
+        if not torch.equal(scan[4][key], mq[4][key]):
+            fail(f"[verify-step] rolled-back {key} differs between scan and mq")
+    live = [(s, j) for s in range(b) for j in range(int(dl[s]) + 1)]
+    logits_equal = all(torch.equal(scan[2][s, j], mq[2][s, j]) for s, j in live)
+    topk_equal = [bool(torch.equal(scan[4]["prev_topk"][i], mq[4]["prev_topk"][i]))
+                  for i in range(cfg.n_layers)]
+    rel = max(float((scan[2][s, j] - mq[2][s, j]).norm() / scan[2][s, j].norm())
+              for s, j in live)
+    agree = _topk_agreement(mq[4]["prev_topk"], scan[4]["prev_topk"])
+    log(f"[verify-step] B=4 at L0 {VERIFY_L0}, draft_len {dl.tolist()}: "
+        f"accept {acc}; out_tokens, accept_len, sel_gvr_pos and rolled-back "
+        f"length/topk_valid/sel_gvr equal in scan and mq; live-position "
+        f"logits bit-equal: {logits_equal} (max rel L2 {rel:.3e}); rolled-back "
+        f"Top-K bit-equal per layer: {topk_equal} (agreement {agree}); scan "
+        f"{(t1 - t0) * 1e3:.3f} ms, mq {(t2 - t1) * 1e3:.3f} ms host wall")
+    if logits_equal and not all(topk_equal):
+        fail("[verify-step] equal logits but a differing rolled-back Top-K")
+    if agree[0] < 0.99:
+        fail(f"[verify-step] layer-0 Top-K agreement {agree[0]} < 0.99")
 
 
 def phase_dense(model, params, rng):
@@ -808,8 +1138,10 @@ def main() -> int:
                       main_tokens)
     timed("step", phase_step, model, params, cpu_params, rng)
     timed("layouts", phase_layouts, model, params, cpu_params, rng)
-    gather_counts, page_counts = timed("gather+page", phase_gather_page, model,
-                                       params, rng)
+    gather_counts, page_counts, fused = timed("gather+page", phase_gather_page,
+                                              model, params, rng)
+    spec_counts = timed("spec", phase_spec, model, params, fused)
+    timed("verify-step", phase_verify_step, model, params, rng)
     dense_counts = timed("dense", phase_dense, model, params, rng)
 
     rows = [("B1 gvr_topk", "gvr_topk.cu", "src/repro/kernels/gvr_topk.py:334",
@@ -832,6 +1164,12 @@ def main() -> int:
             ("B7 paged_gather", "paged_gather.cu",
              "src/repro/kernels/paged_gather.py:68",
              gather_counts["paged_gather"]),
+            ("B8 paged_sparse_decode_attn_mq", "decode_attn.cu",
+             "src/repro/kernels/sparse_attn.py:386",
+             spec_counts["paged_sparse_decode_attn_mq"]),
+            ("B9 paged_indexer_topk_mq", "indexer_scores.cu + gvr_topk.cu",
+             "src/repro/kernels/indexer_topk.py:373",
+             spec_counts["paged_indexer_scores_mq"]),
             ("B10 paged_sparse_decode_attn_pg", "decode_attn.cu",
              "src/repro/kernels/sparse_attn.py:522",
              page_counts["paged_sparse_decode_attn_pg"])]
@@ -840,7 +1178,8 @@ def main() -> int:
         r = kres[name.split()[0]]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src_file}",
+            "source": " + ".join(f"src/repro_torch/kernels/csrc/{f}"
+                                 for f in src_file.split(" + ")),
             "replaces": replaces, "launches": int(launches),
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],

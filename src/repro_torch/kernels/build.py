@@ -38,13 +38,18 @@ _F = ctypes.c_float
 # truncates them to 32 bits)
 SIGNATURES = {
     "gvr_topk": {"gvr_topk_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                                     _I, _P, _P, _P, _P]},
+                                     _I, _P, _P, _P, _P],
+                 "gvr_topk_chain_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                           _F, _F, _F, _I, _P, _P, _P, _P]},
     "indexer_scores": {"indexer_scores_launch": [_I, _I, _I, _P, _P, _P, _I,
                                                  _P, _P, _I, _I, _I, _I, _I,
-                                                 _I, _I, _P, _P]},
+                                                 _I, _I, _I, _P, _P]},
     "decode_attn": {"decode_attn_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P,
                                            _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                                           _P, _P]},
+                                           _P, _P],
+                    "decode_attn_mq_launch": [_I, _I, _I, _P, _P, _P, _P, _P,
+                                              _P, _I, _I, _I, _I, _I, _I, _I,
+                                              _F, _P, _P]},
     "paged_gather": {"paged_gather_launch": [_P, _P, _I, _I, _I, _L, _I, _P,
                                              _P]},
 }

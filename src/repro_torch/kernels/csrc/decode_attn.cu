@@ -2,8 +2,10 @@
 // kernels B3 (sparse: the K rows the Top-K selected, through the block
 // table), B4 (dense: the whole causal extent through the table, the pre-DSA
 // fallback), B6 (sparse over contiguous caches: the dense layout and the
-// gather oracle) and B10 (B3 at page granularity). All four share one
-// kernel body; only the enumeration of the rows differs.
+// gather oracle), B8 (B3 over the Q query rows of each slot's speculative
+// verify tick, sharing the slot's table row) and B10 (B3 at page
+// granularity). All five share one kernel body; only the enumeration of
+// the rows differs.
 //
 // Replaces:
 //   B3  src/repro/kernels/sparse_attn.py:paged_sparse_decode_attn_pallas
@@ -14,6 +16,9 @@
 //   B6  src/repro/kernels/sparse_attn.py:sparse_decode_attn_pallas
 //       (kernel _attn_kernel) — one grid step per selected row of the
 //       slot's own (N, KVH, hd) cache;
+//   B8  src/repro/kernels/sparse_attn.py:paged_sparse_decode_attn_mq_pallas
+//       (kernel _paged_attn_mq_kernel) — B3's grid with a query-row axis,
+//       (B, Q, K), the table shared by a slot's Q rows;
 //   B10 src/repro/kernels/sparse_attn.py:paged_sparse_decode_attn_pg_pallas
 //       (kernel _paged_attn_pg_kernel) — one grid step per distinct touched
 //       page, loaded whole, the unselected rows masked.
@@ -27,9 +32,13 @@
 // guards and a final l >= 1e-30 clamp.
 //
 // Rows per mode: B3 row = table[b, pos / ps] * ps + pos % ps; B6 row =
-// b * N + pos (the wrapper passes ps = 1, mp = N). B3 and B6 visit entries
-// in Top-K order with the same warp partition, so B6 over a contiguous
-// cache and B3 over pages holding the same rows agree bit for bit. B10
+// b * N + pos (the wrapper passes ps = 1, mp = N); B8 is B3 over the B*Q
+// folded query rows, row r reading table row r / Q straight from the
+// shared (B, MP) table (no repeated table is built) and its idx, length, q
+// and output from row r. B3, B6 and B8 visit entries in Top-K order with
+// the same warp partition, so B6 over a contiguous cache, B3 over pages
+// holding the same rows and B8 against B3 on the folded rows (table
+// repeated) agree bit for bit. B10
 // first builds the slot's descriptor list in shared memory: a 16-bit count
 // per logical position and a flag per logical page, marked from idx, then
 // one warp compacts the flagged pages in ascending order with ballots. It
@@ -45,7 +54,9 @@
 //
 // Bound on an H100: the bytes of the rows it must read. B3/B6 at B=4,
 // K=2048, KVH=8, hd=64, bf16: 4*2048*8*64*2*2 = 16.8 MB, ~5 us at 3.35
-// TB/s; B4 reads each slot's length*KVH*hd*2*2 bytes, B10 every row of the
+// TB/s; B8 the distinct (slot, row) pairs its Q rows select (consecutive
+// positions share most of their Top-K, so close to B3's bytes, where this
+// design reads each row once per query row, Q times); B4 reads each slot's length*KVH*hd*2*2 bytes, B10 every row of the
 // touched pages. The flops (4*B*H*rows*hd) are negligible. The design
 // spends its parallelism on keeping many row loads in flight (16 warps, 4
 // rows unrolled per warp); the grid is only B*KVH CTAs, so this first form
@@ -65,7 +76,10 @@ constexpr int kChunk = 1024;
 constexpr int kUnroll = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Mode { kPagedSparse = 0, kPagedDense = 1, kContigSparse = 2, kPagedPages = 3 };
+enum Mode {
+  kPagedSparse = 0, kPagedDense = 1, kContigSparse = 2, kPagedPages = 3,
+  kPagedSparseMq = 4
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -78,7 +92,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ table,
                    const int* __restrict__ idx, const int* __restrict__ lengths,
                    int kvh, int ps, int mp, int num_pages, int kcols,
-                   int window, float scale, float* __restrict__ out) {
+                   int window, int qrows, float scale,
+                   float* __restrict__ out) {
   constexpr int HD = 32 * DPL;
   constexpr bool PG = MODE == kPagedPages;
   extern __shared__ float sm[];
@@ -101,7 +116,9 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int len = lengths[b];
   const int ext = len < n ? len : n;
   const int* ib = idx ? idx + (size_t)b * kcols : nullptr;      // not B4
-  const int* tb = table ? table + (size_t)b * mp : nullptr;     // not B6
+  // B8: query row b belongs to slot b / qrows (not B6)
+  const int tb_row = MODE == kPagedSparseMq ? b / qrows : b;
+  const int* tb = table ? table + (size_t)tb_row * mp : nullptr;
   int start = 0, count;
   if constexpr (MODE == kPagedDense) {
     if (window > 0 && ext - window > 0) start = ext - window;
@@ -241,10 +258,10 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 }
 
 template <typename T, int G, int DPL, int MODE>
-int launch( const void* q, const void* kp, const void* vp,
+int launch(const void* q, const void* kp, const void* vp,
            const int* table, const int* idx, const int* lengths, int b,
            int kvh, int ps, int mp, int num_pages, int kcols, int window,
-           float scale, float* out, cudaStream_t stream) {
+           int qrows, float scale, float* out, cudaStream_t stream) {
   size_t smem = ((size_t)kChunk + 2 * kWarps * G + (size_t)kWarps * G * 32 * DPL) * 4;
   if (MODE == kPagedPages)
     smem += ((size_t)kChunk + (size_t)(mp * ps + 1) / 2 + 2 * (size_t)mp) * 4;
@@ -256,7 +273,7 @@ int launch( const void* q, const void* kp, const void* vp,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), table, idx, lengths, kvh, ps, mp, num_pages,
-      kcols, window, scale, out);
+      kcols, window, qrows, scale, out);
   return (int)cudaGetLastError();
 }
 
@@ -264,12 +281,13 @@ template <typename T, int G, int DPL>
 int by_mode(int mode, const void* q, const void* kp, const void* vp,
             const int* table, const int* idx, const int* lengths, int b,
             int kvh, int ps, int mp, int num_pages, int kcols, int window,
-            float scale, float* out, cudaStream_t st) {
+            int qrows, float scale, float* out, cudaStream_t st) {
   switch (mode) {
-    case kPagedSparse: return launch<T, G, DPL, kPagedSparse>(q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, scale, out, st);
-    case kPagedDense: return launch<T, G, DPL, kPagedDense>(q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, scale, out, st);
-    case kContigSparse: return launch<T, G, DPL, kContigSparse>(q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, scale, out, st);
-    case kPagedPages: return launch<T, G, DPL, kPagedPages>(q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, scale, out, st);
+    case kPagedSparse: return launch<T, G, DPL, kPagedSparse>(q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
+    case kPagedDense: return launch<T, G, DPL, kPagedDense>(q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
+    case kContigSparse: return launch<T, G, DPL, kContigSparse>(q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
+    case kPagedPages: return launch<T, G, DPL, kPagedPages>(q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
+    case kPagedSparseMq: return launch<T, G, DPL, kPagedSparseMq>(q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -278,11 +296,11 @@ template <typename T, int G>
 int by_dpl(int dpl, int mode, const void* q, const void* kp, const void* vp,
            const int* table, const int* idx, const int* lengths, int b,
            int kvh, int ps, int mp, int num_pages, int kcols, int window,
-           float scale, float* out, cudaStream_t st) {
+           int qrows, float scale, float* out, cudaStream_t st) {
   switch (dpl) {
-    case 1: return by_mode<T, G, 1>(mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, scale, out, st);
-    case 2: return by_mode<T, G, 2>(mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, scale, out, st);
-    case 4: return by_mode<T, G, 4>(mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, scale, out, st);
+    case 1: return by_mode<T, G, 1>(mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
+    case 2: return by_mode<T, G, 2>(mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
+    case 4: return by_mode<T, G, 4>(mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -291,12 +309,12 @@ template <typename T>
 int by_group(int g, int dpl, int mode, const void* q, const void* kp,
              const void* vp, const int* table, const int* idx,
              const int* lengths, int b, int kvh, int ps, int mp, int num_pages,
-             int kcols, int window, float scale, float* out, cudaStream_t st) {
+             int kcols, int window, int qrows, float scale, float* out, cudaStream_t st) {
   switch (g) {
-    case 1: return by_dpl<T, 1>(dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, scale, out, st);
-    case 2: return by_dpl<T, 2>(dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, scale, out, st);
-    case 4: return by_dpl<T, 4>(dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, scale, out, st);
-    case 8: return by_dpl<T, 8>(dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, scale, out, st);
+    case 1: return by_dpl<T, 1>(dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
+    case 2: return by_dpl<T, 2>(dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
+    case 4: return by_dpl<T, 4>(dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
+    case 8: return by_dpl<T, 8>(dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -315,10 +333,30 @@ extern "C" int decode_attn_launch(int dtype, int mode, int g, int dpl,
                                   const int* lengths, int b, int kvh, int ps,
                                   int mp, int num_pages, int kcols, int window,
                                   float scale, float* out, void* stream) {
+  if (mode == kPagedSparseMq) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return by_group<float>(g, dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, scale, out, st);
+    return by_group<float>(g, dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, 1, scale, out, st);
   if (dtype == 1)
-    return by_group<__nv_bfloat16>(g, dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, scale, out, st);
+    return by_group<__nv_bfloat16>(g, dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, 1, scale, out, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B8: mode 0 over rows = B * qrows folded query rows — q (rows, H, hd), idx
+// (rows, kcols), lengths (rows,), out (rows, H, hd) — with row r reading
+// table row r / qrows of the shared (rows / qrows, mp) table.
+extern "C" int decode_attn_mq_launch(int dtype, int g, int dpl, const void* q,
+                                     const void* kp, const void* vp,
+                                     const int* table, const int* idx,
+                                     const int* lengths, int rows, int qrows,
+                                     int kvh, int ps, int mp, int num_pages,
+                                     int kcols, float scale, float* out,
+                                     void* stream) {
+  if (qrows < 1 || rows % qrows != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return by_group<float>(g, dpl, kPagedSparseMq, q, kp, vp, table, idx, lengths, rows, kvh, ps, mp, num_pages, kcols, 0, qrows, scale, out, st);
+  if (dtype == 1)
+    return by_group<__nv_bfloat16>(g, dpl, kPagedSparseMq, q, kp, vp, table, idx, lengths, rows, kvh, ps, mp, num_pages, kcols, 0, qrows, scale, out, st);
   return (int)cudaErrorInvalidValue;
 }

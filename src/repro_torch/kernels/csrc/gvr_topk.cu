@@ -1,10 +1,14 @@
 // Exact GVR Top-K of a score row, warm-started from the previous step's
-// Top-K — the Hopper form of kernel B1.
+// Top-K — the Hopper form of kernel B1, and the chained selection half of
+// kernel B9.
 //
 // Replaces: src/repro/kernels/gvr_topk.py:gvr_topk_pallas (body
-// gvr_on_resident_row). On the TPU the row sat in VMEM and compaction went
-// through an MXU one-hot contraction; here one CTA of 1024 threads owns a
-// row and the phases are:
+// gvr_on_resident_row), and the GVR half of
+// src/repro/kernels/indexer_topk.py:paged_indexer_topk_mq_pallas (kernel
+// _paged_fused_mq_kernel, which threads each query row's Top-K into the
+// next row's warm start through VMEM). On the TPU the row sat in VMEM
+// and compaction went through an MXU one-hot contraction; here one CTA of
+// 1024 threads owns a row and the phases are:
 //   P0  load the row (into shared memory when it fits, else it is read
 //       from global memory, where an 8K-float row is L2-resident) and take
 //       its min/max;
@@ -23,6 +27,15 @@
 // If more than C (or fewer than K) entries pass the phase-2 threshold —
 // massive NEG ties whenever length < K — P4 and P5 run over the whole row
 // instead of the buffer; the result is exact either way.
+//
+// B9's chain (gvr_topk_chain_kernel): one CTA per slot walks the slot's Q
+// score rows in order. Row 0 warm-starts from the caller's (B, K)
+// predictions; row q > 0 from row q-1's K output indices, which P5 also
+// writes into a K-entry shared-memory buffer (8 KB at K = 2048, beside the
+// 32 KB row and 48 KB candidate buffer at N = 8192, C = 6144), so the
+// prediction never goes back to device memory. Both kernels run one
+// device function (gvr_row), so the chain equals Q sequential B1 launches
+// bit for bit in values, indices and all 8 stats columns.
 //
 // Bound on an H100: it reads the (B, N) f32 row, the (B, M) predictions and
 // writes (B, K) values and indices — ~0.2 MB at B=4, N=8192, K=2048, well
@@ -198,15 +211,16 @@ __device__ void radix_kth(const float* v, int len, int k, Scratch& s,
   n_eq = eq;
 }
 
-__global__ void __launch_bounds__(kThreads)
-gvr_topk_kernel(const float* __restrict__ scores, const int* __restrict__ prev,
-                int n, int m, int k, int cmax, int max_secant, float f_target,
-                float c_lo0, int row_in_smem, float* __restrict__ out_vals,
-                int* __restrict__ out_idx, float* __restrict__ stats) {
-  __shared__ Scratch s;
-  extern __shared__ float dyn[];
-  const int row = blockIdx.x;
-  const float* g = scores + (size_t)row * n;
+// One row's GVR Top-K, run by the whole CTA: g the (n,) f32 score row, pr
+// its (m,) predictions, dyn the dynamic shared memory (the row when
+// row_in_smem, then the 2 * cmax candidate buffer); writes (k,) values and
+// indices to ov / oi, the 8 stats to st, and the indices also to pred_out
+// (shared memory, the chain's next prediction) when it is not null.
+__device__ void gvr_row(const float* __restrict__ g, const int* pr, int n,
+                        int m, int k, int cmax, int max_secant, float f_target,
+                        float c_lo0, int row_in_smem, float* dyn,
+                        float* __restrict__ ov, int* __restrict__ oi,
+                        float* __restrict__ st, int* pred_out, Scratch& s) {
   float* cand_v = dyn + (row_in_smem ? n : 0);
   int* cand_i = reinterpret_cast<int*>(cand_v + cmax);
 
@@ -226,7 +240,6 @@ gvr_topk_kernel(const float* __restrict__ scores, const int* __restrict__ prev,
   // [-n, n) is skipped — it is never read
   float pmin = 3.4028234663852886e38f, pmax = -3.4028234663852886e38f, psum = 0.f;
   int pcnt = 0;
-  const int* pr = prev + (size_t)row * m;
   for (int j = threadIdx.x; j < m; j += kThreads) {
     int i = pr[j];
     if (i < 0) i += n;
@@ -313,8 +326,6 @@ gvr_topk_kernel(const float* __restrict__ scores, const int* __restrict__ prev,
   const int quota = k - n_gt;                   // ties to take, >= 1
 
   // ---- P5: emit in ascending index order -------------------------------
-  float* ov = out_vals + (size_t)row * k;
-  int* oi = out_idx + (size_t)row * k;
   int base = 0, ties = 0;
   for (int start = 0; start < len; start += kThreads) {
     const int j = start + threadIdx.x;
@@ -327,12 +338,16 @@ gvr_topk_kernel(const float* __restrict__ scores, const int* __restrict__ prev,
     const bool sel = gt || (eq && ties + eq_rank < quota);
     int sel_total;
     const int pos = block_excl_scan(sel, sel_total, s);
-    if (sel) { ov[base + pos] = v; oi[base + pos] = si ? si[j] : j; }
+    if (sel) {
+      const int out_i = si ? si[j] : j;
+      ov[base + pos] = v;
+      oi[base + pos] = out_i;
+      if (pred_out) pred_out[base + pos] = out_i;
+    }
     base += sel_total;
     ties += eq_total;
   }
   if (threadIdx.x == 0) {
-    float* st = stats + (size_t)row * 8;
     st[0] = (float)it;
     st[1] = 4.f;                                // radix passes of P4
     st[2] = (float)c_exit;
@@ -341,6 +356,46 @@ gvr_topk_kernel(const float* __restrict__ scores, const int* __restrict__ prev,
     st[5] = (float)n_gt;
     st[6] = (float)(n_gt + n_eq);
     st[7] = (float)base;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+gvr_topk_kernel(const float* __restrict__ scores, const int* __restrict__ prev,
+                int n, int m, int k, int cmax, int max_secant, float f_target,
+                float c_lo0, int row_in_smem, float* __restrict__ out_vals,
+                int* __restrict__ out_idx, float* __restrict__ stats) {
+  __shared__ Scratch s;
+  extern __shared__ float dyn[];
+  const int row = blockIdx.x;
+  gvr_row(scores + (size_t)row * n, prev + (size_t)row * m, n, m, k, cmax,
+          max_secant, f_target, c_lo0, row_in_smem, dyn,
+          out_vals + (size_t)row * k, out_idx + (size_t)row * k,
+          stats + (size_t)row * 8, nullptr, s);
+}
+
+// B9's chain: blockIdx.x = slot b, scores (B, qrows, n), prev (B, m) the
+// row-0 predictions, outputs (B, qrows, k) and stats (B, qrows, 8). Rows
+// q > 0 warm-start from row q-1's k indices (m = k, c_lo0_k) in shared
+// memory after the candidate buffer.
+__global__ void __launch_bounds__(kThreads)
+gvr_topk_chain_kernel(const float* __restrict__ scores,
+                      const int* __restrict__ prev, int qrows, int n, int m,
+                      int k, int cmax, int max_secant, float f_target,
+                      float c_lo0, float c_lo0_k, int row_in_smem,
+                      float* __restrict__ out_vals, int* __restrict__ out_idx,
+                      float* __restrict__ stats) {
+  __shared__ Scratch s;
+  extern __shared__ float dyn[];
+  int* pred = reinterpret_cast<int*>(dyn + (row_in_smem ? n : 0) + 2 * cmax);
+  const int b = blockIdx.x;
+  for (int qq = 0; qq < qrows; ++qq) {
+    const size_t row = (size_t)b * qrows + qq;
+    const bool first = qq == 0;
+    gvr_row(scores + row * n, first ? prev + (size_t)b * m : pred, n,
+            first ? m : k, k, cmax, max_secant, f_target,
+            first ? c_lo0 : c_lo0_k, row_in_smem, dyn, out_vals + row * k,
+            out_idx + row * k, stats + row * 8, pred, s);
+    __syncthreads();             // pred and the row buffer are reused
   }
 }
 
@@ -358,5 +413,26 @@ extern "C" int gvr_topk_launch(const float* scores, const int* prev, int b,
   gvr_topk_kernel<<<b, kThreads, smem, (cudaStream_t)stream>>>(
       scores, prev, n, m, k, cmax, max_secant, f_target, c_lo0, row_in_smem,
       out_vals, out_idx, stats);
+  return (int)cudaGetLastError();
+}
+
+// B9's chain over (b, qrows) score rows of length n: prev (b, m) predicts
+// row 0 of each slot; row q > 0 takes row q-1's k indices (c_lo0_k is the
+// bracket seed for m = k). Outputs (b, qrows, k) and stats (b, qrows, 8).
+extern "C" int gvr_topk_chain_launch(const float* scores, const int* prev,
+                                     int b, int qrows, int n, int m, int k,
+                                     int cmax, int max_secant, float f_target,
+                                     float c_lo0, float c_lo0_k,
+                                     int row_in_smem, float* out_vals,
+                                     int* out_idx, float* stats, void* stream) {
+  const size_t smem =
+      ((size_t)(row_in_smem ? n : 0) + 2 * (size_t)cmax + (size_t)k) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      gvr_topk_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gvr_topk_chain_kernel<<<b, kThreads, smem, (cudaStream_t)stream>>>(
+      scores, prev, qrows, n, m, k, cmax, max_secant, f_target, c_lo0,
+      c_lo0_k, row_in_smem, out_vals, out_idx, stats);
   return (int)cudaGetLastError();
 }

@@ -1,19 +1,27 @@
 // DSA indexer scoring (paper Eq. 1) — the first launch of the Hopper forms
-// of kernels B2 (keys in a page pool, addressed through the block table)
-// and B5 (keys in a contiguous (B, N, d_i) cache); the second launch is the
-// GVR Top-K kernel (B1) on the score row this one writes.
+// of kernels B2 (keys in a page pool, addressed through the block table),
+// B5 (keys in a contiguous (B, N, d_i) cache) and B9 (B2 over the Q query
+// rows of each slot's speculative verify tick); the second launch is the
+// GVR Top-K kernel (B1, or for B9 its chained form) on the score rows this
+// one writes.
 //
 // Replaces:
 //   B2 src/repro/kernels/indexer_topk.py:paged_indexer_topk_pallas
 //      (kernel _paged_fused_kernel), whose grid walked (slot, logical page)
 //      and kept the score row in VMEM;
 //   B5 src/repro/kernels/indexer_topk.py:indexer_topk_pallas (kernel
-//      _fused_kernel), the same over a contiguous cache in kv_chunk tiles.
+//      _fused_kernel), the same over a contiguous cache in kv_chunk tiles;
+//   B9 src/repro/kernels/indexer_topk.py:paged_indexer_topk_mq_pallas
+//      (kernel _paged_fused_mq_kernel), B2's grid with a query-row axis,
+//      (B, Q, MP), each row masked at its own length L0 + q + 1.
 // Here one CTA scores one (tile, slot) pair: a tile is a logical page (B2,
 // the CTA reads the slot's block-table entry) or T consecutive positions of
 // the slot's own cache (B5). It stages the tile's indexer keys and the
 // slot's indexer query in shared memory and writes
 //     score[b, j*T + p] = sum_h w_h * ReLU(q_h . k_p)
+// (B9: b runs over the B*Q folded query rows, row r reading table row
+// r / Q of the shared table and its own q and length, so each of its score
+// rows equals B2's for the same slot and length bit for bit)
 // to a (B, N) f32 row (0.13 MB at B=4, N=8192: it stays in L2 for the
 // selection launch). Positions >= length and unmapped (-1) pages score the
 // NEG sentinel; an unmapped or fully-masked tile is never read.
@@ -28,7 +36,8 @@
 // and the paged and dense layouts select the same Top-K on the card.
 //
 // Bound on an H100: the key reads, B*N*d_i*2 bytes (8.4 MB at B=4,
-// N=8192, d_i=128 in bf16), ~2.5 us at 3.35 TB/s; the 2*B*N*H*d_i flops
+// N=8192, d_i=128 in bf16), ~2.5 us at 3.35 TB/s (B9: each slot's keys up
+// to its longest row, where this design reads them once per row); the 2*B*N*H*d_i flops
 // (0.54 GFLOP) are far below the bf16 tensor-core roof. This first form
 // runs the dot products on the CUDA cores from shared memory (the key tile
 // is stored transposed so a warp reads 32 consecutive positions without
@@ -48,13 +57,13 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 // grid (tiles, B); block T * groups threads; group g owns heads
 // [g*HG, (g+1)*HG). CONTIG: keys (B, n_out, d), tile j = positions
 // [j*T, j*T + T) (the last tile may be short); else keys (P, T, d) pages
-// and tile j = logical page j, physical page table[b, j].
+// and tile j = logical page j, physical page table[b / qrows, j].
 template <typename T, int HG, bool CONTIG>
 __global__ void indexer_scores_kernel(
     const T* __restrict__ q, const T* __restrict__ keys,
     const float* __restrict__ w, int w_stride, const int* __restrict__ table,
     const int* __restrict__ lengths, int h, int d, int tile, int mp,
-    int num_pages, int n_out, float* __restrict__ scores) {
+    int num_pages, int n_out, int qrows, float* __restrict__ scores) {
   extern __shared__ float sm[];
   const int j = blockIdx.x, b = blockIdx.y;
   const int len = lengths[b];
@@ -66,7 +75,7 @@ __global__ void indexer_scores_kernel(
   if constexpr (CONTIG) {
     kb = keys + ((size_t)b * n_out + base) * d;
   } else {
-    const int phys = table[(size_t)b * mp + j];
+    const int phys = table[(size_t)(b / qrows) * mp + j];
     skip = skip || phys < 0 || phys >= num_pages;
     kb = keys + (size_t)(phys < 0 ? 0 : phys) * tile * d;
   }
@@ -112,8 +121,8 @@ __global__ void indexer_scores_kernel(
 template <typename T, int HG, bool CONTIG>
 int launch(const void* q, const void* keys, const float* w, int w_stride,
            const int* table, const int* lengths, int b, int h, int d,
-           int tile, int mp, int num_pages, int n_out, float* scores,
-           cudaStream_t stream) {
+           int tile, int mp, int num_pages, int n_out, int qrows,
+           float* scores, cudaStream_t stream) {
   const int groups = h / HG;
   const size_t smem = ((size_t)h * d + (size_t)d * tile + (size_t)groups * tile) * 4;
   auto kern = indexer_scores_kernel<T, HG, CONTIG>;
@@ -123,21 +132,21 @@ int launch(const void* q, const void* keys, const float* w, int w_stride,
   dim3 grid((n_out + tile - 1) / tile, b);
   kern<<<grid, tile * groups, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(keys), w, w_stride,
-      table, lengths, h, d, tile, mp, num_pages, n_out, scores);
+      table, lengths, h, d, tile, mp, num_pages, n_out, qrows, scores);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool CONTIG>
 int by_heads(int hg, const void* q, const void* keys, const float* w,
              int w_stride, const int* table, const int* lengths, int b, int h,
-             int d, int tile, int mp, int num_pages, int n_out, float* scores,
-             cudaStream_t st) {
+             int d, int tile, int mp, int num_pages, int n_out, int qrows,
+             float* scores, cudaStream_t st) {
   switch (hg) {
-    case 1: return launch<T, 1, CONTIG>(q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, scores, st);
-    case 2: return launch<T, 2, CONTIG>(q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, scores, st);
-    case 4: return launch<T, 4, CONTIG>(q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, scores, st);
-    case 8: return launch<T, 8, CONTIG>(q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, scores, st);
-    case 16: return launch<T, 16, CONTIG>(q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, scores, st);
+    case 1: return launch<T, 1, CONTIG>(q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
+    case 2: return launch<T, 2, CONTIG>(q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
+    case 4: return launch<T, 4, CONTIG>(q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
+    case 8: return launch<T, 8, CONTIG>(q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
+    case 16: return launch<T, 16, CONTIG>(q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -146,10 +155,11 @@ template <typename T>
 int by_layout(int contig, int hg, const void* q, const void* keys,
               const float* w, int w_stride, const int* table,
               const int* lengths, int b, int h, int d, int tile, int mp,
-              int num_pages, int n_out, float* scores, cudaStream_t st) {
+              int num_pages, int n_out, int qrows, float* scores,
+              cudaStream_t st) {
   if (contig)
-    return by_heads<T, true>(hg, q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, scores, st);
-  return by_heads<T, false>(hg, q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, scores, st);
+    return by_heads<T, true>(hg, q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
+  return by_heads<T, false>(hg, q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
 }
 
 }  // namespace
@@ -158,16 +168,20 @@ int by_layout(int contig, int hg, const void* q, const void* keys,
 // thread; h / hg thread groups of `tile` threads each. contig = 0: keys
 // are (num_pages, tile, d) pages through table (b, mp), n_out = mp * tile
 // (B2); contig = 1: keys are (b, n_out, d), table unused (B5). w is
-// (h,) with w_stride 0 or (b, h) with w_stride h.
+// (h,) with w_stride 0 or (b, h) with w_stride h. qrows = Q > 1 (B9,
+// paged only): b = B * Q folded query rows over a (B, mp) table, row r on
+// table row r / Q; B2 and B5 pass 1.
 extern "C" int indexer_scores_launch(
     int dtype, int contig, int hg, const void* q, const void* keys,
     const float* w, int w_stride, const int* table, const int* lengths, int b,
-    int h, int d, int tile, int mp, int num_pages, int n_out, float* scores,
-    void* stream) {
+    int h, int d, int tile, int mp, int num_pages, int n_out, int qrows,
+    float* scores, void* stream) {
+  if (qrows < 1 || b % qrows != 0 || (contig && qrows != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return by_layout<float>(contig, hg, q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, scores, st);
+    return by_layout<float>(contig, hg, q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
   if (dtype == 1)
-    return by_layout<__nv_bfloat16>(contig, hg, q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, scores, st);
+    return by_layout<__nv_bfloat16>(contig, hg, q, keys, w, w_stride, table, lengths, b, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,6 +16,8 @@ here, never in a kernel.
 | B5     | `indexer_scores` (+ B1 = `indexer_topk`) | indexer_topk.py:indexer_topk_pallas |
 | B6     | `sparse_decode_attn`       | sparse_attn.py:sparse_decode_attn_pallas   |
 | B7     | `paged_gather`             | paged_gather.py:paged_gather_pallas        |
+| B8     | `paged_sparse_decode_attn_mq` | sparse_attn.py:paged_sparse_decode_attn_mq_pallas |
+| B9     | `paged_indexer_scores_mq` (+ `gvr_topk_chain` = `paged_indexer_topk_mq`) | indexer_topk.py:paged_indexer_topk_mq_pallas |
 | B10    | `paged_sparse_decode_attn_pg` | sparse_attn.py:paged_sparse_decode_attn_pg_pallas |
 
 Each wrapper's `launches` attribute is a plain integer; `launch_counts()`
@@ -71,6 +73,33 @@ def _raise_on(rc: int, name: str) -> None:
 
 # ---------------------------------------------------------------- B1 ------
 
+def _gvr_args(scores: torch.Tensor, prev_idx: torch.Tensor, k: int,
+              max_candidates: Optional[int], name: str, extra: int = 0):
+    """Validate a GVR launch over score rows (..., N) with predictions
+    (B, M) and `extra` bytes of shared memory beside the candidate buffer;
+    returns (n, m, cmax, f_target, c_lo0, row_in_smem)."""
+    _contig(scores, torch.float32, f"{name} scores")
+    _contig(prev_idx, torch.int32, f"{name} prev_idx")
+    n = scores.shape[-1]
+    m = prev_idx.shape[1]
+    _check(prev_idx.shape[0] == scores.shape[0] and m >= 1,
+           f"{name}: prev_idx (B, M>=1)")
+    _check(1 <= k <= n, f"{name}: need 1 <= k={k} <= n={n}")
+    _check(n < 2 ** 30, f"{name}: n={n} beyond the kernel's int32 indexing")
+    cmax = ref.resolve_cmax(k, n, max_candidates)
+    cand_bytes = 8 * cmax
+    _check(cand_bytes + extra <= _SMEM_BUDGET,
+           f"{name}: candidate buffer C={cmax} needs {cand_bytes + extra} B "
+           f"of shared memory, more than the kernel's {_SMEM_BUDGET} B")
+    row_in_smem = int(4 * n + cand_bytes + extra <= _SMEM_BUDGET)
+    return (n, m, cmax, float((k + cmax) // 2), _c_lo0(n, m, k), row_in_smem)
+
+
+def _c_lo0(n: int, m: int, k: int) -> float:
+    """The secant bracket's initial count for M predictions."""
+    return float(min(n, max(1.25 * m, k)))
+
+
 def gvr_topk(scores: torch.Tensor, prev_idx: torch.Tensor, k: int, *,
              max_candidates: Optional[int] = None,
              max_secant_iters: int = 12):
@@ -82,21 +111,9 @@ def gvr_topk(scores: torch.Tensor, prev_idx: torch.Tensor, k: int, *,
                                 max_candidates=max_candidates,
                                 max_secant_iters=max_secant_iters)
     _check(scores.dim() == 2 and prev_idx.dim() == 2, "gvr_topk: 2-D inputs")
-    _contig(scores, torch.float32, "gvr_topk scores")
-    _contig(prev_idx, torch.int32, "gvr_topk prev_idx")
-    b, n = scores.shape
-    m = prev_idx.shape[1]
-    _check(prev_idx.shape[0] == b and m >= 1, "gvr_topk: prev_idx (B, M>=1)")
-    _check(1 <= k <= n, f"gvr_topk: need 1 <= k={k} <= n={n}")
-    _check(n < 2 ** 30, f"gvr_topk: n={n} beyond the kernel's int32 indexing")
-    cmax = ref.resolve_cmax(k, n, max_candidates)
-    cand_bytes = 8 * cmax
-    _check(cand_bytes <= _SMEM_BUDGET,
-           f"gvr_topk: candidate buffer C={cmax} needs {cand_bytes} B of "
-           f"shared memory, more than the kernel's {_SMEM_BUDGET} B")
-    row_in_smem = int(4 * n + cand_bytes <= _SMEM_BUDGET)
-    f_target = float((k + cmax) // 2)
-    c_lo0 = float(min(n, max(1.25 * m, k)))
+    n, m, cmax, f_target, c_lo0, row_in_smem = _gvr_args(
+        scores, prev_idx, k, max_candidates, "gvr_topk")
+    b = scores.shape[0]
     vals = torch.empty((b, k), dtype=torch.float32, device=scores.device)
     idx = torch.empty((b, k), dtype=torch.int32, device=scores.device)
     stats = torch.empty((b, 8), dtype=torch.float32, device=scores.device)
@@ -106,6 +123,42 @@ def gvr_topk(scores: torch.Tensor, prev_idx: torch.Tensor, k: int, *,
         idx.data_ptr(), stats.data_ptr(), _stream(scores))
     _raise_on(rc, "gvr_topk")
     gvr_topk.launches += 1
+    return vals, idx, stats
+
+
+def _check_chain_prev(prev_idx: torch.Tensor, k: int, name: str) -> None:
+    _check(prev_idx.dim() == 2 and prev_idx.shape[1] == k,
+           f"{name}: each row's K={k} outputs warm-start the next row, so "
+           f"prev_idx must be (B, K) with exactly K entries, got "
+           f"{tuple(prev_idx.shape)}")
+
+
+def gvr_topk_chain(scores: torch.Tensor, prev_idx: torch.Tensor, k: int, *,
+                   max_candidates: Optional[int] = None,
+                   max_secant_iters: int = 12):
+    """B9's selection — Q chained exact Top-Ks per slot: row 0 of scores
+    (B, Q, N) f32 warm-starts from prev_idx (B, K) int32 (exactly K
+    entries), row q > 0 from row q-1's Top-K, which stays on chip. Equals
+    Q sequential `gvr_topk` calls bit for bit. Returns (values (B,Q,K),
+    indices (B,Q,K) int32, stats (B,Q,8))."""
+    _check(scores.dim() == 3, "gvr_topk_chain: scores (B, Q, N)")
+    _check_chain_prev(prev_idx, k, "gvr_topk_chain")
+    if _on_cpu(scores, prev_idx):
+        return ref.gvr_topk_chain_ref(scores, prev_idx, k,
+                                      max_candidates=max_candidates,
+                                      max_secant_iters=max_secant_iters)
+    n, m, cmax, f_target, c_lo0, row_in_smem = _gvr_args(
+        scores, prev_idx, k, max_candidates, "gvr_topk_chain", extra=4 * k)
+    b, qn = scores.shape[:2]
+    vals = torch.empty((b, qn, k), dtype=torch.float32, device=scores.device)
+    idx = torch.empty((b, qn, k), dtype=torch.int32, device=scores.device)
+    stats = torch.empty((b, qn, 8), dtype=torch.float32, device=scores.device)
+    rc = LIBRARIES.get("gvr_topk").gvr_topk_chain_launch(
+        scores.data_ptr(), prev_idx.data_ptr(), b, qn, n, m, k, cmax,
+        max_secant_iters, f_target, c_lo0, _c_lo0(n, k, k), row_in_smem,
+        vals.data_ptr(), idx.data_ptr(), stats.data_ptr(), _stream(scores))
+    _raise_on(rc, "gvr_topk_chain")
+    gvr_topk_chain.launches += 1
     return vals, idx, stats
 
 
@@ -119,7 +172,10 @@ def _heads_per_thread(h: int) -> int:
 
 
 def _scores(contig: bool, q, keys, w, table, lengths, tile: int, n: int,
-            name: str) -> torch.Tensor:
+            name: str, qrows: int = 1) -> torch.Tensor:
+    """Launch the shared scoring body over q (R, H, D) and lengths (R,):
+    R = B slots, or (B9) R = B * qrows folded query rows over a (B, MP)
+    table."""
     _check(keys.dtype in _DTYPE_CODE,
            f"{name}: keys must be f32 or bf16, got {keys.dtype}")
     _contig(q, keys.dtype, f"{name} q")
@@ -137,11 +193,14 @@ def _scores(contig: bool, q, keys, w, table, lengths, tile: int, n: int,
     _check(smem <= _SMEM_BUDGET, f"{name}: {smem} B of shared memory per tile")
     scores = torch.empty((b, n), dtype=torch.float32, device=q.device)
     mp = table.shape[1] if table is not None else 0
+    _check(table is None or table.shape[0] * qrows == b,
+           f"{name}: table rows x {qrows} query rows != {b} score rows")
     rc = LIBRARIES.get("indexer_scores").indexer_scores_launch(
         _DTYPE_CODE[keys.dtype], int(contig), hg, q.data_ptr(),
         keys.data_ptr(), w.data_ptr(), h if w.dim() == 2 else 0,
         table.data_ptr() if table is not None else None, lengths.data_ptr(),
-        b, h, d, tile, mp, keys.shape[0], n, scores.data_ptr(), _stream(q))
+        b, h, d, tile, mp, keys.shape[0], n, qrows, scores.data_ptr(),
+        _stream(q))
     _raise_on(rc, name)
     return scores
 
@@ -156,8 +215,7 @@ def paged_indexer_scores(q: torch.Tensor, k_pages: torch.Tensor,
     if _on_cpu(q, k_pages, w, table, lengths):
         return ref.paged_indexer_scores_ref(q, k_pages, w, table, lengths)
     _contig(table, torch.int32, "paged_indexer_scores table")
-    _check(w.dim() == 1 and table.shape[0] == q.shape[0],
-           "paged_indexer_scores: w (H,), table (B, MP)")
+    _check(w.dim() == 1, "paged_indexer_scores: w (H,), table (B, MP)")
     ps = k_pages.shape[1]
     scores = _scores(False, q, k_pages, w, table, lengths, ps,
                      table.shape[1] * ps, "paged_indexer_scores")
@@ -175,6 +233,44 @@ def paged_indexer_topk(q: torch.Tensor, k_pages: torch.Tensor,
     `gvr_topk`, indices logical."""
     scores = paged_indexer_scores(q, k_pages, w, table, lengths)
     return gvr_topk(scores, prev_idx, k, max_candidates=max_candidates)
+
+
+def paged_indexer_scores_mq(q: torch.Tensor, k_pages: torch.Tensor,
+                            w: torch.Tensor, table: torch.Tensor,
+                            lengths: torch.Tensor) -> torch.Tensor:
+    """B9 scoring — B2 over the Q query rows of each slot: q (B, Q, H, D)
+    in the cache dtype, table (B, MP) shared by a slot's rows, lengths
+    (B, Q) each row's causal extent. Returns (B, Q, MP*ps) f32; each row
+    equals B2's for the same slot and length bit for bit."""
+    if _on_cpu(q, k_pages, w, table, lengths):
+        return ref.paged_indexer_scores_mq_ref(q, k_pages, w, table, lengths)
+    _contig(table, torch.int32, "paged_indexer_scores_mq table")
+    _check(q.dim() == 4 and w.dim() == 1 and lengths.shape == q.shape[:2]
+           and table.shape[0] == q.shape[0],
+           "paged_indexer_scores_mq: q (B, Q, H, D), w (H,), table (B, MP), "
+           "lengths (B, Q)")
+    b, qn = q.shape[:2]
+    ps = k_pages.shape[1]
+    scores = _scores(False, q.reshape((b * qn,) + q.shape[2:]), k_pages, w,
+                     table, lengths.reshape(b * qn), ps, table.shape[1] * ps,
+                     "paged_indexer_scores_mq", qrows=qn)
+    paged_indexer_scores_mq.launches += 1
+    return scores.reshape(b, qn, -1)
+
+
+def paged_indexer_topk_mq(q: torch.Tensor, k_pages: torch.Tensor,
+                          w: torch.Tensor, table: torch.Tensor,
+                          prev_idx: torch.Tensor, k: int, *,
+                          lengths: torch.Tensor,
+                          max_candidates: Optional[int] = None):
+    """B9 — the verify tick's selection: score the Q rows of each slot
+    (`paged_indexer_scores_mq`), then the chained GVR (`gvr_topk_chain`):
+    row 0 warm from prev_idx (B, K), row q from row q-1 (two launches on
+    the card). Returns (values (B,Q,K), indices (B,Q,K) logical, stats
+    (B,Q,8))."""
+    _check_chain_prev(prev_idx, k, "paged_indexer_topk_mq")
+    scores = paged_indexer_scores_mq(q, k_pages, w, table, lengths)
+    return gvr_topk_chain(scores, prev_idx, k, max_candidates=max_candidates)
 
 
 def indexer_scores(q: torch.Tensor, kcache: torch.Tensor, w: torch.Tensor,
@@ -244,10 +340,12 @@ _MODE = {"paged_sparse": 0, "paged_dense": 1, "contig_sparse": 2,
 
 
 def _attn(mode: str, q, kc, vc, table, idx, lengths, scale, window,
-          name: str) -> torch.Tensor:
+          name: str, qrows: int = 1) -> torch.Tensor:
     """Launch the shared decode-attention body. Paged modes take pools
     (P, ps, KVH, hd) and a table; "contig_sparse" takes caches
-    (B, N, KVH, hd), read as B pages of N rows with no table."""
+    (B, N, KVH, hd), read as B pages of N rows with no table;
+    "paged_sparse_mq" (B8) takes B * qrows folded query rows — q, idx and
+    lengths with B * qrows rows — over a (B, MP) table."""
     _check(kc.dtype in _DTYPE_CODE,
            f"{name}: caches must be f32 or bf16, got {kc.dtype}")
     dt = kc.dtype
@@ -268,7 +366,8 @@ def _attn(mode: str, q, kc, vc, table, idx, lengths, scale, window,
         ps, mp = 1, kc.shape[1]
     else:
         _contig(table, torch.int32, f"{name} table")
-        _check(table.shape[0] == b, f"{name}: table (B, MP)")
+        _check(table.dim() == 2 and table.shape[0] * qrows == b,
+               f"{name}: table (B, MP) for {b} query rows")
         mp = table.shape[1]
     kcols = 0
     if idx is not None:
@@ -283,13 +382,21 @@ def _attn(mode: str, q, kc, vc, table, idx, lengths, scale, window,
         _check(smem <= _SMEM_BUDGET,
                f"{name}: {mp * ps} logical rows need {smem} B of shared memory")
     out = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
-    rc = LIBRARIES.get("decode_attn").decode_attn_launch(
-        _DTYPE_CODE[dt], _MODE[mode], h // kvh, hd // 32, q.data_ptr(),
-        kc.data_ptr(), vc.data_ptr(),
-        table.data_ptr() if table is not None else None,
-        idx.data_ptr() if idx is not None else None, lengths.data_ptr(), b,
-        kvh, ps, mp, p, kcols, window, float(scale), out.data_ptr(),
-        _stream(q))
+    lib = LIBRARIES.get("decode_attn")
+    if mode == "paged_sparse_mq":
+        rc = lib.decode_attn_mq_launch(
+            _DTYPE_CODE[dt], h // kvh, hd // 32, q.data_ptr(), kc.data_ptr(),
+            vc.data_ptr(), table.data_ptr(), idx.data_ptr(),
+            lengths.data_ptr(), b, qrows, kvh, ps, mp, p, kcols, float(scale),
+            out.data_ptr(), _stream(q))
+    else:
+        rc = lib.decode_attn_launch(
+            _DTYPE_CODE[dt], _MODE[mode], h // kvh, hd // 32, q.data_ptr(),
+            kc.data_ptr(), vc.data_ptr(),
+            table.data_ptr() if table is not None else None,
+            idx.data_ptr() if idx is not None else None, lengths.data_ptr(),
+            b, kvh, ps, mp, p, kcols, window, float(scale), out.data_ptr(),
+            _stream(q))
     _raise_on(rc, name)
     return out
 
@@ -311,6 +418,33 @@ def paged_sparse_decode_attn(q: torch.Tensor, k_pages: torch.Tensor,
                 scale, 0, "paged_sparse_decode_attn")
     paged_sparse_decode_attn.launches += 1
     return out
+
+
+def paged_sparse_decode_attn_mq(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor, table: torch.Tensor,
+                                idx: torch.Tensor, lengths: torch.Tensor, *,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """B8 — B3 over the Q query rows of each slot (the verify tick's d+1
+    positions): q (B, Q, H, hd) in the pool dtype; table (B, MP) shared by
+    a slot's rows; idx (B, Q, K); lengths (B, Q), each row's causal extent.
+    Row (b, q) masks entries outside [0, lengths[b, q]) or on unmapped
+    pages. Returns (B, Q, H, hd) f32; bit-equal on the card to B3 over the
+    folded rows with the table repeated."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    _check(q.dim() == 4 and idx.dim() == 3 and lengths.dim() == 2
+           and q.shape[:2] == idx.shape[:2] == lengths.shape,
+           "paged_sparse_decode_attn_mq: q (B, Q, H, hd), idx (B, Q, K), "
+           "lengths (B, Q)")
+    if _on_cpu(q, k_pages, v_pages, table, idx, lengths):
+        return ref.paged_sparse_attn_mq_ref(q, k_pages, v_pages, table, idx,
+                                            lengths, scale=scale)
+    b, qn = q.shape[:2]
+    out = _attn("paged_sparse_mq", q.reshape((b * qn,) + q.shape[2:]),
+                k_pages, v_pages, table, idx.reshape(b * qn, -1),
+                lengths.reshape(b * qn), scale, 0,
+                "paged_sparse_decode_attn_mq", qrows=qn)
+    paged_sparse_decode_attn_mq.launches += 1
+    return out.reshape(q.shape)
 
 
 def paged_dense_decode_attn(q: torch.Tensor, k_pages: torch.Tensor,
@@ -380,6 +514,9 @@ KERNELS = {
     "sparse_decode_attn": sparse_decode_attn,
     "paged_gather": paged_gather,
     "paged_sparse_decode_attn_pg": paged_sparse_decode_attn_pg,
+    "paged_sparse_decode_attn_mq": paged_sparse_decode_attn_mq,
+    "paged_indexer_scores_mq": paged_indexer_scores_mq,
+    "gvr_topk_chain": gvr_topk_chain,
 }
 for _fn in KERNELS.values():
     _fn.launches = 0

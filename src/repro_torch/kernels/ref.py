@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's kernels B1–B7 and B10.
+"""Plain PyTorch versions of the port's kernels B1–B10.
 
 Each function computes what its Hopper kernel computes, from the same
 arguments, in straightforward tensor code. The CPU path of
@@ -48,6 +48,22 @@ def gvr_topk_ref(scores: torch.Tensor, prev_idx: torch.Tensor, k: int, *,
     return vals, idx, stats
 
 
+def gvr_topk_chain_ref(scores: torch.Tensor, prev_idx: torch.Tensor, k: int,
+                       *, max_candidates: Optional[int] = None,
+                       max_secant_iters: int = 12):
+    """B9's selection: Q chained Top-Ks per slot. Row 0 of scores (B, Q, N)
+    warm-starts from prev_idx (B, K), row q > 0 from row q-1's indices.
+    Returns (values (B,Q,K), indices (B,Q,K), stats (B,Q,8)) as
+    `gvr_topk_ref` per row."""
+    outs, prev = [], prev_idx
+    for j in range(scores.shape[1]):
+        out = gvr_topk_ref(scores[:, j], prev, k, max_candidates=max_candidates,
+                           max_secant_iters=max_secant_iters)
+        outs.append(out)
+        prev = out[1]
+    return tuple(torch.stack(parts, dim=1) for parts in zip(*outs))
+
+
 def paged_indexer_scores_ref(q: torch.Tensor, k_pages: torch.Tensor,
                              w: torch.Tensor, table: torch.Tensor,
                              lengths: torch.Tensor) -> torch.Tensor:
@@ -67,6 +83,18 @@ def paged_indexer_scores_ref(q: torch.Tensor, k_pages: torch.Tensor,
     mapped = (table >= 0).repeat_interleave(ps, dim=1)
     keep = (pos[None, :] < lengths[:, None]) & mapped
     return torch.where(keep, scores, torch.full_like(scores, NEG))
+
+
+def paged_indexer_scores_mq_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                w: torch.Tensor, table: torch.Tensor,
+                                lengths: torch.Tensor) -> torch.Tensor:
+    """B9 scoring stage: B2 over the Q query rows of each slot, q (B, Q, H,
+    D), lengths (B, Q), the slot's table row shared by its rows. Row q is
+    `paged_indexer_scores_ref` of the B slots at lengths[:, q], as the
+    kernel's rows equal B2's. Returns (B, Q, MP*ps) f32."""
+    return torch.stack([paged_indexer_scores_ref(q[:, j], k_pages, w, table,
+                                                 lengths[:, j])
+                        for j in range(q.shape[1])], dim=1)
 
 
 def indexer_scores_ref(q: torch.Tensor, kcache: torch.Tensor, w: torch.Tensor,
@@ -169,6 +197,20 @@ def paged_sparse_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
     li, phys, valid = _paged_entries(idx, table, lengths, p, ps)
     flat = phys.clamp(0, p - 1) * ps + li % ps
     return _attend_rows(q, k_pages, v_pages, flat, valid, scale)
+
+
+def paged_sparse_attn_mq_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor, table: torch.Tensor,
+                             idx: torch.Tensor, lengths: torch.Tensor, *,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """B8: B3 over the Q query rows of each slot — q (B, Q, H, hd), idx
+    (B, Q, K), lengths (B, Q) — the slot's table row shared by its rows.
+    Row q is `paged_sparse_attn_ref` of the B slots, as the kernel's rows
+    equal B3's. Returns (B, Q, H, hd) f32."""
+    return torch.stack([paged_sparse_attn_ref(q[:, j], k_pages, v_pages,
+                                              table, idx[:, j], lengths[:, j],
+                                              scale=scale)
+                        for j in range(q.shape[1])], dim=1)
 
 
 def sparse_attn_ref(q: torch.Tensor, kcache: torch.Tensor, vcache: torch.Tensor,

@@ -88,6 +88,19 @@ class Model:
                                          paged_attn=paged_attn,
                                          gather_granularity=gather_granularity)
 
+    def serve_step_spec_paged(self, params, state, tokens, *, draft_len,
+                              max_accept, eos_id=-1, min_write_pos=None,
+                              paged_attn="fused", verify_kernel="scan",
+                              gather_granularity="token"):
+        """One speculative verify tick over the paged layout (see
+        transformer.serve_step_spec_paged)."""
+        return self.mod.serve_step_spec_paged(
+            params, state, tokens, self.cfg, draft_len=draft_len,
+            max_accept=max_accept, eos_id=eos_id,
+            min_write_pos=min_write_pos, paged_attn=paged_attn,
+            verify_kernel=verify_kernel,
+            gather_granularity=gather_granularity)
+
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """The model for `cfg` on `device` ("cuda" by default)."""

@@ -18,6 +18,11 @@ exceeds `dsa.min_n`, else dense attention over the whole extent.
   or B10 under `gather_granularity="page"`; fallback B4);
   `paged_attn="gather"` is the oracle that first builds the contiguous
   logical views (kernel B7) and then runs the dense layout's attention.
+* `serve_step_spec_paged` — the speculative verify tick over the paged
+  layout: all d+1 draft positions of each slot scored at once, greedy
+  acceptance and exact rollback of the per-slot state on the device.
+  `verify_kernel="scan"` runs d+1 `serve_step_paged` calls; "mq" one
+  forward of the (B, d+1) rows (kernels B9 and B8 in the fused form).
 
 Caches and pools are updated IN PLACE — copying a multi-GB cache per tick
 is what JAX's functional update costs and what this port avoids; a row
@@ -28,7 +33,7 @@ sel_gvr) come back as new tensors, so the engine can merge them row by row.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -278,6 +283,16 @@ def _attend_views(cfg: ModelConfig, state, i: int, p, h, q, kc, vc, idx_kc,
                             window=cfg.swa_window), None
 
 
+def _lm_head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Final norm and the (tied) output projection: f32 logits (..., V).
+    The one GEMM whose rounding on the CPU depends on the row count M
+    (the tied head is a transposed view): the mq verify body runs it at
+    M = B*(d+1), the per-token step at M = B."""
+    x = rms_norm(x, params["final_norm"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (x @ head).float()
+
+
 def _decode_layers(params, state, tokens: torch.Tensor, cfg: ModelConfig,
                    attend):
     """The layer loop shared by both layouts. `attend(i, p, h, q, kn, vn)`
@@ -310,9 +325,7 @@ def _decode_layers(params, state, tokens: torch.Tensor, cfg: ModelConfig,
         new_state["sel_gvr"] = torch.zeros_like(state["sel_gvr"])
     new_state["length"] = positions + 1
 
-    x = rms_norm(x, params["final_norm"])
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ head).float(), new_state
+    return _lm_head(params, x, cfg), new_state
 
 
 def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -439,3 +452,295 @@ def serve_step_paged(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
                                       window=cfg.swa_window), None
 
     return _decode_layers(params, state, tokens, cfg, attend)
+
+
+# --------------------------------------------------------------------------
+# Speculative verify step: draft, verify, roll back (paged layout)
+# --------------------------------------------------------------------------
+#
+# One verify tick scores all d+1 positions of each slot: position j writes
+# its K/V at `length + j` and attends with causal extent `length + j + 1`,
+# so every position reproduces the non-speculative step it stands in for.
+# The GVR feedback is extended inside the tick: position j's Top-K
+# warm-starts position j+1. Greedy acceptance and the rollback of the
+# per-slot leaves (length, prev_topk, topk_valid, sel_gvr) to the accepted
+# position happen on the device; rows written by rejected positions need no
+# clearing (every consumer masks beyond `length`), and the host rewinds the
+# block table (`PagedAdmissionCore.rewind_slot`).
+
+
+def _spec_verify_scan(step_fn: Callable, state, tokens: torch.Tensor,
+                      draft_len: torch.Tensor, max_accept: torch.Tensor,
+                      eos_id: int, base_mwp: torch.Tensor,
+                      axes: Dict[str, int], dsa_enabled: bool):
+    """The scan verify body: d+1 single-token paged steps, one per
+    position. step_fn(state, tok (B,), mwp (B,)) -> (logits (B, V),
+    new_state). tokens (B, D+1): column 0 is the last emitted token,
+    columns 1..D the draft; a row verifies positions 0..draft_len, and a
+    frozen position (j > draft_len) keeps the row's state and writes the
+    sink page. The pools are written in place and never merged: only the
+    per-slot leaves of `axes` take the frozen rows' old values. Returns
+    `_spec_accept_rollback`'s 5-tuple."""
+    d1 = tokens.shape[1]
+    length0 = state["length"]
+    never = torch.full_like(base_mwp, PAGED_NEVER_WRITE)
+    keys = ("prev_topk", "topk_valid", "sel_gvr") if dsa_enabled else ()
+    ys = {"logits": [], **{k: [] for k in keys}}
+    st = state
+    for j in range(d1):
+        live = j <= draft_len                              # (B,)
+        logits, st2 = step_fn(st, tokens[:, j].contiguous(),
+                              torch.where(live, base_mwp, never))
+        merged = {}
+        for key, arr in st2.items():
+            ax = axes.get(key)
+            if ax is None:             # pool-global: frozen rows wrote the sink
+                merged[key] = arr
+                continue
+            shape = [1] * arr.dim()
+            shape[ax] = arr.shape[ax]
+            merged[key] = torch.where(live.reshape(shape), arr, st[key])
+        ys["logits"].append(logits)
+        for key in keys:
+            # raw per-position entries: entry j is only read for rows whose
+            # position j ran (accept_len <= draft_len)
+            ys[key].append(st2[key])
+        st = merged
+    ys = {key: torch.stack(v) for key, v in ys.items()}
+    return _spec_accept_rollback(length0, st, ys, tokens, draft_len,
+                                 max_accept, eos_id, dsa_enabled)
+
+
+def _spec_accept_rollback(length0: torch.Tensor, end_state, ys,
+                          tokens: torch.Tensor, draft_len: torch.Tensor,
+                          max_accept: torch.Tensor, eos_id: int,
+                          dsa_enabled: bool):
+    """Greedy acceptance and exact rollback from the per-position stacks,
+    shared by both verify bodies: ys["logits"] (D+1, B, V) and, with DSA
+    state, "prev_topk" (D+1, L, B, K), "topk_valid" / "sel_gvr" (D+1, L, B).
+    Draft token j is accepted iff it equals position j-1's argmax, j <=
+    draft_len and every earlier draft was accepted; acceptance is capped by
+    `max_accept` and stops at (and includes) the first eos argmax.
+
+    Returns (out_tokens (B, D+1) int32 — position j's argmax, accept_len
+    (B,) int32, logits (B, D+1, V) f32, sel_gvr_pos (B, D+1) bool — layer
+    0's GVR path per position, new_state with length L0 + a + 1 and the
+    feedback leaves of position a)."""
+    b, d1 = tokens.shape
+    dev = tokens.device
+    logits_all = ys["logits"]
+    argmax_all = logits_all.argmax(-1).int()               # (D+1, B)
+    if d1 > 1:
+        pos = torch.arange(1, d1, dtype=torch.int32, device=dev)
+        match = ((tokens[:, 1:].T == argmax_all[:-1])
+                 & (pos[:, None] <= draft_len[None, :]))
+        raw = torch.cumprod(match.int(), dim=0).sum(0).int()
+    else:
+        raw = torch.zeros((b,), dtype=torch.int32, device=dev)
+    a = torch.minimum(raw, max_accept.clamp(min=0))
+    is_eos = argmax_all == eos_id                          # (D+1, B)
+    first_eos = is_eos.int().argmax(0).int()
+    a = torch.where(is_eos.any(0), torch.minimum(a, first_eos), a)
+
+    new_state = dict(end_state)
+    new_state["length"] = length0 + a + 1
+    if dsa_enabled:
+        al = a.long()
+        pt = ys["prev_topk"]
+        new_state["prev_topk"] = pt.gather(
+            0, al[None, None, :, None].expand((1,) + pt.shape[1:]))[0]
+        for key in ("topk_valid", "sel_gvr"):
+            stk = ys[key]
+            new_state[key] = stk.gather(
+                0, al[None, None, :].expand((1,) + stk.shape[1:]))[0]
+        sel_pos = ys["sel_gvr"][:, 0, :].T                 # layer 0
+    else:
+        sel_pos = torch.zeros((b, d1), dtype=torch.bool, device=dev)
+    return (argmax_all.T, a, logits_all.transpose(0, 1), sel_pos, new_state)
+
+
+def _paged_verify_mq(params, state, tokens: torch.Tensor, cfg: ModelConfig,
+                     *, draft_len: torch.Tensor, base_mwp: torch.Tensor,
+                     paged_attn: str, gather_granularity: str):
+    """The mq verify body: one forward of all (B, d+1) positions. Per
+    layer every position's K/V/indexer-K rows are written first (position
+    j at L0 + j; frozen and masked rows to the sink page), then selection
+    runs as a chain over the positions (row 0 warm from the incoming
+    feedback, row j+1 from row j) and attention covers all (B, Q)
+    selections at once.
+
+    The forms: fused selects with kernel B9 and attends with B8 (B10 over
+    the folded rows at page granularity); gather builds the logical views
+    (B7), selects row by row over them (B5 + B1) and attends over the
+    views repeated Q times (B6). Below the DSA gate both attend densely
+    over the folded rows (B4 with the table repeated, or the plain
+    attention over the repeated views).
+
+    Position j's consumers all mask beyond its own extent L0 + j + 1, so
+    the rows later positions have already written are invisible to it, and
+    each position computes what the scan computes. Frozen positions compute
+    garbage whose stack entries are never selected. Returns (ys, state) in
+    the scan's stack format, for `_spec_accept_rollback`."""
+    b, d1 = tokens.shape
+    hd = cfg.hd
+    length0 = state["length"]
+    table = state["page_table"]
+    page_size = state["k_pages"].shape[2]
+    sink = state["k_pages"].shape[1] - 1
+    mp = table.shape[1]
+    n = mp * page_size
+    use_dsa = cfg.dsa.enabled and n > cfg.dsa.min_n
+    fused = paged_attn == "fused"
+    dev = tokens.device
+
+    jj = torch.arange(d1, dtype=torch.int32, device=dev)
+    positions = length0[:, None] + jj[None, :]             # (B, Q)
+    lengths_q = positions + 1                              # causal extents
+    live = jj[None, :] <= draft_len[:, None]
+    flat_pos = positions.reshape(b * d1)
+    lp = (positions // page_size).long()
+    off = (positions % page_size).long()
+    phys = table.gather(1, lp.clamp(0, mp - 1))
+    writable = (live & (phys >= 0) & (lp < mp)
+                & (positions >= base_mwp[:, None]))
+    dest = torch.where(writable, phys, torch.full_like(phys, sink)).long()
+
+    def repeat(x):
+        return x.repeat_interleave(d1, dim=0)
+
+    x = params["embed"][tokens.long()]                     # (B, Q, D)
+    sel_idx, sel_gvr = [], []
+    for i in range(cfg.n_layers):
+        p = layer_params(params["layers"], i)
+        kp, vp = state["k_pages"][i], state["v_pages"][i]
+        h = rms_norm(x, p["ln1"])
+        hf = h.reshape(b * d1, -1)
+        q, kn, vn = _project_qkv(p, hf, b * d1, flat_pos, cfg)
+        q = q.reshape(b, d1, cfg.n_heads, hd)
+        # every position writes before anything attends (see docstring)
+        kp[dest, off] = kn.reshape(b, d1, cfg.n_kv_heads, hd).to(kp.dtype)
+        vp[dest, off] = vn.reshape(b, d1, cfg.n_kv_heads, hd).to(vp.dtype)
+        if use_dsa:
+            idx_kp = state["idx_k_pages"][i]
+            ik = dsa_mod.indexer_k(p["indexer"], hf, flat_pos,
+                                   dim=cfg.dsa.indexer_dim,
+                                   rope_base=cfg.rope_base)
+            idx_kp[dest, off] = ik.reshape(b, d1, -1).to(idx_kp.dtype)
+            kw = _dsa_kw(cfg, state, i)
+            kw.pop("scale")
+            prev = state["prev_topk"][i]
+            if fused:
+                sel = dsa_mod.dsa_select_paged_mq(
+                    p["indexer"], h, idx_kp, table, prev, lengths_q, **kw)
+                idx_q, gvr_q = sel.indices, sel.gvr_rows
+                attn = dsa_mod.dsa_sparse_attention_paged_mq(
+                    q, kp, vp, table, idx_q, lengths_q, scale=hd ** -0.5,
+                    granularity=gather_granularity)
+            else:
+                idx_kc = ops.paged_gather(idx_kp, table)
+                valid = kw.pop("prev_valid")
+                rows, gvrs = [], []
+                for j in range(d1):
+                    sel = dsa_mod.dsa_select(p["indexer"], h[:, j], idx_kc,
+                                             prev, lengths_q[:, j],
+                                             prev_valid=valid, **kw)
+                    rows.append(sel.indices)
+                    gvrs.append(sel.gvr_rows)
+                    prev = sel.indices
+                    valid = None if valid is None else torch.ones_like(valid)
+                idx_q, gvr_q = torch.stack(rows, 1), torch.stack(gvrs, 1)
+                kc = repeat(ops.paged_gather(kp, table))
+                vc = repeat(ops.paged_gather(vp, table))
+                attn = dsa_mod.dsa_sparse_attention(
+                    q.reshape(b * d1, cfg.n_heads, hd), kc, vc,
+                    idx_q.reshape(b * d1, -1), lengths_q.reshape(b * d1),
+                    scale=hd ** -0.5)
+            sel_idx.append(idx_q.int())                    # (B, Q, K)
+            sel_gvr.append(gvr_q)                          # (B, Q)
+        else:
+            qf = q.reshape(b * d1, cfg.n_heads, hd)
+            lf = lengths_q.reshape(b * d1)
+            if fused:
+                attn = decode_attention_paged(qf, kp, vp,
+                                              repeat(table).contiguous(), lf,
+                                              scale=hd ** -0.5,
+                                              window=cfg.swa_window)
+            else:
+                attn = decode_attention(qf, repeat(ops.paged_gather(kp, table)),
+                                        repeat(ops.paged_gather(vp, table)),
+                                        lf, scale=hd ** -0.5,
+                                        window=cfg.swa_window)
+        attn = attn.reshape(b, d1, cfg.n_heads * hd).to(x.dtype)
+        x = x + attn @ p["wo"]
+        h2 = rms_norm(x, p["ln2"])
+        x = x + swiglu_mlp(h2, p["w_gate"], p["w_up"], p["w_down"])
+
+    logits = _lm_head(params, x, cfg)                      # (B, Q, V)
+    ys = {"logits": logits.transpose(0, 1)}                # (Q, B, V)
+    if cfg.dsa.enabled:
+        if sel_idx:
+            ys["prev_topk"] = torch.stack(sel_idx).permute(2, 0, 1, 3)
+            ys["topk_valid"] = torch.ones(
+                (d1,) + state["topk_valid"].shape, dtype=torch.bool,
+                device=dev)
+            ys["sel_gvr"] = torch.stack(sel_gvr).permute(2, 0, 1)
+        else:
+            # below the gate the scan stacks the incoming feedback as is
+            ys["prev_topk"] = state["prev_topk"][None].expand(
+                (d1,) + state["prev_topk"].shape)
+            ys["topk_valid"] = state["topk_valid"][None].expand(
+                (d1,) + state["topk_valid"].shape)
+            ys["sel_gvr"] = torch.zeros((d1,) + state["sel_gvr"].shape,
+                                        dtype=torch.bool, device=dev)
+    return ys, dict(state)
+
+
+def serve_step_spec_paged(params, state, tokens: torch.Tensor,
+                          cfg: ModelConfig, *, draft_len, max_accept,
+                          eos_id: int = -1,
+                          min_write_pos: Optional[torch.Tensor] = None,
+                          paged_attn: str = "fused",
+                          verify_kernel: str = "scan",
+                          gather_granularity: str = "token"):
+    """Speculative verify tick over the paged layout: score all d+1 draft
+    positions, accept the longest greedy-matching prefix and roll the
+    per-slot state back to it on the device. tokens (B, D+1) int; draft_len
+    (B,) in [0, D]; max_accept (B,) caps the accepted drafts; eos_id
+    truncates acceptance at the first eos argmax (-1: none); min_write_pos
+    (B,) masks rows' writes as in `serve_step_paged`.
+
+    `verify_kernel` picks the body, both ending in the same acceptance
+    arithmetic: "scan" — d+1 `serve_step_paged` calls, each position
+    exactly the non-speculative step; "mq" — one forward of the (B, d+1)
+    rows (`_paged_verify_mq`). The pools are written in place.
+
+    Returns (out_tokens (B, D+1), accept_len (B,), logits (B, D+1, V),
+    sel_gvr_pos (B, D+1), new_state)."""
+    check_paged_options(paged_attn, gather_granularity)
+    if verify_kernel not in ("scan", "mq"):
+        raise ValueError(f"unknown verify_kernel {verify_kernel!r} "
+                         f"(expected 'scan' or 'mq')")
+    b = tokens.shape[0]
+    dev = tokens.device
+    tokens = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
+    draft_len = torch.as_tensor(draft_len, dtype=torch.int32, device=dev)
+    max_accept = torch.as_tensor(max_accept, dtype=torch.int32, device=dev)
+    base_mwp = (min_write_pos if min_write_pos is not None
+                else torch.zeros((b,), dtype=torch.int32, device=dev))
+    if verify_kernel == "mq":
+        ys, end_state = _paged_verify_mq(
+            params, state, tokens, cfg, draft_len=draft_len,
+            base_mwp=base_mwp, paged_attn=paged_attn,
+            gather_granularity=gather_granularity)
+        return _spec_accept_rollback(state["length"], end_state, ys, tokens,
+                                     draft_len, max_accept, int(eos_id),
+                                     cfg.dsa.enabled)
+
+    def step_fn(st, tok, mwp):
+        return serve_step_paged(params, st, tok, cfg, min_write_pos=mwp,
+                                paged_attn=paged_attn,
+                                gather_granularity=gather_granularity)
+
+    return _spec_verify_scan(step_fn, state, tokens, draft_len, max_accept,
+                             int(eos_id), base_mwp,
+                             paged_state_batch_axes(cfg), cfg.dsa.enabled)

@@ -11,7 +11,9 @@ The paper's prev-Top-K feedback buffer (L × B × K int32) is the pool's
 `prev_topk` state: admission re-seeds a slot's rows and drops
 `topk_valid` (the first selection after admission is a cold row), eviction
 poisons them with -1. `DecodeEngine.method_log` records which selector path
-served each slot on each tick.
+served each slot on each tick. With `spec_depth > 0` (paged layout) a
+drafter from `serve.spec` proposes tokens and each decode tick verifies
+them in one speculative verify tick.
 """
 
 from .engine import DecodeEngine, EngineReport, Request
@@ -19,6 +21,8 @@ from .feedback_pool import FeedbackPool
 from .paged import (AdmitPlan, BlockPool, BlockTable, PagedKVManager,
                     PoolExhausted, PrefixCache)
 from .sampling import sample_token
+from .spec import (Drafter, ModelDrafter, NgramDrafter, ReplayDrafter,
+                   ScriptedDrafter)
 from .scheduler import (DECODE, DONE, PREFILL, QUEUED, FIFOScheduler,
                         LongestContextFirstScheduler, Scheduler,
                         make_scheduler)
@@ -29,4 +33,6 @@ __all__ = [
     "PoolExhausted", "PrefixCache", "sample_token",
     "Scheduler", "FIFOScheduler", "LongestContextFirstScheduler",
     "make_scheduler", "QUEUED", "PREFILL", "DECODE", "DONE",
+    "Drafter", "ModelDrafter", "NgramDrafter", "ReplayDrafter",
+    "ScriptedDrafter",
 ]

@@ -27,6 +27,16 @@ Top-K (`gvr`/`radix`/`exact`, or `dense` before the DSA gate opens), taken
 from the step's own per-row report. `EngineReport` splits the counts by
 phase; `gvr_hit_rate` is defined over decode ticks only.
 
+Speculative decoding (`spec_depth=d`, paged layout only; `serve.spec`): a
+host-side drafter proposes up to d next tokens per DECODE slot, the decode
+tick becomes one verify tick over all d+1 positions
+(`serve_step_spec_paged`, `verify_kernel="scan"` or `"mq"`), and the
+acceptance and rollback return the state — length, feedback, block tables,
+ref-counts — to the non-speculative trajectory, so greedy requests get the
+non-speculative tokens. The method log keeps accepted positions only, one
+entry per non-speculative tick they stand for. Sampled requests verify at
+depth 0.
+
 Preemption order under page pressure: reclaim cold prefix-cache pages
 first; then preempt the PREFILL slot with the most remaining prompt tokens
 (ties toward the latest admission); only if every other slot is decoding,
@@ -36,8 +46,8 @@ the front of the queue and replays deterministically.
 The engine runs on its model's device (the card unless the model was built
 with device="cpu"). It serves `kv_layout="dense"` (the default) and
 `kv_layout="paged"` with `paged_attn="fused"` or `"gather"` and
-`gather_granularity="token"` or `"page"`; speculative decoding and
-sequence sharding are later slices of the port and raise
+`gather_granularity="token"` or `"page"`, with or without speculation;
+sequence sharding is a later slice of the port and raises
 NotImplementedError. The dense layout has no prefix cache, so it reports
 `prefix_hit_tokens` 0 and `peak_page_utilization` 0.0, as the reference.
 """
@@ -57,6 +67,7 @@ from . import sampling
 from .feedback_pool import FeedbackPool
 from .paged import PagedKVManager, PoolExhausted
 from .scheduler import DECODE, DONE, PREFILL, QUEUED, Scheduler, make_scheduler
+from .spec import NgramDrafter
 
 
 @dataclasses.dataclass(eq=False)       # identity equality: the scheduler
@@ -69,6 +80,10 @@ class Request:                         # queue must never compare ndarray fields
     temperature: float = 0.0
     top_p: float = 1.0
     seed: Optional[int] = None         # sampling seed (default: uid)
+    # speculative decoding: per-request draft-depth cap, clamped to the
+    # engine's spec_depth; None = the engine's. Sampled requests verify at
+    # depth 0.
+    spec_depth: Optional[int] = None
     # lifecycle bookkeeping (engine-owned)
     phase: str = QUEUED
     slot: Optional[int] = None
@@ -90,6 +105,9 @@ class Request:                         # queue must never compare ndarray fields
         if not (0.0 < self.top_p <= 1.0):
             raise ValueError(f"request {self.uid}: top_p must be in (0, 1], "
                              f"got {self.top_p}")
+        if self.spec_depth is not None and self.spec_depth < 0:
+            raise ValueError(f"request {self.uid}: spec_depth must be >= 0, "
+                             f"got {self.spec_depth}")
 
 
 @dataclasses.dataclass
@@ -106,6 +124,12 @@ class EngineReport:
     * `preemptions` — slots evicted back to the queue under page pressure.
     * `prefix_hit_tokens` — prompt tokens served from the prefix cache.
     * `peak_page_utilization` — max pool utilization over the window.
+    * `spec_ticks` / `spec_drafted` / `spec_accepted` — per-slot verify
+      passes that carried a draft, draft tokens proposed, draft tokens
+      accepted; `spec_acceptance_rate` (property) = accepted / drafted.
+    * `gvr_hit_rate_by_draft_pos` — per verify position j (0: the input
+      token, j >= 1: draft depth j), the share of executed positions the
+      GVR path served.
     """
     ticks: int
     wall_s: float
@@ -118,15 +142,31 @@ class EngineReport:
     preemptions: int = 0
     prefix_hit_tokens: int = 0
     peak_page_utilization: float = 0.0
+    spec_ticks: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    gvr_hit_rate_by_draft_pos: List[float] = dataclasses.field(
+        default_factory=list)
 
     @property
     def tokens_per_s(self) -> float:
         return self.decoded_tokens / self.wall_s if self.wall_s > 0 else 0.0
 
     @property
+    def spec_acceptance_rate(self) -> float:
+        return (self.spec_accepted / self.spec_drafted
+                if self.spec_drafted else 0.0)
+
+    @property
     def gvr_hit_rate(self) -> float:
         total = sum(self.decode_method_counts.values())
         return (self.decode_method_counts.get("gvr", 0) / total
+                if total else 0.0)
+
+    @property
+    def prefill_gvr_hit_rate(self) -> float:
+        total = sum(self.prefill_method_counts.values())
+        return (self.prefill_method_counts.get("gvr", 0) / total
                 if total else 0.0)
 
 
@@ -139,7 +179,8 @@ class DecodeEngine:
                  kv_layout: str = "dense", page_size: int = 16,
                  num_pages: Optional[int] = None, prefix_caching: bool = True,
                  paged_attn: str = "fused", gather_granularity: str = "token",
-                 seq_shards: int = 1, spec_depth: int = 0):
+                 seq_shards: int = 1, spec_depth: int = 0, drafter=None,
+                 verify_kernel: str = "scan"):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         check_paged_options(paged_attn, gather_granularity)
@@ -147,10 +188,16 @@ class DecodeEngine:
             raise ValueError(
                 "gather_granularity='page' requires kv_layout='paged' "
                 "(page-granular reads address the page pools)")
-        if spec_depth > 0:
-            raise NotImplementedError(
-                "spec_depth > 0 is not ported yet (ROADMAP Queue A item 2: "
-                "speculative decoding)")
+        if verify_kernel not in ("scan", "mq"):
+            raise ValueError(f"unknown verify_kernel {verify_kernel!r} "
+                             f"(expected 'scan' or 'mq')")
+        if spec_depth < 0:
+            raise ValueError(f"spec_depth must be >= 0, got {spec_depth}")
+        if spec_depth > 0 and kv_layout != "paged":
+            raise ValueError(
+                "spec_depth > 0 requires kv_layout='paged': the verify "
+                "tick runs through the paged step and its rollback is the "
+                "page-cursor rewind (serve.spec)")
         if seq_shards > 1:
             raise NotImplementedError(
                 "seq_shards > 1 is not ported yet (ROADMAP Queue A item 4: "
@@ -169,7 +216,20 @@ class DecodeEngine:
         self.kv_layout = kv_layout
         self.paged_attn = paged_attn
         self.gather_granularity = gather_granularity
+        self.verify_kernel = verify_kernel
         self.pool = FeedbackPool(model, self.num_slots)
+
+        # speculative decoding: the drafter proposes up to spec_depth tokens
+        # per DECODE slot per tick (default: n-gram self-drafting)
+        self.spec_depth = int(spec_depth)
+        if drafter is None and self.spec_depth > 0:
+            drafter = NgramDrafter()
+        self.drafter = drafter
+        self.spec_ticks = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self._spec_pos_hits = np.zeros((self.spec_depth + 1,), np.int64)
+        self._spec_pos_total = np.zeros((self.spec_depth + 1,), np.int64)
 
         self.kv: Optional[PagedKVManager] = None
         if kv_layout == "paged":
@@ -355,6 +415,9 @@ class DecodeEngine:
         req.preemptions += 1
         self.slots[victim] = None
         self.preemptions += 1
+        if self.drafter is not None:
+            # stateful drafters resync from scratch on the replay
+            self.drafter.release(req.uid)
         self.scheduler.requeue(req)
 
     def _ensure_decode_page(self, slot: int, pos: int) -> None:
@@ -433,7 +496,121 @@ class DecodeEngine:
                 self.decoded_tokens += 1
                 self._maybe_finish(req.slot)
 
+    # ---- speculative decode tick (serve.spec) ---------------------------
+
+    def _draft_depth(self, req: Request) -> int:
+        """Draft depth for one DECODE slot: the engine's depth, capped by
+        the request's own, its remaining max_new budget, and 0 for sampled
+        requests (greedy-only speculation)."""
+        depth = (self.spec_depth if req.spec_depth is None
+                 else min(req.spec_depth, self.spec_depth))
+        if req.temperature > 0.0:
+            depth = 0
+        return min(depth, req.max_new_tokens - len(req.generated) - 1)
+
+    def _request_draft(self, req: Request) -> List[int]:
+        depth = self._draft_depth(req)
+        if depth <= 0:
+            return []
+        return [int(t) for t in self.drafter.draft(req, depth)][:depth]
+
+    def _collect_drafts(self, wanting: List[Tuple[int, Request]]
+                        ) -> Dict[int, List[int]]:
+        """Drafts for every DECODE slot: one `draft_batch` call where the
+        drafter has it (ModelDrafter), else one `draft` per slot."""
+        batch_fn = getattr(self.drafter, "draft_batch", None)
+        if batch_fn is not None:
+            pairs = [(req, self._draft_depth(req)) for _, req in wanting]
+            by_uid = batch_fn(pairs)
+            return {s: [int(t) for t in by_uid.get(req.uid, [])][:depth]
+                    for (s, req), (_, depth) in zip(wanting, pairs)}
+        return {s: self._request_draft(req) for s, req in wanting}
+
+    def _decode_tick_spec(self) -> None:
+        """Speculative `_decode_tick`: draft per slot, map the pages of
+        every position to verify (pool pressure may preempt here), run one
+        verify tick, append the accepted tokens, and rewind each slot's
+        pages to the accepted prefix."""
+        d1 = self.spec_depth + 1
+        wanting = [(s, req) for s, req in enumerate(self.slots)
+                   if req is not None and req.phase == DECODE]
+        drafts = self._collect_drafts(wanting)
+        for s in list(drafts):
+            req = self.slots[s]
+            if req is None or req.phase != DECODE:
+                drafts.pop(s)          # preempted while mapping another slot
+                continue
+            pos0 = len(req.prompt) + len(req.generated) - 1
+            for pos in range(pos0, pos0 + len(drafts[s]) + 1):
+                self._ensure_decode_page(s, pos)
+        self._push_page_table()
+        active_np = np.array([r is not None and r.phase == DECODE
+                              for r in self.slots])
+        if not active_np.any():
+            return
+        tokens = np.zeros((self.num_slots, d1), np.int32)
+        draft_len = np.zeros((self.num_slots,), np.int32)
+        max_accept = np.zeros((self.num_slots,), np.int32)
+        for s, req in enumerate(self.slots):
+            if not active_np[s]:
+                continue
+            draft = drafts.get(s, [])
+            tokens[s, 0] = req.generated[-1]
+            tokens[s, 1:1 + len(draft)] = draft
+            draft_len[s] = len(draft)
+            max_accept[s] = req.max_new_tokens - len(req.generated) - 1
+        dev = self.device
+        active = torch.as_tensor(active_np).to(dev)
+        mwp = torch.where(active, 0, PAGED_NEVER_WRITE).to(torch.int32)
+        out_tokens, accept_len, logits_all, sel_pos, new_state = \
+            self.model.serve_step_spec_paged(
+                self.params, self.state, torch.as_tensor(tokens).to(dev),
+                draft_len=torch.as_tensor(draft_len).to(dev),
+                max_accept=torch.as_tensor(max_accept).to(dev),
+                eos_id=self.eos_id if self.eos_id is not None else -1,
+                min_write_pos=mwp, paged_attn=self.paged_attn,
+                verify_kernel=self.verify_kernel,
+                gather_granularity=self.gather_granularity)
+        self.state = self._merge_active(new_state, self.state, active)
+        # one device-to-host copy per tick: tokens, accept lengths, layer-0
+        # GVR path per position
+        host = torch.cat([out_tokens, accept_len[:, None], sel_pos.int()],
+                         dim=1).cpu().numpy()
+        out_np, accept_np, sel_np = host[:, :d1], host[:, d1], host[:, d1 + 1:]
+        logits_np = logits_all.cpu().numpy() if self.record_logits else None
+        for s, req in enumerate(self.slots):
+            if not active_np[s]:
+                continue
+            a, dlen = int(accept_np[s]), int(draft_len[s])
+            for p in range(a + 1):
+                # accepted positions stand one to one for non-spec ticks
+                self._log(req, self._method_name(bool(sel_np[s, p])))
+                if p == 0:
+                    # sampled requests (always depth 0) draw from position 0
+                    tok = self._next_token(req, int(out_np[s, 0]),
+                                           logits_all[s, 0])
+                else:
+                    tok = int(out_np[s, p])
+                req.generated.append(tok)
+                if self.record_logits:
+                    req.logits_log.append(logits_np[s, p].copy())
+                self.decoded_tokens += 1
+            # telemetry over every executed position, accepted or wasted
+            if dlen > 0:
+                self.spec_ticks += 1
+                self.spec_drafted += dlen
+                self.spec_accepted += a
+            for j in range(dlen + 1):
+                self._spec_pos_total[j] += 1
+                self._spec_pos_hits[j] += bool(sel_np[s, j])
+            # page rewind to the accepted prefix
+            self.kv.rewind_slot(s, len(req.prompt) + len(req.generated) - 1)
+            self._maybe_finish(s)
+
     def _decode_tick(self) -> None:
+        if self.spec_depth > 0:
+            self._decode_tick_spec()
+            return
         if self.kv is not None:
             for s, req in enumerate(self.slots):
                 if req is None or req.phase != DECODE:
@@ -480,6 +657,8 @@ class DecodeEngine:
                 self.kv.release_slot(slot)
             self.state = self.pool.evict(self.state, slot)
             self.slots[slot] = None
+            if self.drafter is not None:
+                self.drafter.release(req.uid)
             self.completed.append(req)
 
     def tick(self) -> None:
@@ -518,6 +697,9 @@ class DecodeEngine:
         start_completed = len(self.completed)
         start_preempt = self.preemptions
         start_skipped = self.kv.skipped_tokens if self.kv is not None else 0
+        start_spec = (self.spec_ticks, self.spec_drafted, self.spec_accepted)
+        start_pos_hits = self._spec_pos_hits.copy()
+        start_pos_total = self._spec_pos_total.copy()
         while not self.idle() and self.tick_count - start_tick < max_ticks:
             self.tick()
         if self.device.type == "cuda":
@@ -531,6 +713,8 @@ class DecodeEngine:
                     combined[method] = combined.get(method, 0) + 1
                     bucket = by_phase.setdefault(phase, {})
                     bucket[method] = bucket.get(method, 0) + 1
+        pos_hits = self._spec_pos_hits - start_pos_hits
+        pos_total = self._spec_pos_total - start_pos_total
         return EngineReport(
             ticks=self.tick_count - start_tick, wall_s=wall,
             decoded_tokens=self.decoded_tokens - start_decoded,
@@ -542,4 +726,10 @@ class DecodeEngine:
             preemptions=self.preemptions - start_preempt,
             prefix_hit_tokens=(self.kv.skipped_tokens - start_skipped
                                if self.kv is not None else 0),
-            peak_page_utilization=self.peak_pool_util)
+            peak_page_utilization=self.peak_pool_util,
+            spec_ticks=self.spec_ticks - start_spec[0],
+            spec_drafted=self.spec_drafted - start_spec[1],
+            spec_accepted=self.spec_accepted - start_spec[2],
+            gvr_hit_rate_by_draft_pos=[
+                float(h) / float(t) if t else 0.0
+                for h, t in zip(pos_hits, pos_total)])

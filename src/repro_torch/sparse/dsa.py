@@ -19,6 +19,13 @@ same order):
   reads exactly the K selected rows from the page pools, one row per entry
   (B3) or each distinct touched page whole (`granularity="page"`, B10).
 
+The speculative verify tick's multi-query forms run all Q = d+1 draft
+positions of each slot at once: `dsa_select_paged_mq` scores the Q rows
+and selects them as a chain, row q warm-started from row q-1's Top-K
+(B9: scoring + chained GVR), and `dsa_sparse_attention_paged_mq` attends
+every (slot, row) selection in one launch (B8, or B10 over the folded
+rows at page granularity).
+
 On the CPU the same wrappers run their plain versions.
 """
 
@@ -167,6 +174,64 @@ def dsa_select_paged(indexer_params, x: torch.Tensor, idx_k_pages: torch.Tensor,
         max_candidates=max_candidates, gate_max_n=gate_max_n, min_n=min_n)
 
 
+def dsa_select_paged_mq(indexer_params, x: torch.Tensor,
+                        idx_k_pages: torch.Tensor, table: torch.Tensor,
+                        prev_topk: torch.Tensor, lengths: torch.Tensor, *,
+                        k: int, heads: int, dim: int, rope_base: float,
+                        selector: str = "auto",
+                        prev_valid: Optional[torch.Tensor] = None,
+                        max_candidates: Optional[int] = None,
+                        gate_max_n: int = 200_000, min_n: int = 4096,
+                        swa_window: Optional[int] = None) -> SelectorOutput:
+    """The Q query rows of each slot — x (B, Q, D), lengths (B, Q), row q
+    at position L0 + q — selected as a chain over the paged indexer keys:
+    row 0 warm-started from `prev_topk` (B, K) under `prev_valid`, row q > 0
+    from row q-1's Top-K, valid. Equals `dsa_select_paged` run row by row
+    with that threading, in indices and in `gvr_rows`.
+
+    Under the GVR methods all Q rows go through kernel B9 (scoring, then
+    the chained GVR, exact for warm and cold rows alike); `gvr_rows` is
+    `prev_valid` for row 0 under "mixed" and true elsewhere, as the
+    per-row selector reports it. Under radix or exact, B9's scoring half
+    scores the rows and the plain `select_topk` selects them one by one.
+    Returns a `SelectorOutput` whose fields carry a Q axis after B."""
+    _no_swa(swa_window)
+    b, qn = lengths.shape
+    lengths = lengths.int().contiguous()
+    q = indexer_q(indexer_params, x.reshape(b * qn, -1),
+                  (lengths - 1).reshape(b * qn), heads=heads, dim=dim,
+                  rope_base=rope_base, dtype=idx_k_pages.dtype)
+    q = q.reshape(b, qn, heads, dim)
+    w = indexer_params["w"].float().contiguous()
+    n = table.shape[1] * idx_k_pages.shape[1]
+    method = resolve_method(selector, n, has_prev=True,
+                            has_valid=prev_valid is not None,
+                            gate_max_n=gate_max_n, min_n_for_selection=min_n)
+    if method in ("gvr", "mixed"):
+        vals, idx, stats = ops.paged_indexer_topk_mq(
+            q, idx_k_pages, w, table, prev_topk.int().contiguous(), k,
+            lengths=lengths, max_candidates=max_candidates)
+        rows = torch.ones((b, qn), dtype=torch.bool, device=lengths.device)
+        if method == "mixed":
+            rows[:, 0] = prev_valid.bool()
+        return SelectorOutput(idx, vals, method, stats[..., 0].int(), rows)
+    scores = ops.paged_indexer_scores_mq(q, idx_k_pages, w, table, lengths)
+    sels, prev, valid = [], prev_topk, prev_valid
+    for j in range(qn):
+        sel = select_topk(scores[:, j], k, prev_idx=prev, prev_valid=valid,
+                          method=method, max_candidates=max_candidates,
+                          gate_max_n=gate_max_n, min_n_for_selection=min_n)
+        sels.append(sel)
+        prev = sel.indices
+        valid = None if valid is None else torch.ones_like(valid)
+    iters = [s_.secant_iters for s_ in sels]
+    return SelectorOutput(
+        torch.stack([s_.indices for s_ in sels], 1),
+        torch.stack([s_.values for s_ in sels], 1), method,
+        None if iters[0] is None else torch.stack(iters, 1),
+        torch.stack([s_.gvr_rows for s_ in sels], 1))
+
+
 def dsa_sparse_attention(q: torch.Tensor, kcache: torch.Tensor,
                          vcache: torch.Tensor, topk_idx: torch.Tensor,
                          lengths: torch.Tensor, *, scale: float) -> torch.Tensor:
@@ -204,6 +269,32 @@ def dsa_sparse_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
     return attn(q.to(k_pages.dtype).contiguous(), k_pages, v_pages, table,
                 topk_idx.int().contiguous(), lengths.int().contiguous(),
                 scale=scale)
+
+
+def dsa_sparse_attention_paged_mq(q: torch.Tensor, k_pages: torch.Tensor,
+                                  v_pages: torch.Tensor, table: torch.Tensor,
+                                  topk_idx: torch.Tensor,
+                                  lengths: torch.Tensor, *, scale: float,
+                                  granularity: str = "token") -> torch.Tensor:
+    """`dsa_sparse_attention_paged` over the Q query rows of each slot: q
+    (B, Q, H, HD), topk_idx (B, Q, K) logical, lengths (B, Q) each row's
+    causal extent, the slot's table row shared by its rows. "token": one
+    launch of kernel B8; "page": B10 over the folded (B*Q) rows with the
+    table repeated. Each row's result is the single-row form's. Returns
+    (B, Q, H, HD) f32."""
+    q = q.to(k_pages.dtype).contiguous()
+    idx = topk_idx.int().contiguous()
+    lengths = lengths.int().contiguous()
+    if granularity == "token":
+        return ops.paged_sparse_decode_attn_mq(q, k_pages, v_pages, table,
+                                               idx, lengths, scale=scale)
+    b, qn = lengths.shape
+    out = dsa_sparse_attention_paged(
+        q.reshape((b * qn,) + q.shape[2:]), k_pages, v_pages,
+        table.repeat_interleave(qn, dim=0).contiguous(),
+        idx.reshape(b * qn, -1), lengths.reshape(b * qn), scale=scale,
+        granularity=granularity)
+    return out.reshape(q.shape)
 
 
 def dsa_decode(q: torch.Tensor, kcache: torch.Tensor, vcache: torch.Tensor,

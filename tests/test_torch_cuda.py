@@ -9,7 +9,9 @@ Tolerances: Top-K bit-exact; the score row within 1e-5 (bf16 or f32
 products are exact or rounded once in f32, the sums run in another order);
 attention within 1e-4 (f32 softmax and PV sums over the same rows in
 another order); the page gather exact. The contiguous forms must equal the
-paged ones over the same keys bit for bit (B5 == B2, B6 == B3). Shapes
+paged ones over the same keys bit for bit (B5 == B2, B6 == B3), and the
+multi-query forms the single-row ones (B8 == B3 on the folded rows, B9's
+score rows == B2's, its chain == sequential B1 launches). Shapes
 cover what `chip_smoke.py` does not: rows too long for shared memory (B1
 then reads the row from global memory, up to the gate's N = 200,000),
 ragged N, other GQA groups, head dims and page sizes, float32 caches, and
@@ -170,6 +172,101 @@ def test_b7_paged_gather_on_card(dev, dtype, feat):
     table[2, 0] = p + 3                                   # out of the pool
     assert torch.equal(ops.paged_gather(pages, table),
                        ref.paged_gather_ref(pages, table))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kvh,h,hd,ps", [
+    (torch.bfloat16, 8, 32, 64, 64), (torch.float32, 2, 4, 32, 8)])
+def test_b8_mq_attention_on_card(dev, dtype, kvh, h, hd, ps):
+    g = torch.Generator(device=dev).manual_seed(hd + 8)
+    b, qn, mp, k = 3, 3, 40, 300
+    n = mp * ps
+    p = b * mp + 1
+    table = torch.randperm(p, generator=g, device=dev)[:b * mp].int().reshape(b, mp)
+    table[2, 20:] = -1
+    lengths = (torch.tensor([n - 3, n // 3, 20 * ps - 5], device=dev)[:, None]
+               + torch.arange(1, qn + 1, device=dev)).int().contiguous()
+    kp = torch.randn((p, ps, kvh, hd), generator=g, device=dev).to(dtype)
+    vp = torch.randn((p, ps, kvh, hd), generator=g, device=dev).to(dtype)
+    q = torch.randn((b, qn, h, hd), generator=g, device=dev).to(dtype)
+    idx = torch.randint(-1, n, (b, qn, k), generator=g, device=dev).int()
+    idx[:, :, 0] = lengths[:, 1:2] - 1        # masked in row 0 only
+    o8 = ops.paged_sparse_decode_attn_mq(q, kp, vp, table, idx, lengths)
+    torch.testing.assert_close(
+        o8, ref.paged_sparse_attn_mq_ref(q, kp, vp, table, idx, lengths),
+        rtol=1e-4, atol=1e-4)
+    folded = ops.paged_sparse_decode_attn(
+        q.reshape(b * qn, h, hd), kp, vp,
+        table.repeat_interleave(qn, 0).contiguous(), idx.reshape(b * qn, k),
+        lengths.reshape(b * qn))
+    assert torch.equal(o8.reshape(b * qn, h, hd), folded)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ps,hi,di", [
+    (torch.bfloat16, 64, 64, 128), (torch.float32, 16, 4, 32)])
+def test_b9_mq_indexer_topk_on_card(dev, dtype, ps, hi, di):
+    g = torch.Generator(device=dev).manual_seed(ps + 9)
+    b, qn, mp, k = 3, 3, 12, 40
+    n = mp * ps
+    table = torch.randperm(b * mp, generator=g, device=dev).int().reshape(b, mp)
+    table[1, 7:] = -1
+    lengths = (torch.tensor([n - 3, 7 * ps - 6, 1], device=dev)[:, None]
+               + torch.arange(qn, device=dev)).int().contiguous()
+    pages = torch.randn((b * mp, ps, di), generator=g, device=dev).to(dtype)
+    q = torch.randn((b, qn, hi, di), generator=g, device=dev).to(dtype)
+    w = torch.rand((hi,), generator=g, device=dev)
+    prev = torch.randint(-1, n, (b, k), generator=g, device=dev).int()
+    s9 = ops.paged_indexer_scores_mq(q, pages, w, table, lengths)
+    for j in range(qn):
+        assert torch.equal(s9[:, j], ops.paged_indexer_scores(
+            q[:, j].contiguous(), pages, w, table, lengths[:, j].contiguous()))
+    torch.testing.assert_close(
+        s9, ref.paged_indexer_scores_mq_ref(q, pages, w, table, lengths),
+        rtol=1e-5, atol=1e-5)
+    v9, i9, st9 = ops.gvr_topk_chain(s9, prev, k)
+    v0, i0, st0 = ref.gvr_topk_chain_ref(s9, prev, k)
+    assert torch.equal(i9, i0) and torch.equal(v9, v0)
+    assert torch.equal(st9[..., 4:], st0[..., 4:])
+    pv = prev
+    for j in range(qn):
+        v1, i1, st1 = ops.gvr_topk(s9[:, j].contiguous(), pv, k)
+        assert torch.equal(v9[:, j], v1) and torch.equal(i9[:, j], i1)
+        assert torch.equal(st9[:, j], st1)
+        pv = i1
+
+
+@pytest.mark.cuda
+def test_mq_wrappers_count_launches_and_raise_on_bad_input(dev):
+    ops.reset_launch_counts()
+    b, qn, ps, mp, hi, di, k = 2, 3, 16, 4, 4, 32, 8
+    table = torch.arange(b * mp, device=dev).int().reshape(b, mp)
+    pages = torch.randn((b * mp, ps, di), device=dev)
+    q = torch.randn((b, qn, hi, di), device=dev)
+    w = torch.rand((hi,), device=dev)
+    lengths = torch.full((b, qn), mp * ps, dtype=torch.int32, device=dev)
+    prev = torch.zeros((b, k), dtype=torch.int32, device=dev)
+    ops.paged_indexer_topk_mq(q, pages, w, table, prev, k, lengths=lengths)
+    kp = torch.randn((b * mp, ps, 2, 32), device=dev)
+    idx = torch.zeros((b, qn, k), dtype=torch.int32, device=dev)
+    ops.paged_sparse_decode_attn_mq(torch.randn((b, qn, 4, 32), device=dev),
+                                    kp, kp, table, idx, lengths)
+    counts = ops.launch_counts()
+    assert (counts["paged_indexer_scores_mq"], counts["gvr_topk_chain"],
+            counts["paged_sparse_decode_attn_mq"]) == (1, 1, 1)
+    assert counts["gvr_topk"] == counts["paged_sparse_decode_attn"] == 0
+    with pytest.raises(ValueError):                        # M != K
+        ops.paged_indexer_topk_mq(q, pages, w, table, prev[:, :4], k,
+                                  lengths=lengths)
+    with pytest.raises(ValueError):                        # lengths (B,)
+        ops.paged_indexer_scores_mq(q, pages, w, table, lengths[:, 0])
+    with pytest.raises(ValueError):                        # table rows
+        ops.paged_sparse_decode_attn_mq(
+            torch.randn((b, qn, 4, 32), device=dev), kp, kp, table[:1], idx,
+            lengths)
+    counts = ops.launch_counts()
+    assert (counts["paged_indexer_scores_mq"], counts["gvr_topk_chain"],
+            counts["paged_sparse_decode_attn_mq"]) == (1, 1, 1)
 
 
 @pytest.mark.cuda

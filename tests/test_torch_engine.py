@@ -118,16 +118,28 @@ def test_engine_matches_raw_serve_step_loop(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(spec_depth=2), "item 2"), (dict(seq_shards=2), "item 4")])
+    pytest.param(dict(kv_layout="paged", seq_shards=2), "item 4",
+                 id="kw1-item 4")])
 def test_unported_engine_options_raise(models, kw, item):
     _, _, tm, tparams = models
     with pytest.raises(NotImplementedError, match=item):
         DecodeEngine(tm, tparams, num_slots=1, max_len=64, page_size=8, **kw)
 
 
+def test_spec_on_the_dense_layout_raises_as_the_reference(models):
+    """Speculation needs the paged layout, and the default layout is dense:
+    ValueError, as the JAX engine raises."""
+    jm, jparams, tm, tparams = models
+    for engine_cls, model, params in ((JaxEngine, jm, jparams),
+                                      (DecodeEngine, tm, tparams)):
+        with pytest.raises(ValueError, match="paged"):
+            engine_cls(model, params, num_slots=1, max_len=64, spec_depth=2)
+
+
 @pytest.mark.parametrize("kw", [
     dict(kv_layout="dense"), dict(kv_layout="paged", paged_attn="gather"),
-    dict(kv_layout="paged", gather_granularity="page")])
+    dict(kv_layout="paged", gather_granularity="page"),
+    dict(kv_layout="paged", spec_depth=2)])
 def test_ported_engine_options_serve_a_request(models, kw):
     _, _, tm, tparams = models
     eng = DecodeEngine(tm, tparams, num_slots=1, max_len=64, page_size=8, **kw)

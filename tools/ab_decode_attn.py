@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Time kernels B3 (paged sparse decode attention) and B4 (paged dense
-decode attention) of two checkouts of the PyTorch port on one card.
+"""Time kernels B3 (paged sparse decode attention), B4 (paged dense
+decode attention) and B1 (GVR Top-K) of two checkouts of the PyTorch port
+on one card.
 
     python3 tools/ab_decode_attn.py CHECKOUT_A CHECKOUT_B
 
 Runs A, B, B, A, each in a process of its own (the two packages share the
 name `repro_torch`), and prints one line per run:
 
-    AB <checkout>: B3 <ms> ms, B4 <ms> ms
+    AB <checkout>: B3 <ms> ms, B4 <ms> ms, B1 <ms> ms
 
 Each kernel is built from the checkout's own sources into its
 `build/kernels/`. Shapes are those of `chip_smoke.py`'s kernel phase:
 B=4, N=8192, page 64, K=2048, llama3.2-1b widths (32 query heads, 8 KV
 heads, head_dim 64), bf16 pools through a shuffled block table. B3 attends
 over K random distinct rows per slot at lengths 8192, 5000, 1000 and 3001;
-B4 over every slot's whole extent (N rows). A time is the median of 50
+B4 over every slot's whole extent (N rows). B1 selects K of N normal
+scores per slot warm-started from the Top-K of a perturbed copy (C =
+6144). A time is the median of 50
 calls by CUDA events, with the L2 flushed before each call. Compare two
 checkouts only within one run of this script: cards and machines differ.
 """
@@ -47,7 +50,8 @@ def _time_ms(fn, flush, iters: int = 50, warmup: int = 3) -> float:
 
 
 def child(root: Path) -> None:
-    """Time B3 and B4 of the checkout at `root` and print the AB line."""
+    """Time B3, B4 and B1 of the checkout at `root` and print the AB
+    line."""
     import torch
     sys.path.insert(0, str(root / "src"))
     from repro_torch.kernels import ops
@@ -70,7 +74,13 @@ def child(root: Path) -> None:
         q, k_pages, v_pages, table, idx, sparse_len), flush)
     b4 = _time_ms(lambda: ops.paged_dense_decode_attn(
         q, k_pages, v_pages, table, full_len), flush)
-    print(f"AB {root}: B3 {b3:.5f} ms, B4 {b4:.5f} ms", flush=True)
+    scores = torch.randn((B, N), generator=g, device=dev)
+    noisy = scores + 0.01 * torch.randn((B, N), generator=g, device=dev)
+    prev = torch.topk(noisy, K, dim=-1).indices.sort(-1).values.int().contiguous()
+    b1 = _time_ms(lambda: ops.gvr_topk(scores, prev, K, max_candidates=6144),
+                  flush)
+    print(f"AB {root}: B3 {b3:.5f} ms, B4 {b4:.5f} ms, B1 {b1:.5f} ms",
+          flush=True)
 
 
 def main(argv) -> int:
