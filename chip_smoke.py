@@ -13,8 +13,12 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     per slot), edge cases included; B5 and B6 against B2
                     and B3 bit for bit on the same rows, B8 against B3 on
                     the folded rows, B9's scores against B2's and its chain
-                    against sequential B1 launches; time kernel, plain
-                    version and (B1, B7) the library call with CUDA events;
+                    against sequential B1 launches; B3/B4's split over
+                    rows (CTAs >= SMs, two calls and each slot alone
+                    bit-identical); time kernel, plain version and (B1, B7)
+                    the library call on the device alone (torch.profiler,
+                    L2 flushed before each call), with the CUDA-event
+                    window around each call beside it (wall_ms);
   3. main         — serve requests through `DecodeEngine` (paged, fused,
                     greedy) at the full width of llama3.2-1b, max_len=8192,
                     4 slots; every path below zeroes the launch counts just
@@ -42,8 +46,10 @@ Phases (any failure exits non-zero; no exception is swallowed):
  10. dense        — engines at max_len=4096 <= dsa.min_n, the pre-DSA
                     fallback: paged (kernel B4) and the dense layout (plain
                     PyTorch attention);
- 11. summary      — the `kernels` JSON line, the card's name and power
-                    limit, and the contract line `{"ok": true, ...}` last.
+ 11. summary      — each kernel's device time lost against its bound
+                    over its path (launches x (ms - bound_ms)), the
+                    `kernels` JSON line, the card's name and power limit,
+                    and the contract line `{"ok": true, ...}` last.
 
 Weights are random (seeded), so nothing is downloaded. The script needs the
 repository's `src/` beside it and a CUDA device; without either it exits
@@ -80,10 +86,74 @@ def fail(msg: str) -> None:
 
 # ------------------------------------------------------------- timing ------
 
-def time_ms(fn, flush, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, by CUDA events around each call, with
-    the 50 MB L2 flushed before every call (the main path finds the pools
-    cold: a step streams ~3 GB of weights between two layers' kernels)."""
+_FLUSH_NAMES: set = set()
+_GAP_S = 0.05          # host sleep after each profiled call
+
+
+def _profiled(run) -> list:
+    """(name, start us, duration us) of every device event (kernels,
+    copies, memsets) that `run()` issues, in start order, from
+    torch.profiler (CUPTI)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and not getattr(e, "is_user_annotation", False)]
+    ev.sort(key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.start, e.time_range.elapsed_us()) for e in ev]
+
+
+def _profiled_calls(fn, flush, reps: int) -> tuple:
+    """The device events of the complete calls among `reps` calls of fn in
+    one profiled window, the L2 flushed before each call, and the number
+    of calls seen. Each call is followed by a synchronize and _GAP_S on
+    the host, so a call is one cluster of device events on the device's
+    timeline. CUPTI drops events now and then (a call's kernel, on some
+    machines the first calls of a window): a call that shows fewer device
+    events than the most any call shows lost some and is left out."""
+    import torch
+    if not _FLUSH_NAMES:                       # the flush's own device events
+        def flushes():
+            for _ in range(4):
+                flush.zero_()
+                torch.cuda.synchronize()
+                time.sleep(_GAP_S)
+        _FLUSH_NAMES.update(name for name, _, _ in _profiled(flushes))
+        if not _FLUSH_NAMES:
+            fail("device timing: the profiler saw no device event of the flush")
+
+    def window():
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(_GAP_S)
+
+    clusters, end = [], None
+    for name, start, us in _profiled(window):
+        if end is None or start - end > _GAP_S * 1e6 / 2:
+            clusters.append([])
+        end = max(end or start, start + us)
+        if name not in _FLUSH_NAMES:
+            clusters[-1].append((name, us))
+    calls = [c for c in clusters if c]
+    most = max((len(c) for c in calls), default=0)
+    return [c for c in calls if len(c) == most], len(calls)
+
+
+def time_ms(fn, flush, iters: int = 20, warmup: int = 3) -> dict:
+    """Time of one call on the device alone, by torch.profiler: the 50 MB L2
+    is flushed before every call (the main path finds the pools cold: a
+    step streams ~3 GB of weights between two layers' kernels), and a
+    call's device events are summed; `ms` is the median over the complete
+    calls (`_profiled_calls`, at least half of `iters`; a window with
+    fewer is profiled again, five tries), `lo`/`hi` the least and most.
+    `wall_ms` is the median of CUDA events recorded around each call,
+    which also counts any host time past the flush's: the host cost per
+    call."""
     import torch
     for _ in range(warmup):
         fn()
@@ -96,7 +166,22 @@ def time_ms(fn, flush, iters: int = 20, warmup: int = 3) -> float:
         fn()
         e.record()
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in ev)
+    wall = statistics.median(s.elapsed_time(e) for s, e in ev)
+    for attempt in range(5):
+        calls, seen = _profiled_calls(fn, flush, iters)
+        if len(calls) >= max(1, iters // 2):
+            break
+        log(f"[timing] profiled window {attempt + 1}: {len(calls)} complete "
+            f"calls of {iters} ({seen} with device events); profiling it again")
+    else:
+        fail(f"device timing: no profiled window in five with {iters // 2} "
+             f"complete calls of {iters}")
+    if len(calls) < iters:
+        log(f"[timing] {iters - len(calls)} of {iters} calls lost device "
+            f"events to the profiler and are left out")
+    us = [sum(u for _, u in c) for c in calls]
+    return dict(ms=statistics.median(us) / 1e3, lo=min(us) / 1e3,
+                hi=max(us) / 1e3, wall_ms=wall)
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple:
@@ -144,6 +229,28 @@ def _paged_inputs(g, dev, *, b, mp, ps, lengths, kvh, hd, h, di, hi):
         k_pages=rnd(p, ps, kvh, hd), v_pages=rnd(p, ps, kvh, hd),
         idx_pages=rnd(p, ps, di), q=rnd(b, h, hd), qi=rnd(b, hi, di),
         w=torch.full((hi,), 1.0 / hi, device=dev))
+
+
+def _check_split(tag, fn, args, out, ctas, per_slot=(0, 3, 4, 5)):
+    """The split over rows: at least one CTA per SM, a second call
+    bit-identical, and each slot computed alone (B=1; the arguments at
+    `per_slot` cut to its row) bit-identical to the same slot inside the
+    batch."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if ctas < sms:
+        fail(f"{tag}: {ctas} CTAs for {sms} SMs")
+    again = fn(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(again, out):
+        fail(f"{tag}: two calls on the same inputs differ")
+    for s in range(out.shape[0]):
+        alone = fn(*(a[s:s + 1] if i in per_slot else a
+                     for i, a in enumerate(args)))
+        if not torch.equal(alone, out[s:s + 1]):
+            fail(f"{tag}: slot {s} alone differs from slot {s} of the batch")
+    return (f"{ctas} CTAs on {sms} SMs; two calls and each slot alone "
+            f"bit-identical")
 
 
 def phase_kernels(cfg, flush):
@@ -239,14 +346,18 @@ def phase_kernels(cfg, flush):
     o3r = ref.paged_sparse_attn_ref(*args3)
     torch.cuda.synchronize()
     # tolerance: bf16 inputs upcast exactly; f32 softmax and PV sums over
-    # <= 2048 rows in another order (16 warp partials merged at the end)
-    # and expf vs torch.exp: ~1e-6 relative; atol = rtol = 1e-4
+    # <= 2048 rows in another order (tiles of 32 rows, 16 split partials
+    # merged at the end) and expf vs torch.exp: ~1e-6 relative;
+    # atol = rtol = 1e-4
     e3 = float((o3 - o3r).abs().max())
     if not torch.allclose(o3, o3r, atol=1e-4, rtol=1e-4):
         fail(f"B3: max |err| {e3} beyond atol=rtol=1e-4")
     valid3 = ((idx >= 0) & (idx < ln[:, None])).sum(-1)
+    _, splits3 = ops.decode_attn_splits("paged_sparse", k, n, ps)
+    ctas3 = _check_split("B3", ops.paged_sparse_decode_attn, args3, o3,
+                         splits3 * cfg.n_kv_heads * b)
     log(f"[kernels] B3 allclose, max|err| {e3:.3e}; valid rows per slot "
-        f"{valid3.tolist()} (slot 2: idx >= length masked)")
+        f"{valid3.tolist()} (slot 2: idx >= length masked); {ctas3}")
 
     # ---- B4: dense attention over the causal extent ----------------------
     mp4 = 4096 // ps
@@ -265,7 +376,11 @@ def phase_kernels(cfg, flush):
     if not (torch.allclose(o4, o4r, atol=1e-4, rtol=1e-4)
             and torch.allclose(o4w, o4wr, atol=1e-4, rtol=1e-4)):
         fail(f"B4: max |err| {e4} beyond atol=rtol=1e-4 (same reasoning as B3)")
-    log(f"[kernels] B4 allclose (window None and 300), max|err| {e4:.3e}")
+    _, splits4 = ops.decode_attn_splits("paged_dense", 0, mp4 * ps, ps)
+    ctas4 = _check_split("B4", ops.paged_dense_decode_attn, args4, o4,
+                         splits4 * cfg.n_kv_heads * b, per_slot=(0, 3, 4))
+    log(f"[kernels] B4 allclose (window None and 300), max|err| {e4:.3e}; "
+        f"{ctas4}")
 
     # ---- B5: the same keys in a contiguous cache ---------------------------
     # pages past a slot's extent are unmapped; their rows lie beyond its
@@ -463,7 +578,8 @@ def phase_kernels(cfg, flush):
         "B9 scoring": time_ms(lambda: ops.paged_indexer_scores_mq(qi9, *args9, lq), flush),
         "B9 chain": time_ms(lambda: ops.gvr_topk_chain(s9, prev9, k, max_candidates=cmax), flush),
     }
-    log("[kernels] halves: " + ", ".join(f"{key} {v:.4f} ms" for key, v in halves.items()))
+    log("[kernels] halves (device ms, wall ms): " + ", ".join(
+        f"{key} {v['ms']:.5f} / {v['wall_ms']:.5f}" for key, v in halves.items()))
     # bounds from this run's inputs: each input read once, each output once
     pages_read = sum(-(-L // ps) for L in lengths)
     b1_bytes = b * n * 4 + prev.numel() * 4 + b * k * 8 + b * 32
@@ -513,15 +629,28 @@ def phase_kernels(cfg, flush):
         b9_bytes, 2 * hi * di * int(lq.sum())))
     log(f"[kernels] B9 bound reads {keys9 / 1e6:.3f} MB of keys; the design "
         f"reads {keys9_read / 1e6:.3f} MB (once per query row)")
+    # B10 reads each distinct selected row once, weighted by its count; the
+    # rows of its touched pages are the page-granular reference's figure
+    sel10 = sum(len(set(row[m].tolist())) for row, m in zip(idx, valid10))
     rows10 = sum(pages10) * ps
-    log(f"[kernels] B10 design reads every row of its touched pages: {rows10} "
-        f"rows ({rows10 * kvh * hd * 2 * 2 / 1e6:.3f} MB of K/V) against the "
-        f"{rows3} selected ({rows3 * kvh * hd * 2 * 2 / 1e6:.3f} MB)")
-    for key, (ms, plain, lib) in t.items():
-        results[key].update(ms=ms, plain_ms=plain, library_ms=lib)
-        log(f"[kernels] {key}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"library {lib if lib is None else f'{lib:.4f} ms'}, bound "
-            f"{results[key]['bound'][0]:.4f} ms ({results[key]['bound'][1]})")
+    log(f"[kernels] B10 design reads the {sel10} distinct selected rows "
+        f"({sel10 * kvh * hd * 2 * 2 / 1e6:.3f} MB of K/V) of the {rows3} "
+        f"valid entries ({rows3 * kvh * hd * 2 * 2 / 1e6:.3f} MB); the "
+        f"page-granular reference reads every row of the touched pages: "
+        f"{rows10} rows ({rows10 * kvh * hd * 2 * 2 / 1e6:.3f} MB)")
+    # device ms [least-most over the calls] / wall ms, for kernel, plain
+    # version and library call alike
+    def fmt(x):
+        return ("none" if x is None else f"{x['ms']:.5f} [{x['lo']:.5f}-"
+                f"{x['hi']:.5f}] / {x['wall_ms']:.5f} ms")
+
+    for key, (ker, plain, lib) in t.items():
+        results[key].update(ms=ker["ms"], wall_ms=ker["wall_ms"],
+                            plain_ms=plain["ms"],
+                            library_ms=None if lib is None else lib["ms"])
+        log(f"[kernels] {key}: device [least-most] / wall: kernel {fmt(ker)}, "
+            f"plain {fmt(plain)}, library {fmt(lib)}, bound "
+            f"{results[key]['bound'][0]:.5f} ms ({results[key]['bound'][1]})")
     return results
 
 
@@ -641,14 +770,15 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
-def _profile_step(params, st, tokens, cfg):
+def _profile_step(params, st, tokens, cfg, flush):
     """Host wall time of one B=4 DSA decode step and, from torch.profiler,
-    the device time of its kernels: the device's busy and idle share. The
-    step rewrites the same cache rows each call (its new state is
-    dropped), so repeated calls see the same inputs."""
+    the device time of its kernels (the L2 flushed before each profiled
+    step): the device's busy and idle share. The step rewrites the same
+    cache rows each call (its new state is dropped), so repeated calls see
+    the same inputs. Returns {"wall_ms", "device_ms"}, device_ms None when
+    no profiled step was complete; `tools/ab_decode_attn.py` calls it on
+    two checkouts."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer
     for _ in range(2):
         transformer.serve_step_paged(params, st, tokens, cfg)
@@ -659,25 +789,25 @@ def _profile_step(params, st, tokens, cfg):
         transformer.serve_step_paged(params, st, tokens, cfg)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / reps * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            transformer.serve_step_paged(params, st, tokens, cfg)
-        torch.cuda.synchronize()
     # device-side events only (kernels, copies): the operator entries of
     # key_averages() carry their kernels' time too and would count it twice
-    dev = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            dev[e.name] = dev.get(e.name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
-    if not dev:
+    calls, seen = _profiled_calls(
+        lambda: transformer.serve_step_paged(params, st, tokens, cfg), flush, reps)
+    if not calls:
         log(f"[step] B=4 DSA decode step: {step_ms:.3f} ms host wall; device "
-            f"time not measured (the profiler saw no CUDA kernels)")
-        return
+            f"time not measured (the profiler saw no complete step)")
+        return dict(wall_ms=step_ms, device_ms=None)
+    dev = {}
+    for call in calls:
+        for name, us in call:
+            dev[name] = dev.get(name, 0.0) + us / len(calls) / 1e3
     busy = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     log(f"[step] B=4 DSA decode step: {step_ms:.3f} ms host wall, {busy:.3f} ms "
-        f"device busy ({busy / step_ms:.3f} busy share); top device time "
-        f"per step (ms): " + ", ".join(f"{k[:48]}={v:.4f}" for k, v in top))
+        f"device busy ({busy / step_ms:.3f} busy share; {len(calls)} of {reps} "
+        f"profiled steps complete); top device time per step (ms): "
+        + ", ".join(f"{k[:48]}={v:.4f}" for k, v in top))
+    return dict(wall_ms=step_ms, device_ms=busy)
 
 
 def _random_step_state(model, g, dev, lengths, b=4, max_len=8192, ps=64):
@@ -701,7 +831,7 @@ def _random_step_state(model, g, dev, lengths, b=4, max_len=8192, ps=64):
     return st
 
 
-def phase_step(model, params, cpu_params, rng):
+def phase_step(model, params, cpu_params, rng, flush):
     """One serve_step_paged on the card and through the plain path on the
     CPU, from the same state."""
     import torch
@@ -747,7 +877,7 @@ def phase_step(model, params, cpu_params, rng):
         for i in sorted(a ^ c)[:4]:
             kth = float(torch.topk(s0[row], kk).values[-1])
             flips.append((row, i, float(s0[row, i]) - kth))
-    _profile_step(params, st, tokens, cfg)
+    _profile_step(params, st, tokens, cfg, flush)
     log(f"[step] logits rel L2 err {rel:.3e} (argmax agreement "
         f"{argmax_agree:.2f}); CPU plain step {cpu_s:.3f} s; per-layer "
         f"Top-K agreement {agree}")
@@ -1136,7 +1266,7 @@ def main() -> int:
     main_counts, main_tokens = timed("main", phase_main, model, params, specs)
     dl_counts = timed("dense-layout", phase_dense_layout, model, params, specs,
                       main_tokens)
-    timed("step", phase_step, model, params, cpu_params, rng)
+    timed("step", phase_step, model, params, cpu_params, rng, flush)
     timed("layouts", phase_layouts, model, params, cpu_params, rng)
     gather_counts, page_counts, fused = timed("gather+page", phase_gather_page,
                                               model, params, rng)
@@ -1181,9 +1311,16 @@ def main() -> int:
             "source": " + ".join(f"src/repro_torch/kernels/csrc/{f}"
                                  for f in src_file.split(" + ")),
             "replaces": replaces, "launches": int(launches),
-            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "max_abs_err": r["err"], "ms": r["ms"], "wall_ms": r["wall_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"]})
+    # the redesign order: device time lost against the bound over each
+    # kernel's path in this run
+    lost = sorted(((k["launches"] * (k["ms"] - k["bound_ms"]) / 1e3, k["name"])
+                   for k in kernels), reverse=True)
+    log("[summary] launches x (ms - bound_ms): " + ", ".join(
+        f"{name.split()[0]} {sec:.4f} s" for sec, name in lost))
     log(f"[summary] total {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -45,11 +45,8 @@ SIGNATURES = {
                                                  _P, _P, _I, _I, _I, _I, _I,
                                                  _I, _I, _I, _P, _P]},
     "decode_attn": {"decode_attn_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                           _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                                           _P, _P],
-                    "decode_attn_mq_launch": [_I, _I, _I, _P, _P, _P, _P, _P,
-                                              _P, _I, _I, _I, _I, _I, _I, _I,
-                                              _F, _P, _P]},
+                                           _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                           _I, _I, _F, _P, _P, _P, _P]},
     "paged_gather": {"paged_gather_launch": [_P, _P, _I, _I, _I, _L, _I, _P,
                                              _P]},
 }

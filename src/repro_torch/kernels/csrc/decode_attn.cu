@@ -22,46 +22,61 @@
 //   B10 src/repro/kernels/sparse_attn.py:paged_sparse_decode_attn_pg_pallas
 //       (kernel _paged_attn_pg_kernel) — one grid step per distinct touched
 //       page, loaded whole, the unselected rows masked.
-// Here one CTA of 16 warps serves one (KV head, slot) pair and its G = H/KVH
-// query heads (GQA: head h reads KV head h / G). The CTA translates a chunk
-// of entries to rows of the flattened cache into shared memory (B10: with a
-// weight per row, a template branch the other modes compile without), then
-// each warp streams its share of rows — a lane holds hd/32 dimensions, a
-// dot product is a warp reduction — and keeps its own online-softmax state
-// in f32; the 16 partial states are merged at the end with the `isfinite`
-// guards and a final l >= 1e-30 clamp.
 //
-// Rows per mode: B3 row = table[b, pos / ps] * ps + pos % ps; B6 row =
-// b * N + pos (the wrapper passes ps = 1, mp = N); B8 is B3 over the B*Q
-// folded query rows, row r reading table row r / Q straight from the
-// shared (B, MP) table (no repeated table is built) and its idx, length, q
-// and output from row r. B3, B6 and B8 visit entries in Top-K order with
-// the same warp partition, so B6 over a contiguous cache, B3 over pages
-// holding the same rows and B8 against B3 on the folded rows (table
-// repeated) agree bit for bit. B10
-// first builds the slot's descriptor list in shared memory: a 16-bit count
-// per logical position and a flag per logical page, marked from idx, then
-// one warp compacts the flagged pages in ascending order with ballots. It
-// then walks every row of every touched page (page order, so it agrees with
-// the Top-K-ordered plain version to rounding only), weighting a row by its
-// count: unselected rows weigh 0 and are masked, a duplicate entry counts
-// as often as the token-granular form counts it.
+// The split over rows. The grid is (splits, KVH, rows): one CTA of four
+// warps serves one split of one (KV head, row) pair and its G = H/KVH query
+// heads (GQA: head h reads KV head h / G). A split is a fixed run of R
+// entries of the row — R Top-K entries for B3/B6/B8, R positions (whole
+// pages, R a multiple of ps) for B4 — so the split count ceil(count / R)
+// depends on the row's entry count alone, never on B, Q, the mode or the
+// SM count, and a row's output depends on its own rows only. Inside a
+// split the CTA translates its entries to rows of the flattened cache
+// (idx -> table -> row; masked: idx < 0, idx >= length, unmapped page, and
+// for B4 the window), then streams the rows in tiles of 32 through a
+// shared-memory double buffer: 16-byte cp.async gathers, C16 = hd*size/16
+// lanes per (row, KV head) vector (8 at hd=64 bf16), a masked row
+// zero-filled without a read, the next tile's gathers in flight while the
+// current one is scored. A tile is scored for all G heads with sub-warp
+// reductions, then one max and one rescale per tile and head (a warp per
+// head, a lane per row), then PV in f32 (the weights stay f32).
 //
-// Masking: an entry contributes iff its position is in [0, length) (and,
-// dense, inside the optional window) and its page is mapped. The sparse
-// length mask is one the Pallas kernels lack (the served XLA path has it).
-// A slot with no valid entry gets 0.
+// The combine. Each CTA of a multi-split row writes its partial
+// (m, l, acc[G][hd]) in f32 to a workspace the wrapper allocates; the last
+// CTA of the (row, KV head) pair to finish — an atomic ticket it resets
+// itself, so one launch does both passes — merges the partials in split
+// order with the guards `isfinite(m)` and l >= 1e-30, and writes 0 for an
+// all-masked row. The merge order is fixed and nothing else is atomic, so
+// two calls on the same inputs agree bit for bit; B6 over a contiguous
+// cache, B3 over pages holding the same rows and B8 against B3 on the
+// folded rows (table repeated) take the same path and agree bit for bit.
+// A row with one split writes its output directly (same arithmetic as a
+// one-partial merge). The tickets are an int32 array the caller owns, zero
+// when created and zero again after every launch; two launches that may
+// overlap in time (two streams) must not share one.
+//
+// B10 keeps one CTA per (KV head, slot) — a single split — because its
+// entries are the rows of the touched pages in page order, known only
+// after the CTA has counted the slot's Top-K per position (a 16-bit count
+// per logical position and a flag per logical page in shared memory,
+// marked from idx, the flagged pages compacted in ascending order with
+// ballots). It walks those rows in chunks of 1024, keeps the selected ones
+// (count > 0; the unselected rows of a touched page are not read),
+// compacted in page order by a block scan, and runs them through the same
+// tile loop, weighting a row by its count. It sums in page order, so it
+// agrees with the Top-K-ordered plain version to rounding only; a
+// duplicate entry counts as often as the token-granular form counts it.
+// The sparse length mask is one the Pallas kernels lack (the served XLA
+// path has it).
 //
 // Bound on an H100: the bytes of the rows it must read. B3/B6 at B=4,
 // K=2048, KVH=8, hd=64, bf16: 4*2048*8*64*2*2 = 16.8 MB, ~5 us at 3.35
-// TB/s; B8 the distinct (slot, row) pairs its Q rows select (consecutive
-// positions share most of their Top-K, so close to B3's bytes, where this
-// design reads each row once per query row, Q times); B4 reads each slot's length*KVH*hd*2*2 bytes, B10 every row of the
-// touched pages. The flops (4*B*H*rows*hd) are negligible. The design
-// spends its parallelism on keeping many row loads in flight (16 warps, 4
-// rows unrolled per warp); the grid is only B*KVH CTAs, so this first form
-// leaves most SMs idle — a split over the rows with a second combine pass
-// is the next step.
+// TB/s; B8 the distinct (slot, row) pairs its Q rows select (this design
+// reads each row once per query row); B4 each slot's length*KVH*hd*2*2
+// bytes. The flops (4*B*H*rows*hd) are negligible. A gathered row vector
+// is only 128 B, so the bound is reached only with many gathers in flight:
+// the split gives B3 16*8*4 = 512 CTAs at B=4, K=2048 (B4 2048 at N=8192)
+// where one CTA per (KV head, slot) gave 32, and each CTA keeps two tiles
+// (16 KB at hd=64 bf16) in flight.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,10 +85,13 @@
 
 namespace {
 
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kChunk = 1024;
-constexpr int kUnroll = 4;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 32;          // rows per tile: one lane per row in the softmax step
+constexpr int kStages = 2;         // tiles in flight (double buffer)
+constexpr int kPgChunk = 1024;     // B10: page rows compacted at a time
+constexpr int kPgPer = kPgChunk / kThreads;
+constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Mode {
@@ -84,50 +102,106 @@ enum Mode {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// One instantiation per mode: each form compiles without the others'
-// branches (only B10 carries per-row weights).
-template <typename T, int G, int DPL, int MODE>
+// 16 bytes of the cache dtype as floats (bf16 -> f32 is exact: the bits
+// shifted into the high half)
+__device__ __forceinline__ void unpack16(const uint4 u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack16(const uint4 u, float (&f)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// 16-byte asynchronous copy global -> shared; valid == false zero-fills
+// the destination without reading the source
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(n) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+struct Args {
+  const void* q; const void* kp; const void* vp;
+  const int* table; const int* idx; const int* lengths;
+  int rows, qrows, kvh, ps, mp, num_pages, kcols, window, rps, splits;
+  float scale;
+  float* ws; unsigned* tickets; float* out;
+  cudaStream_t stream;
+};
+
+template <typename T, int G, int HD, int MODE>
 __global__ void __launch_bounds__(kThreads)
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ table,
                    const int* __restrict__ idx, const int* __restrict__ lengths,
                    int kvh, int ps, int mp, int num_pages, int kcols,
-                   int window, int qrows, float scale,
+                   int window, int qrows, int rps, float scale,
+                   float* __restrict__ ws, unsigned* __restrict__ tickets,
                    float* __restrict__ out) {
-  constexpr int HD = 32 * DPL;
   constexpr bool PG = MODE == kPagedPages;
-  extern __shared__ float sm[];
-  __shared__ int npg_s;
+  constexpr int EPL = 16 / (int)sizeof(T);   // elements per 16-byte chunk
+  constexpr int C16 = HD / EPL;              // chunks (lanes) per row vector
+  constexpr int RPP = kThreads / C16;        // rows scored per pass
+  constexpr int NRG = kThreads / HD;         // row groups of the PV step
+  static_assert(C16 >= 1 && C16 <= 32 && kTile % RPP == 0, "tile shape");
+  static_assert(NRG >= 1 && kThreads % HD == 0, "PV shape");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int npg_s, last_s, warp_n[kWarps];
+  const int chunk = PG ? kPgChunk : rps;     // entries translated at a time
   const int n = mp * ps;
-  int* rows = reinterpret_cast<int*>(sm);                 // (kChunk,)
-  float* wts = sm + kChunk;                               // (kChunk,) PG only
-  float* m_s = wts + (PG ? kChunk : 0);                   // (kWarps, G)
-  float* l_s = m_s + kWarps * G;                          // (kWarps, G)
-  float* a_s = l_s + kWarps * G;                          // (kWarps, G, HD)
+  T* kbuf = reinterpret_cast<T*>(smem);                        // (kStages, kTile, HD)
+  T* vbuf = kbuf + kStages * kTile * HD;                       // (kStages, kTile, HD)
+  float* red = reinterpret_cast<float*>(smem);                 // (NRG, G, HD), after the loop
+  int* rows_s = reinterpret_cast<int*>(vbuf + kStages * kTile * HD);   // (chunk,)
+  float* w_s = reinterpret_cast<float*>(rows_s + chunk);       // (chunk,) B10 only
+  float* p_s = w_s + (PG ? chunk : 0);                         // (G, kTile) scores, then weights
+  float* alpha_s = p_s + G * kTile;                            // (G,)
+  float* m_s = alpha_s + G;                                    // (G,)
+  float* l_s = m_s + G;                                        // (G,)
   // B10 only: 16-bit selection count per logical position, page flags and
   // the compacted page list
-  unsigned* cnt = reinterpret_cast<unsigned*>(a_s + kWarps * G * HD);
-  int* pflag = reinterpret_cast<int*>(cnt + (n + 1) / 2);  // (mp,)
-  int* plist = pflag + mp;                                 // (mp,)
+  unsigned* cnt = reinterpret_cast<unsigned*>(l_s + G);        // ((n+1)/2,)
+  int* pflag = reinterpret_cast<int*>(cnt + (n + 1) / 2);      // (mp,)
+  int* plist = pflag + mp;                                     // (mp,)
 
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
   const int h = kvh * G;
   const int len = lengths[b];
   const int ext = len < n ? len : n;
-  const int* ib = idx ? idx + (size_t)b * kcols : nullptr;      // not B4
+  const int* ib = idx ? idx + (size_t)b * kcols : nullptr;        // not B4
   // B8: query row b belongs to slot b / qrows (not B6)
   const int tb_row = MODE == kPagedSparseMq ? b / qrows : b;
   const int* tb = table ? table + (size_t)tb_row * mp : nullptr;
-  int start = 0, count;
+
+  if (t < G) { m_s[t] = -INFINITY; l_s[t] = 0.f; }
+  // this CTA's entries [e0, e1): B4 positions clipped to the window and the
+  // extent, the sparse modes a run of rps Top-K entries, B10 every row of
+  // the touched pages
+  int e0 = 0, e1 = 0;
   if constexpr (MODE == kPagedDense) {
-    if (window > 0 && ext - window > 0) start = ext - window;
-    count = ext > start ? ext - start : 0;
+    const int start = window > 0 && ext - window > 0 ? ext - window : 0;
+    e0 = max(split * rps, start);
+    e1 = min((split + 1) * rps, ext);
   } else if constexpr (PG) {
-    for (int i = threadIdx.x; i < (n + 1) / 2; i += kThreads) cnt[i] = 0u;
-    for (int i = threadIdx.x; i < mp; i += kThreads) pflag[i] = 0;
+    for (int i = t; i < (n + 1) / 2; i += kThreads) cnt[i] = 0u;
+    for (int i = t; i < mp; i += kThreads) pflag[i] = 0;
     __syncthreads();
-    for (int i = threadIdx.x; i < kcols; i += kThreads) {
+    for (int i = t; i < kcols; i += kThreads) {
       const int pos = ib[i];
       if (pos < 0 || pos >= ext) continue;
       const int phys = tb[pos / ps];
@@ -147,216 +221,376 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       if (lane == 0) npg_s = total;
     }
     __syncthreads();
-    count = npg_s * ps;
+    e1 = npg_s * ps;
   } else {
-    count = kcols;
+    e0 = split * rps;
+    e1 = min(e0 + rps, kcols);
   }
 
-  float qr[G][DPL], acc[G][DPL], mx[G], l[G];
+  // scoring: lane lc of each row group holds q's chunk lc for all G heads
+  const int lc = t % C16, rr = t / C16;
+  float qf[G][EPL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const T* qg = q + ((size_t)b * h + kh * G + g) * HD + lane * DPL;
+    const T* qg = q + ((size_t)b * h + kh * G + g) * HD + lc * EPL;
 #pragma unroll
-    for (int t = 0; t < DPL; ++t) { qr[g][t] = to_f32(qg[t]); acc[g][t] = 0.f; }
-    mx[g] = -INFINITY;
-    l[g] = 0.f;
+    for (int i = 0; i < EPL; ++i) qf[g][i] = to_f32(qg[i]);
   }
+  // PV: thread (d, rg) accumulates dimension d over rows r = rg mod NRG
+  const int d = t % HD, rg = t / HD;
+  float acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.f;
 
-  for (int c0 = 0; c0 < count; c0 += kChunk) {
-    const int cl = count - c0 < kChunk ? count - c0 : kChunk;
-    for (int i = threadIdx.x; i < cl; i += kThreads) {
-      const int e = c0 + i;
-      int row = -1;
-      if constexpr (PG) {
-        const int lp = plist[e / ps], pos = lp * ps + e % ps;
-        row = tb[lp] * ps + e % ps;                 // mapped by construction
-        wts[i] = (float)((cnt[pos >> 1] >> ((pos & 1) * 16)) & 0xffffu);
-      } else {
-        const int pos = MODE == kPagedDense ? start + e : ib[e];
-        if (pos >= 0 && pos < ext) {
-          if constexpr (MODE == kContigSparse) {
-            row = b * n + pos;
-          } else {
-            const int phys = tb[pos / ps];
-            if (phys >= 0 && phys < num_pages) row = phys * ps + pos % ps;
+  for (int c0 = e0; c0 < e1; c0 += chunk) {
+    int cl = min(chunk, e1 - c0);
+    if constexpr (PG) {
+      // the chunk's selected rows (count > 0), compacted in page order:
+      // thread t takes page rows [t * kPgPer, (t + 1) * kPgPer) of the chunk
+      auto count_at = [&](int e) -> unsigned {
+        const int pos = plist[e / ps] * ps + e % ps;
+        return (cnt[pos >> 1] >> ((pos & 1) * 16)) & 0xffffu;
+      };
+      int nv = 0;
+#pragma unroll
+      for (int j = 0; j < kPgPer; ++j) {
+        const int i = t * kPgPer + j;
+        if (i < cl && count_at(c0 + i) != 0u) ++nv;
+      }
+      int incl = nv;                                   // inclusive warp scan
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (lane == 31) warp_n[w] = incl;
+      __syncthreads();
+      int k = incl - nv, total = 0;
+#pragma unroll
+      for (int ww = 0; ww < kWarps; ++ww) {
+        if (ww < w) k += warp_n[ww];
+        total += warp_n[ww];
+      }
+#pragma unroll
+      for (int j = 0; j < kPgPer; ++j) {
+        const int i = t * kPgPer + j;
+        if (i >= cl) break;
+        const unsigned c = count_at(c0 + i);
+        if (c == 0u) continue;
+        const int e = c0 + i;
+        rows_s[k] = tb[plist[e / ps]] * ps + e % ps;   // mapped by construction
+        w_s[k] = (float)c;
+        ++k;
+      }
+      cl = total;
+    } else {
+      for (int i = t; i < cl; i += kThreads) {
+        const int e = c0 + i;
+        int row = -1;
+        if constexpr (MODE == kPagedDense) {
+          const int phys = tb[e / ps];                   // e in [start, ext)
+          if (phys >= 0 && phys < num_pages) row = phys * ps + e % ps;
+        } else {
+          const int pos = ib[e];
+          if (pos >= 0 && pos < ext) {
+            if constexpr (MODE == kContigSparse) {
+              row = b * n + pos;
+            } else {
+              const int phys = tb[pos / ps];
+              if (phys >= 0 && phys < num_pages) row = phys * ps + pos % ps;
+            }
           }
         }
+        rows_s[i] = row;
       }
-      rows[i] = row;
     }
     __syncthreads();
-    for (int i0 = w * kUnroll; i0 < cl; i0 += kWarps * kUnroll) {
-      int r[kUnroll];
-      float wu[kUnroll];
-      float kr[kUnroll][DPL], vr[kUnroll][DPL];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        r[u] = i0 + u < cl ? rows[i0 + u] : -1;
-        if constexpr (PG) wu[u] = i0 + u < cl ? wts[i0 + u] : 0.f;
-        if (r[u] >= 0) {
-          const size_t off = ((size_t)r[u] * kvh + kh) * HD + lane * DPL;
-#pragma unroll
-          for (int t = 0; t < DPL; ++t) {
-            kr[u][t] = to_f32(kp[off + t]);
-            vr[u][t] = to_f32(vp[off + t]);
-          }
-        }
+
+    const int ntile = (cl + kTile - 1) / kTile;
+    auto issue = [&](int tile) {
+      T* kb = kbuf + (tile % kStages) * kTile * HD;
+      T* vb = vbuf + (tile % kStages) * kTile * HD;
+      for (int i = t; i < 2 * kTile * C16; i += kThreads) {
+        const int which = i / (kTile * C16);           // 0: K, 1: V
+        const int rem = i - which * kTile * C16;
+        const int r = rem / C16, c = rem - r * C16;
+        const int e = tile * kTile + r;
+        const int row = e < cl ? rows_s[e] : -1;
+        const T* src = which ? vp : kp;
+        const T* gp = row >= 0 ? src + ((size_t)row * kvh + kh) * HD + c * EPL : src;
+        cp_async16((which ? vb : kb) + r * HD + c * EPL, gp, row >= 0);
       }
+    };
+    issue(0);
+    cp_async_commit();
+    if (ntile > 1) issue(1);
+    cp_async_commit();
+
+    for (int tl = 0; tl < ntile; ++tl) {
+      cp_async_wait<kStages - 1>();                    // tile tl has landed
+      __syncthreads();
+      const T* kb = kbuf + (tl % kStages) * kTile * HD;
+      const T* vb = vbuf + (tl % kStages) * kTile * HD;
+      // scores of the tile's rows for all G heads
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (r[u] < 0) continue;                 // warp-uniform
-        if constexpr (PG) {
-          if (wu[u] == 0.f) continue;           // read with its page, masked
-        }
+      for (int r0 = 0; r0 < kTile; r0 += RPP) {
+        const int r = r0 + rr;
+        float kf[EPL];
+        unpack16(*reinterpret_cast<const uint4*>(kb + r * HD + lc * EPL), kf);
+        float s[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          float s = 0.f;
+          s[g] = 0.f;
 #pragma unroll
-          for (int t = 0; t < DPL; ++t) s = fmaf(qr[g][t], kr[u][t], s);
-          for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
-          s *= scale;
-          const float m_new = fmaxf(mx[g], s);
-          const float alpha = expf(mx[g] - m_new);   // exp(-inf) = 0 at start
-          float p = expf(s - m_new);
-          if constexpr (PG) p *= wu[u];
-          l[g] = fmaf(l[g], alpha, p);
+          for (int i = 0; i < EPL; ++i) s[g] = fmaf(qf[g][i], kf[i], s[g]);
+        }
 #pragma unroll
-          for (int t = 0; t < DPL; ++t) acc[g][t] = fmaf(acc[g][t], alpha, p * vr[u][t]);
-          mx[g] = m_new;
+        for (int o = C16 / 2; o > 0; o >>= 1) {
+#pragma unroll
+          for (int g = 0; g < G; ++g) s[g] += __shfl_xor_sync(kFull, s[g], o);
+        }
+        if (lc == 0) {
+          const int e = tl * kTile + r;
+          const bool ok = e < cl && rows_s[e] >= 0;
+#pragma unroll
+          for (int g = 0; g < G; ++g) p_s[g * kTile + r] = ok ? s[g] * scale : -INFINITY;
         }
       }
+      __syncthreads();
+      // one max and one rescale per tile and head: warp w owns heads
+      // w, w + kWarps, ...; lane j holds row j
+      for (int g = w; g < G; g += kWarps) {
+        const float s = p_s[g * kTile + lane];
+        float mx = s;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+        const float m_old = m_s[g];
+        const float m_new = fmaxf(m_old, mx);
+        float p = 0.f, alpha = 1.f;
+        if (m_new != -INFINITY) {
+          alpha = expf(m_old - m_new);                   // 0 on the first live tile
+          p = expf(s - m_new);                           // masked rows: 0
+          if constexpr (PG) {
+            const int e = tl * kTile + lane;
+            p *= e < cl ? w_s[e] : 0.f;
+          }
+        }
+        float sum = p;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+        p_s[g * kTile + lane] = p;
+        __syncwarp();
+        if (lane == 0) {
+          m_s[g] = m_new;
+          l_s[g] = fmaf(l_s[g], alpha, sum);
+          alpha_s[g] = alpha;
+        }
+      }
+      __syncthreads();
+      // PV in f32
+#pragma unroll
+      for (int g = 0; g < G; ++g) acc[g] *= alpha_s[g];
+#pragma unroll 4
+      for (int r = rg; r < kTile; r += NRG) {
+        const float v = to_f32(vb[r * HD + d]);
+#pragma unroll
+        for (int g = 0; g < G; ++g) acc[g] = fmaf(p_s[g * kTile + r], v, acc[g]);
+      }
+      __syncthreads();                                   // buffer tl % kStages is free
+      if (tl + kStages < ntile) issue(tl + kStages);
+      cp_async_commit();
     }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // sum the row groups' partial PV (the buffers are free now)
+  if constexpr (NRG > 1) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) red[(rg * G + g) * HD + d] = acc[g];
     __syncthreads();
+    if (rg == 0) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float a = red[g * HD + d];
+        for (int k = 1; k < NRG; ++k) a += red[(k * G + g) * HD + d];
+        acc[g] = a;
+      }
+    }
   }
 
-  // merge the per-warp partial softmax states
+  float* ob = out + ((size_t)b * h + kh * G) * HD;
+  if (gridDim.x == 1) {
+    if (t < HD) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) { m_s[w * G + g] = mx[g]; l_s[w * G + g] = l[g]; }
+      for (int g = 0; g < G; ++g)
+        ob[g * HD + d] = isfinite(m_s[g]) ? acc[g] / fmaxf(l_s[g], 1e-30f) : 0.f;
+    }
+    return;
+  }
+
+  // the combine: write this split's partial, draw a ticket; the last CTA
+  // of the (row, KV head) pair merges all partials in split order
+  constexpr int kPart = G * (HD + 2);                  // m[G], l[G], acc[G][HD]
+  const size_t pair = (size_t)b * kvh + kh;
+  float* part = ws + (pair * gridDim.x + split) * kPart;
+  if (t < HD) {
 #pragma unroll
-    for (int t = 0; t < DPL; ++t) a_s[(w * G + g) * HD + lane * DPL + t] = acc[g][t];
+    for (int g = 0; g < G; ++g) part[2 * G + g * HD + d] = acc[g];
+  }
+  if (t < G) { part[t] = m_s[t]; part[G + t] = l_s[t]; }
+  __threadfence();
+  __syncthreads();
+  if (t == 0) {
+    const unsigned tk = atomicAdd(&tickets[pair], 1u);
+    const bool last = tk == gridDim.x - 1;
+    if (last) tickets[pair] = 0u;
+    last_s = last;
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < G * HD; e += kThreads) {
-    const int g = e / HD, dim = e - g * HD;
+  if (!last_s) return;
+  __threadfence();
+  const float* pb = ws + pair * gridDim.x * kPart;
+  const int ns = gridDim.x;
+  for (int e = t; e < G * HD; e += kThreads) {
+    const int g = e / HD, dd = e - g * HD;
     float mm = -INFINITY;
-    for (int ww = 0; ww < kWarps; ++ww) mm = fmaxf(mm, m_s[ww * G + g]);
+    for (int s = 0; s < ns; ++s) mm = fmaxf(mm, __ldcg(pb + (size_t)s * kPart + g));
     float res = 0.f;
     if (isfinite(mm)) {
       float ll = 0.f, aa = 0.f;
-      for (int ww = 0; ww < kWarps; ++ww) {
-        const float mw = m_s[ww * G + g];
-        if (!isfinite(mw)) continue;
-        const float f = expf(mw - mm);
-        ll = fmaf(l_s[ww * G + g], f, ll);
-        aa = fmaf(a_s[(ww * G + g) * HD + dim], f, aa);
+      for (int s = 0; s < ns; ++s) {
+        const float* ps_ = pb + (size_t)s * kPart;
+        const float ms = __ldcg(ps_ + g);
+        if (!isfinite(ms)) continue;
+        const float f = expf(ms - mm);
+        ll = fmaf(__ldcg(ps_ + G + g), f, ll);
+        aa = fmaf(__ldcg(ps_ + 2 * G + g * HD + dd), f, aa);
       }
       res = aa / fmaxf(ll, 1e-30f);
     }
-    out[((size_t)b * h + kh * G + g) * HD + dim] = res;
+    ob[g * HD + dd] = res;
   }
 }
 
-template <typename T, int G, int DPL, int MODE>
-int launch(const void* q, const void* kp, const void* vp,
-           const int* table, const int* idx, const int* lengths, int b,
-           int kvh, int ps, int mp, int num_pages, int kcols, int window,
-           int qrows, float scale, float* out, cudaStream_t stream) {
-  size_t smem = ((size_t)kChunk + 2 * kWarps * G + (size_t)kWarps * G * 32 * DPL) * 4;
+template <typename T, int G, int HD, int MODE>
+size_t smem_bytes(const Args& a) {
+  const int chunk = MODE == kPagedPages ? kPgChunk : a.rps;
+  size_t s = (size_t)2 * kStages * kTile * HD * sizeof(T) + (size_t)chunk * 4
+             + (size_t)G * kTile * 4 + (size_t)3 * G * 4;
   if (MODE == kPagedPages)
-    smem += ((size_t)kChunk + (size_t)(mp * ps + 1) / 2 + 2 * (size_t)mp) * 4;
-  auto kern = decode_attn_kernel<T, G, DPL, MODE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    s += (size_t)chunk * 4 + ((size_t)a.mp * a.ps + 1) / 2 * 4 + (size_t)2 * a.mp * 4;
+  return s;
+}
+
+template <typename T, int G, int HD, int MODE>
+int launch(const Args& a) {
+  auto kern = decode_attn_kernel<T, G, HD, MODE>;
+  const size_t smem = smem_bytes<T, G, HD, MODE>(a);
+  // the dynamic shared-memory limit is raised once per instance and device
+  // (B10's size follows the table width, so it is raised again only when a
+  // launch needs more than any before it)
+  static size_t raised[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(kvh, b);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, idx, lengths, kvh, ps, mp, num_pages,
-      kcols, window, qrows, scale, out);
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > raised[dev]) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    raised[dev] = smem;
+  }
+  dim3 grid(a.splits, a.kvh, a.rows);
+  kern<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.kp),
+      static_cast<const T*>(a.vp), a.table, a.idx, a.lengths, a.kvh, a.ps,
+      a.mp, a.num_pages, a.kcols, a.window, a.qrows, a.rps, a.scale, a.ws,
+      a.tickets, a.out);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int G, int DPL>
-int by_mode(int mode, const void* q, const void* kp, const void* vp,
-            const int* table, const int* idx, const int* lengths, int b,
-            int kvh, int ps, int mp, int num_pages, int kcols, int window,
-            int qrows, float scale, float* out, cudaStream_t st) {
+template <typename T, int G, int HD>
+int by_mode(int mode, const Args& a) {
   switch (mode) {
-    case kPagedSparse: return launch<T, G, DPL, kPagedSparse>(q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
-    case kPagedDense: return launch<T, G, DPL, kPagedDense>(q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
-    case kContigSparse: return launch<T, G, DPL, kContigSparse>(q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
-    case kPagedPages: return launch<T, G, DPL, kPagedPages>(q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
-    case kPagedSparseMq: return launch<T, G, DPL, kPagedSparseMq>(q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
+    case kPagedSparse: return launch<T, G, HD, kPagedSparse>(a);
+    case kPagedDense: return launch<T, G, HD, kPagedDense>(a);
+    case kContigSparse: return launch<T, G, HD, kContigSparse>(a);
+    case kPagedPages: return launch<T, G, HD, kPagedPages>(a);
+    case kPagedSparseMq: return launch<T, G, HD, kPagedSparseMq>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T, int G>
-int by_dpl(int dpl, int mode, const void* q, const void* kp, const void* vp,
-           const int* table, const int* idx, const int* lengths, int b,
-           int kvh, int ps, int mp, int num_pages, int kcols, int window,
-           int qrows, float scale, float* out, cudaStream_t st) {
-  switch (dpl) {
-    case 1: return by_mode<T, G, 1>(mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
-    case 2: return by_mode<T, G, 2>(mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
-    case 4: return by_mode<T, G, 4>(mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
+int by_hd(int hd, int mode, const Args& a) {
+  switch (hd) {
+    case 32: return by_mode<T, G, 32>(mode, a);
+    case 64: return by_mode<T, G, 64>(mode, a);
+    case 128: return by_mode<T, G, 128>(mode, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-int by_group(int g, int dpl, int mode, const void* q, const void* kp,
-             const void* vp, const int* table, const int* idx,
-             const int* lengths, int b, int kvh, int ps, int mp, int num_pages,
-             int kcols, int window, int qrows, float scale, float* out, cudaStream_t st) {
+int by_group(int g, int hd, int mode, const Args& a) {
   switch (g) {
-    case 1: return by_dpl<T, 1>(dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
-    case 2: return by_dpl<T, 2>(dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
-    case 4: return by_dpl<T, 4>(dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
-    case 8: return by_dpl<T, 8>(dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, qrows, scale, out, st);
+    case 1: return by_hd<T, 1>(hd, mode, a);
+    case 2: return by_hd<T, 2>(hd, mode, a);
+    case 4: return by_hd<T, 4>(hd, mode, a);
+    case 8: return by_hd<T, 8>(hd, mode, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q and both caches share it).
-// mode 0: sparse over idx (b, kcols) through table (b, mp) into pools
-// (num_pages, ps, kvh, hd); 1: dense over [0, length) through the table,
-// optional window (> 0); 2: sparse over idx into contiguous caches
-// (b, mp, kvh, hd) with ps = 1, table unused; 3: as 0 at page granularity
-// (kcols < 65536). g = H / KVH; dpl = hd / 32.
-extern "C" int decode_attn_launch(int dtype, int mode, int g, int dpl,
+// dtype: 0 = float32, 1 = bfloat16 (q and both caches share it); g = H/KVH;
+// hd in {32, 64, 128}. Modes over `rows` query rows of q (rows, H, hd),
+// lengths (rows,), out (rows, H, hd) f32:
+//   0 sparse over idx (rows, kcols) through table (rows, mp) into pools
+//     (num_pages, ps, kvh, hd);
+//   1 dense over [0, length) through the table, optional window (> 0);
+//   2 sparse over idx into contiguous caches (rows, mp, kvh, hd), ps = 1,
+//     table unused;
+//   3 as 0 at page granularity (kcols < 65536, splits = 1);
+//   4 (B8) as 0 with row r on table row r / qrows of a (rows / qrows, mp)
+//     table.
+// A split covers rps entries (mode 1: rps positions, a multiple of ps); the
+// grid is (splits, kvh, rows), splits * rps >= kcols (mode 1: >= mp * ps).
+// With splits > 1, ws holds rows * kvh * splits * g * (hd + 2) floats and
+// tickets rows * kvh zeroed int32 counters, left zero by the launch; a
+// launch that may overlap this one in time needs tickets of its own. The
+// schedule's limits (grid, int32 rows, 16-bit counts, shared memory) are
+// checked here alone: a launch beyond them returns an error code.
+extern "C" int decode_attn_launch(int dtype, int mode, int g, int hd,
                                   const void* q, const void* kp, const void* vp,
                                   const int* table, const int* idx,
-                                  const int* lengths, int b, int kvh, int ps,
-                                  int mp, int num_pages, int kcols, int window,
-                                  float scale, float* out, void* stream) {
-  if (mode == kPagedSparseMq) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return by_group<float>(g, dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, 1, scale, out, st);
-  if (dtype == 1)
-    return by_group<__nv_bfloat16>(g, dpl, mode, q, kp, vp, table, idx, lengths, b, kvh, ps, mp, num_pages, kcols, window, 1, scale, out, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// B8: mode 0 over rows = B * qrows folded query rows — q (rows, H, hd), idx
-// (rows, kcols), lengths (rows,), out (rows, H, hd) — with row r reading
-// table row r / qrows of the shared (rows / qrows, mp) table.
-extern "C" int decode_attn_mq_launch(int dtype, int g, int dpl, const void* q,
-                                     const void* kp, const void* vp,
-                                     const int* table, const int* idx,
-                                     const int* lengths, int rows, int qrows,
-                                     int kvh, int ps, int mp, int num_pages,
-                                     int kcols, float scale, float* out,
-                                     void* stream) {
-  if (qrows < 1 || rows % qrows != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return by_group<float>(g, dpl, kPagedSparseMq, q, kp, vp, table, idx, lengths, rows, kvh, ps, mp, num_pages, kcols, 0, qrows, scale, out, st);
-  if (dtype == 1)
-    return by_group<__nv_bfloat16>(g, dpl, kPagedSparseMq, q, kp, vp, table, idx, lengths, rows, kvh, ps, mp, num_pages, kcols, 0, qrows, scale, out, st);
+                                  const int* lengths, int rows, int qrows,
+                                  int kvh, int ps, int mp, int num_pages,
+                                  int kcols, int window, int rps, int splits,
+                                  float scale, float* ws, unsigned* tickets,
+                                  float* out, void* stream) {
+  if (rows < 1 || rows > 65535 || kvh < 1 || kvh > 65535 || splits < 1)
+    return (int)cudaErrorInvalidValue;
+  if (qrows < 1 || rows % qrows != 0 || (mode != kPagedSparseMq && qrows != 1))
+    return (int)cudaErrorInvalidValue;
+  // rows of the flattened cache are int32
+  const long long cache_rows = (long long)num_pages * (mode == kContigSparse ? mp : ps);
+  if (cache_rows >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (mode == kPagedPages) {
+    // one split; 16-bit selection counts
+    if (splits != 1 || kcols >= 65536) return (int)cudaErrorInvalidValue;
+  } else {
+    const long long count = mode == kPagedDense ? (long long)mp * ps : kcols;
+    if (rps < 1 || (long long)splits * rps < count) return (int)cudaErrorInvalidValue;
+    if (mode == kPagedDense && rps % ps != 0) return (int)cudaErrorInvalidValue;
+  }
+  if (splits > 1 && (ws == nullptr || tickets == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Args a{q, kp, vp, table, idx, lengths, rows, qrows, kvh, ps, mp, num_pages,
+         kcols, window, rps, splits, scale, ws, tickets, out,
+         (cudaStream_t)stream};
+  if (dtype == 0) return by_group<float>(g, hd, mode, a);
+  if (dtype == 1) return by_group<__nv_bfloat16>(g, hd, mode, a);
   return (int)cudaErrorInvalidValue;
 }

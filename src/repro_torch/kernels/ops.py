@@ -336,7 +336,42 @@ def paged_gather(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------ B3 / B4 -----
 
 _MODE = {"paged_sparse": 0, "paged_dense": 1, "contig_sparse": 2,
-         "paged_pages": 3}
+         "paged_pages": 3, "paged_sparse_mq": 4}
+# entries per split of B3/B6/B8 (B4: positions, `dense_rows_per_split`):
+# the kernel cuts each row's entries into runs of this length and merges
+# the partials; `ref.py`'s split form takes the same R
+ROWS_PER_SPLIT = 128
+# combine tickets per (device, stream): int32 counters, one per (query row,
+# KV head) pair, zero when created and left zero by every launch; launches
+# on two streams may overlap in time, so they never share an array
+_TICKETS: Dict[tuple, torch.Tensor] = {}
+
+
+def dense_rows_per_split(page_size: int) -> int:
+    """B4's split: whole pages, at least ROWS_PER_SPLIT positions."""
+    return -(-ROWS_PER_SPLIT // page_size) * page_size
+
+
+def decode_attn_splits(mode: str, kcols: int, n: int, ps: int):
+    """(entries per split R, splits) of the shared decode-attention body
+    for a row of `kcols` Top-K entries (B4: `n` = MP*ps positions). The
+    split count is a function of the row's entry count alone; B10 keeps
+    one split per (KV head, slot)."""
+    if mode == "paged_pages":
+        return 0, 1
+    if mode == "paged_dense":
+        rps = dense_rows_per_split(ps)
+        return rps, max(1, -(-n // rps))
+    return ROWS_PER_SPLIT, max(1, -(-kcols // ROWS_PER_SPLIT))
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least n zeroed combine tickets owned by (device, stream)."""
+    t = _TICKETS.get((device, stream))
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[(device, stream)] = t
+    return t
 
 
 def _attn(mode: str, q, kc, vc, table, idx, lengths, scale, window,
@@ -345,12 +380,19 @@ def _attn(mode: str, q, kc, vc, table, idx, lengths, scale, window,
     (P, ps, KVH, hd) and a table; "contig_sparse" takes caches
     (B, N, KVH, hd), read as B pages of N rows with no table;
     "paged_sparse_mq" (B8) takes B * qrows folded query rows — q, idx and
-    lengths with B * qrows rows — over a (B, MP) table."""
+    lengths with B * qrows rows — over a (B, MP) table. The grid is
+    (splits, KVH, rows); a multi-split launch merges its partials in the
+    same launch, through a workspace allocated here and the tickets of the
+    current stream. The tensors' shapes are checked here; the limits of
+    the kernel's schedule (grid, shared memory, int32 and 16-bit indexing)
+    only by `decode_attn_launch`, which refuses a launch beyond them."""
     _check(kc.dtype in _DTYPE_CODE,
            f"{name}: caches must be f32 or bf16, got {kc.dtype}")
     dt = kc.dtype
     for t, nm in ((q, "q"), (kc, "k cache"), (vc, "v cache")):
         _contig(t, dt, f"{name} {nm}")
+    _check(kc.data_ptr() % 16 == 0 and vc.data_ptr() % 16 == 0,
+           f"{name}: caches must be 16-byte aligned (16-byte row gathers)")
     _contig(lengths, torch.int32, f"{name} lengths")
     b, h, hd = q.shape
     p, ps, kvh, hd2 = kc.shape
@@ -360,7 +402,6 @@ def _attn(mode: str, q, kc, vc, table, idx, lengths, scale, window,
            f"{name}: H/KVH must be 1, 2, 4 or 8, got {h}/{kvh}")
     _check(hd in (32, 64, 128), f"{name}: head_dim must be 32, 64 or 128")
     _check(lengths.shape == (b,), f"{name}: lengths (B,)")
-    _check(p * ps < 2 ** 31, f"{name}: cache rows beyond int32 indexing")
     if mode == "contig_sparse":
         _check(p == b, f"{name}: caches (B, N, KVH, hd)")
         ps, mp = 1, kc.shape[1]
@@ -374,29 +415,23 @@ def _attn(mode: str, q, kc, vc, table, idx, lengths, scale, window,
         _contig(idx, torch.int32, f"{name} idx")
         _check(idx.dim() == 2 and idx.shape[0] == b, f"{name}: idx (B, K)")
         kcols = idx.shape[1]
-    if mode == "paged_pages":
-        _check(kcols < 65536, f"{name}: K={kcols} beyond 16-bit row counts")
-        g = h // kvh
-        smem = 4 * (2 * 1024 + 2 * 16 * g + 16 * g * hd
-                    + (mp * ps + 1) // 2 + 2 * mp)
-        _check(smem <= _SMEM_BUDGET,
-               f"{name}: {mp * ps} logical rows need {smem} B of shared memory")
+    g = h // kvh
+    rps, splits = decode_attn_splits(mode, kcols, mp * ps, ps)
     out = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
-    lib = LIBRARIES.get("decode_attn")
-    if mode == "paged_sparse_mq":
-        rc = lib.decode_attn_mq_launch(
-            _DTYPE_CODE[dt], h // kvh, hd // 32, q.data_ptr(), kc.data_ptr(),
-            vc.data_ptr(), table.data_ptr(), idx.data_ptr(),
-            lengths.data_ptr(), b, qrows, kvh, ps, mp, p, kcols, float(scale),
-            out.data_ptr(), _stream(q))
-    else:
-        rc = lib.decode_attn_launch(
-            _DTYPE_CODE[dt], _MODE[mode], h // kvh, hd // 32, q.data_ptr(),
-            kc.data_ptr(), vc.data_ptr(),
-            table.data_ptr() if table is not None else None,
-            idx.data_ptr() if idx is not None else None, lengths.data_ptr(),
-            b, kvh, ps, mp, p, kcols, window, float(scale), out.data_ptr(),
-            _stream(q))
+    stream = _stream(q)
+    ws = tickets = None
+    if splits > 1:
+        ws = torch.empty(b * kvh * splits * g * (hd + 2), dtype=torch.float32,
+                         device=q.device)
+        tickets = _tickets(q.device, stream, b * kvh)
+    rc = LIBRARIES.get("decode_attn").decode_attn_launch(
+        _DTYPE_CODE[dt], _MODE[mode], g, hd, q.data_ptr(), kc.data_ptr(),
+        vc.data_ptr(), table.data_ptr() if table is not None else None,
+        idx.data_ptr() if idx is not None else None, lengths.data_ptr(), b,
+        qrows, kvh, ps, mp, p, kcols, window, rps, splits, float(scale),
+        ws.data_ptr() if ws is not None else None,
+        tickets.data_ptr() if tickets is not None else None, out.data_ptr(),
+        stream)
     _raise_on(rc, name)
     return out
 

@@ -148,11 +148,14 @@ def distinct_pages(topk_idx: torch.Tensor, *, page_size: int,
 
 
 def _attend_rows(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                 flat: torch.Tensor, valid: torch.Tensor,
-                 scale: float) -> torch.Tensor:
+                 flat: torch.Tensor, valid: torch.Tensor, scale: float,
+                 rows_per_split: Optional[int] = None) -> torch.Tensor:
     """Softmax attention of q (B, H, hd) over the rows `flat` (B, R) of the
     flattened pools where `valid`; f32 throughout, 0 for a slot with no
-    valid row."""
+    valid row. With `rows_per_split`, the R entries are cut into runs of
+    that length as the kernel splits them: each split's (max, sum, PV) is
+    taken alone and the partials are merged with the kernel's guards (a
+    split with no valid row is skipped, the sum clamped to 1e-30)."""
     b, h, hd = q.shape
     p, ps, kvh = k_pages.shape[:3]
     g = h // kvh
@@ -160,6 +163,8 @@ def _attend_rows(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     vg = v_pages.reshape(p * ps, kvh, hd)[flat].float()
     logits = torch.einsum("bkgd,brkd->bkgr", q.float().reshape(b, kvh, g, hd),
                           kg) * scale
+    if rows_per_split is not None:
+        return _merge_splits(logits, vg, valid, rows_per_split).reshape(b, h, hd)
     mask = valid[:, None, None, :]
     m = torch.where(mask, logits, torch.full_like(logits, -torch.inf)).amax(-1)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -168,6 +173,34 @@ def _attend_rows(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     l = pr.sum(-1).clamp_min(1e-30)
     out = torch.einsum("bkgr,brkd->bkgd", pr, vg) / l[..., None]
     return out.reshape(b, h, hd)
+
+
+def _merge_splits(logits: torch.Tensor, vg: torch.Tensor, valid: torch.Tensor,
+                  rows_per_split: int) -> torch.Tensor:
+    """The split form of `_attend_rows`: logits (B, KVH, G, R), values
+    (B, R, KVH, hd), valid (B, R). Returns (B, KVH, G, hd)."""
+    b, kvh, g, r = logits.shape
+    ns = max(1, -(-r // rows_per_split))
+    pad = ns * rows_per_split - r
+    logits = torch.nn.functional.pad(logits, (0, pad))
+    vg = torch.nn.functional.pad(vg, (0, 0, 0, 0, 0, pad))
+    valid = torch.nn.functional.pad(valid, (0, pad), value=False)
+    lg = logits.reshape(b, kvh, g, ns, rows_per_split)
+    mk = valid.reshape(b, 1, 1, ns, rows_per_split)
+    m_s = torch.where(mk, lg, torch.full_like(lg, -torch.inf)).amax(-1)
+    live = torch.isfinite(m_s)                                # (B, KVH, G, S)
+    m_safe = torch.where(live, m_s, torch.zeros_like(m_s))
+    pr = torch.where(mk, torch.exp(lg - m_safe[..., None]), torch.zeros_like(lg))
+    l_s = pr.sum(-1)
+    acc_s = torch.einsum("bkgsr,bsrkd->bkgsd", pr,
+                         vg.reshape(b, ns, rows_per_split, kvh, -1))
+    m_all = m_s.amax(-1)                                      # -inf: no live split
+    any_live = torch.isfinite(m_all)
+    f = torch.where(live, torch.exp(m_s - torch.where(
+        any_live, m_all, torch.zeros_like(m_all))[..., None]), torch.zeros_like(m_s))
+    l_all = (l_s * f).sum(-1)
+    acc = (acc_s * f[..., None]).sum(-2) / l_all.clamp_min(1e-30)[..., None]
+    return torch.where(any_live[..., None], acc, torch.zeros_like(acc))
 
 
 def _paged_entries(idx: torch.Tensor, table: torch.Tensor,
@@ -186,17 +219,19 @@ def _paged_entries(idx: torch.Tensor, table: torch.Tensor,
 def paged_sparse_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, table: torch.Tensor,
                           idx: torch.Tensor, lengths: torch.Tensor, *,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          rows_per_split: Optional[int] = None) -> torch.Tensor:
     """B3: one query token per slot attends over exactly the K selected
     logical rows idx (B, K), each read from page table[b, idx // ps] at
     offset idx % ps. An entry counts iff 0 <= idx < length and its page is
-    mapped. Returns (B, H, hd) f32."""
+    mapped. Returns (B, H, hd) f32. `rows_per_split` computes the kernel's
+    split form (runs of that many entries merged); None the one softmax."""
     hd = q.shape[-1]
     scale = scale if scale is not None else hd ** -0.5
     p, ps = k_pages.shape[:2]
     li, phys, valid = _paged_entries(idx, table, lengths, p, ps)
     flat = phys.clamp(0, p - 1) * ps + li % ps
-    return _attend_rows(q, k_pages, v_pages, flat, valid, scale)
+    return _attend_rows(q, k_pages, v_pages, flat, valid, scale, rows_per_split)
 
 
 def paged_sparse_attn_mq_ref(q: torch.Tensor, k_pages: torch.Tensor,
@@ -261,10 +296,12 @@ def paged_sparse_attn_pg_ref(q: torch.Tensor, k_pages: torch.Tensor,
 def paged_dense_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, table: torch.Tensor,
                          lengths: torch.Tensor, *, scale: Optional[float] = None,
-                         window: Optional[int] = None) -> torch.Tensor:
+                         window: Optional[int] = None,
+                         rows_per_split: Optional[int] = None) -> torch.Tensor:
     """B4: one query token per slot attends over its whole causal extent
     [0, length) (inside the optional window) straight off the page pools.
-    Returns (B, H, hd) f32."""
+    Returns (B, H, hd) f32. `rows_per_split` computes the kernel's split
+    form: positions [s*R, (s+1)*R) per split, merged."""
     hd = q.shape[-1]
     scale = scale if scale is not None else hd ** -0.5
     p, ps = k_pages.shape[:2]
@@ -275,4 +312,4 @@ def paged_dense_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
     if window is not None:
         valid &= pos > lengths[:, None] - 1 - window
     flat = phys.clamp(0, p - 1) * ps + pos % ps
-    return _attend_rows(q, k_pages, v_pages, flat, valid, scale)
+    return _attend_rows(q, k_pages, v_pages, flat, valid, scale, rows_per_split)

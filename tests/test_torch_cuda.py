@@ -15,7 +15,12 @@ score rows == B2's, its chain == sequential B1 launches). Shapes
 cover what `chip_smoke.py` does not: rows too long for shared memory (B1
 then reads the row from global memory, up to the gate's N = 200,000),
 ragged N, other GQA groups, head dims and page sizes, float32 caches, and
-pages whose size in bytes is not a multiple of 16 (B7's byte path).
+pages whose size in bytes is not a multiple of 16 (B7's byte path). The
+split over rows of B3/B4 (and B6/B8, which take B3's schedule) is held at
+its boundaries: K not a multiple of the split length R, K < R, a split
+with every entry masked, a slot with one valid entry, length < K with NEG
+ties, a B4 window that begins inside a split; two calls and one slot
+computed alone must equal the batched call bit for bit.
 """
 
 import pytest
@@ -283,3 +288,121 @@ def test_wrappers_count_launches_and_raise_on_bad_input(dev):
     with pytest.raises(ValueError):
         ops.gvr_topk(x, prev.cpu(), 16)                    # mixed devices
     assert ops.launch_counts()["gvr_topk"] == 1
+
+
+# (dtype, KVH, H, hd, ps): G in {1, 2, 4, 8}, hd in {32, 64, 128}
+_SPLIT_WIDTHS = [
+    (torch.bfloat16, 8, 32, 64, 64), (torch.float32, 2, 4, 32, 8),
+    (torch.bfloat16, 1, 8, 128, 16), (torch.float32, 4, 4, 64, 4),
+    (torch.bfloat16, 2, 16, 32, 64), (torch.float32, 1, 8, 128, 16)]
+
+
+def _split_pools(g, dev, dtype, b, n, ps, kvh, h, hd):
+    """Pools of b*MP + 1 pages, slots 2s and 2s+1 on one table row (so
+    the batch is also B/2 slots of Q = 2 verify rows for B8)."""
+    mp = n // ps
+    p = b * mp + 1
+    t2 = torch.randperm(p, generator=g, device=dev)[:b // 2 * mp].int().reshape(b // 2, mp)
+    kp = torch.randn((p, ps, kvh, hd), generator=g, device=dev).to(dtype)
+    vp = torch.randn((p, ps, kvh, hd), generator=g, device=dev).to(dtype)
+    q = torch.randn((b, h, hd), generator=g, device=dev).to(dtype)
+    return t2, kp, vp, q
+
+
+def _split_case(case, g, dev, b, n):
+    """(lengths, idx) of one edge case of the split over K entries."""
+    r = ops.ROWS_PER_SPLIT
+    k = {"k_below_r": r - 28, "split_all_masked": 3 * r}.get(case, 2 * r + 44)
+    lengths = torch.tensor([n, n - 5, n // 2, 700], dtype=torch.int32, device=dev)
+    if case == "neg_ties":
+        lengths = torch.tensor([100, 250, n, 5], dtype=torch.int32, device=dev)
+    idx = torch.stack([torch.randint(0, int(L), (k,), generator=g, device=dev)
+                       for L in lengths]).int()
+    if case == "split_all_masked":
+        idx[:, r:2 * r] = -1                  # the second split of every slot
+        idx[0, 2 * r + 3] = n + 5             # past the table
+        idx[3] = -1                           # and a slot with nothing valid
+    elif case == "one_valid_entry":
+        idx[1] = -1
+        idx[1, r + 9] = 7
+        idx[1, 0] = n - 1                     # >= length n - 5: masked
+    elif case == "neg_ties":                  # live positions, then NEG ties
+        for s in (0, 1, 3):
+            idx[s] = torch.arange(k, device=dev)
+    return lengths, idx.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k_not_multiple_of_r", "k_below_r",
+                                  "split_all_masked", "one_valid_entry",
+                                  "neg_ties"])
+@pytest.mark.parametrize("dtype,kvh,h,hd,ps", _SPLIT_WIDTHS)
+def test_b3_b6_b8_split_over_rows_on_card(dev, dtype, kvh, h, hd, ps, case):
+    g = torch.Generator(device=dev).manual_seed(hd + h + ps + len(case))
+    b, n = 4, 1024
+    t2, kp, vp, q = _split_pools(g, dev, dtype, b, n, ps, kvh, h, hd)
+    table = t2.repeat_interleave(2, 0).contiguous()
+    lengths, idx = _split_case(case, g, dev, b, n)
+    args = (q, kp, vp, table, idx, lengths)
+    o3 = ops.paged_sparse_decode_attn(*args)
+    torch.testing.assert_close(o3, ref.paged_sparse_attn_ref(*args),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(o3, ops.paged_sparse_decode_attn(*args))   # two calls
+    for s in range(b):                                            # B=1 vs B=4
+        alone = ops.paged_sparse_decode_attn(
+            q[s:s + 1], kp, vp, table[s:s + 1], idx[s:s + 1], lengths[s:s + 1])
+        assert torch.equal(alone, o3[s:s + 1])
+    kc = kp[table.long()].reshape(b, n, kvh, hd).contiguous()
+    vc = vp[table.long()].reshape(b, n, kvh, hd).contiguous()
+    assert torch.equal(ops.sparse_decode_attn(q, kc, vc, idx, lengths), o3)
+    o8 = ops.paged_sparse_decode_attn_mq(
+        q.reshape(b // 2, 2, h, hd), kp, vp, t2, idx.reshape(b // 2, 2, -1),
+        lengths.reshape(b // 2, 2))
+    assert torch.equal(o8.reshape(b, h, hd), o3)
+    if case == "split_all_masked":
+        assert torch.equal(o3[3], torch.zeros_like(o3[3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 300])
+@pytest.mark.parametrize("dtype,kvh,h,hd,ps", _SPLIT_WIDTHS)
+def test_b4_split_over_pages_on_card(dev, dtype, kvh, h, hd, ps, window):
+    """Splits of whole pages (R = 128 positions at ps <= 128); window 300
+    at length 1000 begins at position 700, inside the split [640, 768)."""
+    g = torch.Generator(device=dev).manual_seed(hd + h + ps + (window or 0))
+    b, n = 4, 1024
+    t2, kp, vp, q = _split_pools(g, dev, dtype, b, n, ps, kvh, h, hd)
+    table = t2.repeat_interleave(2, 0).contiguous()
+    table[3, (777 + ps - 1) // ps:] = -1          # unmapped past the extent
+    lengths = torch.tensor([n, 1000, 1, 777], dtype=torch.int32, device=dev)
+    args = (q, kp, vp, table, lengths)
+    o4 = ops.paged_dense_decode_attn(*args, window=window)
+    torch.testing.assert_close(
+        o4, ref.paged_dense_attn_ref(*args, window=window), rtol=1e-4, atol=1e-4)
+    assert torch.equal(o4, ops.paged_dense_decode_attn(*args, window=window))
+    for s in range(b):
+        alone = ops.paged_dense_decode_attn(q[s:s + 1], kp, vp, table[s:s + 1],
+                                            lengths[s:s + 1], window=window)
+        assert torch.equal(alone, o4[s:s + 1])
+
+
+@pytest.mark.cuda
+def test_b3_launches_overlapping_on_two_streams_keep_their_own_tickets(dev):
+    """Multi-split launches alternating between two streams, queued with no
+    synchronisation between them, each merge their own partials."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    b, n, kvh, h, hd, ps = 4, 1024, 8, 32, 64, 64
+    t2, kp, vp, q = _split_pools(g, dev, torch.bfloat16, b, n, ps, kvh, h, hd)
+    table = t2.repeat_interleave(2, 0).contiguous()
+    lengths, idx = _split_case("k_not_multiple_of_r", g, dev, b, n)
+    args = (q, kp, vp, table, idx, lengths)
+    want = ops.paged_sparse_decode_attn(*args)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(device=dev) for _ in range(2)]
+    outs = []
+    for i in range(16):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(ops.paged_sparse_decode_attn(*args))
+    torch.cuda.synchronize()
+    for o in outs:
+        assert torch.equal(o, want)

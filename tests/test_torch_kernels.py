@@ -6,7 +6,10 @@ Tolerances: Top-K indices are exact. Score values are exact on the
 integer-valued inputs (every product and sum is exact in float32) and
 within 1e-6 relative otherwise (the two frameworks sum the dot products in
 different orders). Attention outputs are float32 softmax averages over the
-same rows summed in different orders: rtol = atol = 1e-5.
+same rows summed in different orders: rtol = atol = 1e-5. That holds for
+the split form of B3/B4 too (`rows_per_split`: each split's max, sum and
+PV taken alone, then merged as the kernel merges them): the merge rescales
+each partial by exp(m_s - m), one more rounding per split.
 
 The Hopper kernels themselves are held against these plain versions on
 the card by `tests/test_torch_cuda.py` and `python3 chip_smoke.py`.
@@ -19,7 +22,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.sparse.dsa import dsa_sparse_attention_paged
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 RNG = np.random.default_rng(5)
 
@@ -184,6 +187,124 @@ def test_b4_paged_dense_attn_matches_pallas(kvh, h, window):
     got = ops.paged_dense_decode_attn(_t(q), _t(kp), _t(vp), _t(table),
                                       _t(lengths), window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------ B3 / B4 split form -----
+
+# (KVH, H, hd): G = H/KVH in {1, 2, 4, 8}, hd in {32, 64, 128}
+_SPLIT_WIDTHS = [(4, 4, 32), (2, 4, 64), (1, 4, 128), (1, 8, 32)]
+
+
+def _split_inputs(rng, b, p, ps, mp, kvh, h, hd):
+    kp = rng.normal(size=(p, ps, kvh, hd)).astype(np.float32)
+    vp = rng.normal(size=(p, ps, kvh, hd)).astype(np.float32)
+    table = np.stack([rng.choice(p, mp, replace=False) for _ in range(b)]).astype(np.int32)
+    q = rng.normal(size=(b, h, hd)).astype(np.float32)
+    return kp, vp, table, q
+
+
+def _sparse_split_case(case, rng, b, n):
+    """(K, R, lengths, idx) of one edge case of B3's split over entries;
+    every slot keeps at least one valid entry (the served JAX form averages
+    uniformly over an all-masked slot where the port gives 0)."""
+    if case == "k_not_multiple_of_r":
+        k, r, lengths = 11, 4, np.array([n, n - 5, n // 2], np.int32)
+    elif case == "k_below_r":
+        k, r, lengths = 3, 8, np.array([n, 9, n], np.int32)
+    elif case == "split_all_masked":
+        k, r, lengths = 12, 4, np.array([n, n, n - 3], np.int32)
+    elif case == "one_valid_entry":
+        k, r, lengths = 12, 4, np.array([n, 6, n], np.int32)
+    else:                                   # length < K: NEG ties in the Top-K
+        k, r, lengths = 12, 4, np.array([5, 9, n], np.int32)
+    idx = np.stack([rng.choice(int(L), k, replace=int(L) < k)
+                    for L in lengths]).astype(np.int32)
+    if case == "split_all_masked":
+        idx[:, 4:8] = -1                    # the second split of every slot
+        idx[2, 9] = n - 1                   # and one entry >= length
+    elif case == "one_valid_entry":
+        idx[1] = -1
+        idx[1, 6] = 2                       # alone in its split
+        idx[1, 0] = 7                       # >= length 6: masked
+    elif case == "neg_ties":
+        # what GVR emits when length < K: the live positions, then the
+        # lowest-index NEG ties at and past the length, ascending
+        for s, L in enumerate(lengths[:2]):
+            idx[s] = np.arange(k)
+    return k, r, lengths, idx
+
+
+@pytest.mark.parametrize("case", ["k_not_multiple_of_r", "k_below_r",
+                                  "split_all_masked", "one_valid_entry",
+                                  "neg_ties"])
+@pytest.mark.parametrize("kvh,h,hd", _SPLIT_WIDTHS)
+def test_b3_split_form_matches_unsplit_and_served_jax(kvh, h, hd, case):
+    rng = np.random.default_rng(hd + h + len(case))
+    p, ps, b, mp = 9, 4, 3, 5
+    n = mp * ps
+    kp, vp, table, q = _split_inputs(rng, b, p, ps, mp, kvh, h, hd)
+    k, r, lengths, idx = _sparse_split_case(case, rng, b, n)
+    args = (_t(q), _t(kp), _t(vp), _t(table), _t(idx), _t(lengths))
+    split = ref.paged_sparse_attn_ref(*args, rows_per_split=r)
+    whole = ref.paged_sparse_attn_ref(*args)
+    np.testing.assert_allclose(split.numpy(), whole.numpy(), rtol=1e-5, atol=1e-5)
+    want = dsa_sparse_attention_paged(jnp.asarray(q), jnp.asarray(kp),
+                                      jnp.asarray(vp), jnp.asarray(table),
+                                      jnp.asarray(idx), jnp.asarray(lengths),
+                                      scale=hd ** -0.5)
+    np.testing.assert_allclose(split.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_b3_split_form_all_masked_slot_gives_zero():
+    """Every split of slot 1 is masked; the merge's guards give 0."""
+    rng = np.random.default_rng(3)
+    p, ps, b, mp, kvh, h, hd = 6, 4, 2, 3, 2, 4, 32
+    kp, vp, table, q = _split_inputs(rng, b, p, ps, mp, kvh, h, hd)
+    idx = np.array([[0, 5, 9, 1, 2, 3, 4], [-1, 8, 9, -1, 11, -1, -1]], np.int32)
+    lengths = np.array([12, 8], np.int32)
+    out = ref.paged_sparse_attn_ref(_t(q), _t(kp), _t(vp), _t(table), _t(idx),
+                                    _t(lengths), rows_per_split=2)
+    assert np.array_equal(out[1].numpy(), np.zeros((h, hd), np.float32))
+    np.testing.assert_allclose(
+        out[0].numpy(), ref.paged_sparse_attn_ref(
+            _t(q), _t(kp), _t(vp), _t(table), _t(idx), _t(lengths))[0].numpy(),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [None, 13])
+@pytest.mark.parametrize("kvh,h,hd", _SPLIT_WIDTHS)
+def test_b4_split_form_matches_unsplit_and_pallas(kvh, h, hd, window):
+    """Splits of R = 8 positions (two pages of 4); window 13 at length 27
+    begins at position 14, inside the split [8, 16); the slot of length 1
+    has one live split."""
+    rng = np.random.default_rng(hd + h + (window or 0))
+    p, ps, b, mp = 12, 4, 3, 8
+    kp, vp, table, q = _split_inputs(rng, b, p, ps, mp, kvh, h, hd)
+    lengths = np.array([27, 9, 1], np.int32)
+    table[1, 5:] = -1                       # unmapped beyond the extents
+    table[2, 1:] = -1
+    args = (_t(q), _t(kp), _t(vp), _t(table), _t(lengths))
+    split = ref.paged_dense_attn_ref(*args, window=window, rows_per_split=2 * ps)
+    whole = ref.paged_dense_attn_ref(*args, window=window)
+    np.testing.assert_allclose(split.numpy(), whole.numpy(), rtol=1e-5, atol=1e-5)
+    want = jops.paged_dense_decode_attn(jnp.asarray(q), jnp.asarray(kp),
+                                        jnp.asarray(vp), jnp.asarray(table),
+                                        jnp.asarray(lengths), window=window)
+    np.testing.assert_allclose(split.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_split_counts_depend_on_the_entry_count_alone():
+    """The kernel's grid: splits = ceil(count / R), whatever B, Q or the
+    mode; B4 splits whole pages."""
+    r = ops.ROWS_PER_SPLIT
+    for mode in ("paged_sparse", "contig_sparse", "paged_sparse_mq"):
+        assert ops.decode_attn_splits(mode, 2048, 8192, 64) == (r, 16)
+        assert ops.decode_attn_splits(mode, r + 1, 8192, 64) == (r, 2)
+        assert ops.decode_attn_splits(mode, 3, 8192, 64) == (r, 1)
+    assert ops.decode_attn_splits("paged_dense", 0, 8192, 64) == (128, 64)
+    assert ops.decode_attn_splits("paged_dense", 0, 100, 3) == (129, 1)
+    assert ops.decode_attn_splits("paged_dense", 0, 1024, 256) == (256, 4)
+    assert ops.decode_attn_splits("paged_pages", 2048, 8192, 64) == (0, 1)
 
 
 def test_wrappers_reject_mixed_devices():

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Time kernels B3 (paged sparse decode attention), B4 (paged dense
-decode attention) and B1 (GVR Top-K) of two checkouts of the PyTorch port
-on one card.
+decode attention) and B1 (GVR Top-K), and one B=4 DSA decode step, of two
+checkouts of the PyTorch port on one card.
 
     python3 tools/ab_decode_attn.py CHECKOUT_A CHECKOUT_B
 
 Runs A, B, B, A, each in a process of its own (the two packages share the
 name `repro_torch`), and prints one line per run:
 
-    AB <checkout>: B3 <ms> ms, B4 <ms> ms, B1 <ms> ms
+    AB <checkout>: B3 <ms> ms (wall <ms>), B4 ..., B1 ..., step <ms> ms (wall <ms>)
 
 Each kernel is built from the checkout's own sources into its
 `build/kernels/`. Shapes are those of `chip_smoke.py`'s kernel phase:
@@ -17,44 +17,44 @@ heads, head_dim 64), bf16 pools through a shuffled block table. B3 attends
 over K random distinct rows per slot at lengths 8192, 5000, 1000 and 3001;
 B4 over every slot's whole extent (N rows). B1 selects K of N normal
 scores per slot warm-started from the Top-K of a perturbed copy (C =
-6144). A time is the median of 50
-calls by CUDA events, with the L2 flushed before each call. Compare two
-checkouts only within one run of this script: cards and machines differ.
+6144). A time is the median over 50 calls of the call's device time alone
+(torch.profiler, `chip_smoke.time_ms` of this script's own checkout, so
+both checkouts are timed by one method), with the L2 flushed before each
+call; "wall" is the median CUDA-event window around each call. The step
+is `serve_step_paged` of llama3.2-1b at full width (random weights, seed
+0) from `chip_smoke.py`'s [step] state (lengths 5000, 2300, 700, 8000,
+max_len 8192): its device time is the sum of a step's device events
+(`chip_smoke._profile_step`, L2 flushed before each profiled step), its
+wall the host time per step. Compare two checkouts only within one run
+of this script: cards and machines differ.
 """
 
 from __future__ import annotations
 
-import statistics
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
+# this script's checkout, for chip_smoke.time_ms
+REPO = Path(__file__).resolve().parents[1]
 B, N, PS, K, H, KVH, HD = 4, 8192, 64, 2048, 32, 8, 64
 SPARSE_LENGTHS = (8192, 5000, 1000, 3001)
 
 
-def _time_ms(fn, flush, iters: int = 50, warmup: int = 3) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    for s, e in ev:
-        flush.zero_()
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in ev)
-
-
 def child(root: Path) -> None:
-    """Time B3, B4 and B1 of the checkout at `root` and print the AB
-    line."""
+    """Time B3, B4, B1 and the step of the checkout at `root` and print
+    the AB line."""
     import torch
+    sys.path.insert(0, str(REPO))
     sys.path.insert(0, str(root / "src"))
+    from chip_smoke import STEP_LENGTHS, _profile_step, _random_step_state, time_ms
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
     mp = N // PS
@@ -70,17 +70,29 @@ def child(root: Path) -> None:
     sparse_len = torch.tensor(SPARSE_LENGTHS, dtype=torch.int32, device=dev)
     full_len = torch.full((B,), N, dtype=torch.int32, device=dev)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=dev)
-    b3 = _time_ms(lambda: ops.paged_sparse_decode_attn(
-        q, k_pages, v_pages, table, idx, sparse_len), flush)
-    b4 = _time_ms(lambda: ops.paged_dense_decode_attn(
-        q, k_pages, v_pages, table, full_len), flush)
+    b3 = time_ms(lambda: ops.paged_sparse_decode_attn(
+        q, k_pages, v_pages, table, idx, sparse_len), flush, iters=50)
+    b4 = time_ms(lambda: ops.paged_dense_decode_attn(
+        q, k_pages, v_pages, table, full_len), flush, iters=50)
     scores = torch.randn((B, N), generator=g, device=dev)
     noisy = scores + 0.01 * torch.randn((B, N), generator=g, device=dev)
     prev = torch.topk(noisy, K, dim=-1).indices.sort(-1).values.int().contiguous()
-    b1 = _time_ms(lambda: ops.gvr_topk(scores, prev, K, max_candidates=6144),
-                  flush)
-    print(f"AB {root}: B3 {b3:.5f} ms, B4 {b4:.5f} ms, B1 {b1:.5f} ms",
-          flush=True)
+    b1 = time_ms(lambda: ops.gvr_topk(scores, prev, K, max_candidates=6144),
+                 flush, iters=50)
+    cfg = get_config("llama3.2-1b")
+    model = build_model(cfg)
+    params = model.init_params(seed=0)
+    st = _random_step_state(model, torch.Generator(device=dev).manual_seed(99),
+                            dev, STEP_LENGTHS)
+    tokens = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab, (B,)),
+                          dtype=torch.int32, device=dev)
+    step = _profile_step(params, st, tokens, cfg, flush)
+    dev_ms = ("not measured" if step["device_ms"] is None
+              else f"{step['device_ms']:.5f} ms")
+    print(f"AB {root}: " + ", ".join(
+        f"{key} {v['ms']:.5f} ms (wall {v['wall_ms']:.5f})"
+        for key, v in (("B3", b3), ("B4", b4), ("B1", b1)))
+        + f", step {dev_ms} (wall {step['wall_ms']:.5f})", flush=True)
 
 
 def main(argv) -> int:
