@@ -41,9 +41,13 @@ SIGNATURES = {
                                      _I, _P, _P, _P, _P],
                  "gvr_topk_chain_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I,
                                            _F, _F, _F, _I, _P, _P, _P, _P]},
-    "indexer_scores": {"indexer_scores_launch": [_I, _I, _I, _P, _P, _P, _I,
-                                                 _P, _P, _I, _I, _I, _I, _I,
-                                                 _I, _I, _I, _P, _P]},
+    "indexer_scores": {"indexer_scores_fma_launch": [_I, _I, _P, _P, _P, _I,
+                                                     _P, _P, _I, _I, _I, _I,
+                                                     _I, _I, _I, _I, _P, _P],
+                       "indexer_scores_mma_launch": [_I, _P, _P, _P, _I, _P,
+                                                     _P, _I, _I, _I, _I, _I,
+                                                     _I, _I, _I, _I, _I, _P,
+                                                     _P]},
     "decode_attn": {"decode_attn_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P,
                                            _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                            _I, _I, _F, _P, _P, _P, _P]},

@@ -164,20 +164,85 @@ def gvr_topk_chain(scores: torch.Tensor, prev_idx: torch.Tensor, k: int, *,
 
 # ----------------------------------------------------------- B2 / B5 ------
 
+# the scoring body by cache dtype alone: bf16 runs on the tensor cores,
+# float32 on the CUDA cores (TF32 would lose digits a float32 cache keeps);
+# not a fallback: each dtype has one body, and a launch it refuses raises
+_SCORE_ROUTE = {torch.bfloat16: "mma", torch.float32: "fma"}
+SCORE_TILE = 64                # positions per tile of the bf16 body
+_SMS = 132                     # streaming multiprocessors of an H100 SXM
+
+
+def score_route(dtype: torch.dtype) -> str:
+    """The scoring body a cache dtype runs: "mma" (bf16, tensor cores) or
+    "fma" (float32, CUDA cores)."""
+    route = _SCORE_ROUTE.get(dtype)
+    _check(route is not None,
+           f"indexer scoring: keys must be f32 or bf16, got {dtype}")
+    return route
+
+
+def padded_heads(h: int) -> int:
+    """Heads of the bf16 body: H rounded up to a multiple of 16 (one warp's
+    MMA rows), the extra heads with zero queries and zero weights."""
+    return -(-h // 16) * 16
+
+
+def score_ctas_per_row(rows: int, n: int):
+    """(tiles per CTA, CTAs per row) of the bf16 body over `rows` score
+    rows of `n` positions: two 64-position tiles per CTA, through a double
+    buffer, where that still gives every SM a CTA, else one. CTA c of a
+    row walks tiles c, c + ctas; the schedule never changes a score's
+    sums. (More tiles per CTA were slower on the H100 at the kernel
+    phase's shapes: `tools/sweep_score_tiles.py`.)"""
+    tiles = -(-n // SCORE_TILE)
+    per = 2 if tiles >= 2 and rows * -(-tiles // 2) >= _SMS else 1
+    return per, -(-tiles // per)
+
+
 def _heads_per_thread(h: int) -> int:
-    """Heads one thread sums (HG). It fixes the order of every score's sum,
-    so it depends on H alone: B2 and B5 then score the same keys to the
-    same bits whatever the page size or tile."""
+    """Heads one thread of the float32 body sums (HG). It fixes the order
+    of every score's sum there, so it depends on H alone: B2 and B5 then
+    score the same keys to the same bits whatever the page size or tile."""
     return next(hg for hg in (16, 8, 4, 2, 1) if h % hg == 0)
 
 
-def _scores(contig: bool, q, keys, w, table, lengths, tile: int, n: int,
+def score_schedule(dtype: torch.dtype, rows: int, n: int, h: int, d: int,
+                   ps: int = 0) -> dict:
+    """The scoring launch for q (rows, h, d) over rows of n positions,
+    keys in pages of `ps` positions (0: a contiguous cache). "mma" (bf16):
+    SCORE_TILE-position tiles, `heads` = padded_heads(h) (a warp per 16
+    heads), `ctas_per_row` from `score_ctas_per_row` and `stages` tile
+    buffers (all of a CTA's tiles in flight at once); d must be a
+    multiple of 16 and at most 256, h at most 256. "fma" (float32): one
+    CTA per `tile` positions (the page when paged), `heads_per_thread`.
+    Raises ValueError, naming the shape, for one the body does not take."""
+    route = score_route(dtype)
+    if route == "mma":
+        _check(d % 16 == 0 and 16 <= d <= 256 and 1 <= h <= 256,
+               f"indexer scoring (bf16, tensor cores): needs d_i a multiple "
+               f"of 16 in [16, 256] and 1 <= H_i <= 256, got q ({rows}, {h}, "
+               f"{d})")
+        per, ctas = score_ctas_per_row(rows, n)
+        return dict(route=route, tile=SCORE_TILE, heads=padded_heads(h),
+                    tiles_per_cta=per, ctas_per_row=ctas, stages=per)
+    hg = _heads_per_thread(h)
+    groups = h // hg
+    tile = ps if ps else max(1, min(64, 1024 // groups))
+    _check(tile * groups <= 1024,
+           f"indexer scoring (f32): {tile} positions x {groups} head groups "
+           f"exceed 1024 threads")
+    smem = 4 * (h * d + d * tile + groups * tile)
+    _check(smem <= _SMEM_BUDGET,
+           f"indexer scoring (f32): {smem} B of shared memory per tile for "
+           f"q ({rows}, {h}, {d}) and tile {tile}")
+    return dict(route=route, tile=tile, heads=h, heads_per_thread=hg)
+
+
+def _scores(contig: bool, q, keys, w, table, lengths, ps: int, n: int,
             name: str, qrows: int = 1) -> torch.Tensor:
-    """Launch the shared scoring body over q (R, H, D) and lengths (R,):
-    R = B slots, or (B9) R = B * qrows folded query rows over a (B, MP)
-    table."""
-    _check(keys.dtype in _DTYPE_CODE,
-           f"{name}: keys must be f32 or bf16, got {keys.dtype}")
+    """Launch the scoring body of the keys' dtype over q (R, H, D) and
+    lengths (R,): R = B slots, or (B9) R = B * qrows folded query rows
+    over a (B, MP) table; ps the page size, 0 for a contiguous cache."""
     _contig(q, keys.dtype, f"{name} q")
     _contig(keys, keys.dtype, f"{name} keys")
     _contig(w, torch.float32, f"{name} w")
@@ -185,22 +250,27 @@ def _scores(contig: bool, q, keys, w, table, lengths, tile: int, n: int,
     b, h, d = q.shape
     _check(keys.shape[-1] == d and lengths.shape == (b,)
            and w.shape in ((h,), (b, h)), f"{name}: shape mismatch")
-    hg = _heads_per_thread(h)
-    groups = h // hg
-    _check(tile * groups <= 1024,
-           f"{name}: {tile} positions x {groups} head groups exceed 1024 threads")
-    smem = 4 * (h * d + d * tile + groups * tile)
-    _check(smem <= _SMEM_BUDGET, f"{name}: {smem} B of shared memory per tile")
-    scores = torch.empty((b, n), dtype=torch.float32, device=q.device)
     mp = table.shape[1] if table is not None else 0
     _check(table is None or table.shape[0] * qrows == b,
            f"{name}: table rows x {qrows} query rows != {b} score rows")
-    rc = LIBRARIES.get("indexer_scores").indexer_scores_launch(
-        _DTYPE_CODE[keys.dtype], int(contig), hg, q.data_ptr(),
-        keys.data_ptr(), w.data_ptr(), h if w.dim() == 2 else 0,
-        table.data_ptr() if table is not None else None, lengths.data_ptr(),
-        b, h, d, tile, mp, keys.shape[0], n, qrows, scores.data_ptr(),
-        _stream(q))
+    sched = score_schedule(keys.dtype, b, n, h, d, ps)
+    scores = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    lib = LIBRARIES.get("indexer_scores")
+    args = (q.data_ptr(), keys.data_ptr(), w.data_ptr(),
+            h if w.dim() == 2 else 0,
+            table.data_ptr() if table is not None else None,
+            lengths.data_ptr(), b, h, d)
+    if sched["route"] == "mma":
+        _check(q.data_ptr() % 16 == 0 and keys.data_ptr() % 16 == 0,
+               f"{name}: q and keys must be 16-byte aligned (16-byte copies)")
+        rc = lib.indexer_scores_mma_launch(
+            int(contig), *args, ps, mp, keys.shape[0], n, qrows,
+            sched["ctas_per_row"], sched["stages"], scores.data_ptr(),
+            _stream(q))
+    else:
+        rc = lib.indexer_scores_fma_launch(
+            int(contig), sched["heads_per_thread"], *args, sched["tile"], mp,
+            keys.shape[0], n, qrows, scores.data_ptr(), _stream(q))
     _raise_on(rc, name)
     return scores
 
@@ -209,13 +279,13 @@ def paged_indexer_scores(q: torch.Tensor, k_pages: torch.Tensor,
                          w: torch.Tensor, table: torch.Tensor,
                          lengths: torch.Tensor) -> torch.Tensor:
     """B2 scoring — Eq. 1 over page-addressed indexer keys. q (B, H, D) in
-    the cache dtype; k_pages (P, ps, D); w (H,) f32; table (B, MP) int32;
-    lengths (B,) int32. Returns the (B, MP*ps) f32 score row, NEG beyond
-    length and on unmapped pages."""
+    the cache dtype; k_pages (P, ps, D); w (H,) or (B, H) f32; table
+    (B, MP) int32; lengths (B,) int32. Returns the (B, MP*ps) f32 score
+    row, NEG beyond length and on unmapped pages."""
     if _on_cpu(q, k_pages, w, table, lengths):
         return ref.paged_indexer_scores_ref(q, k_pages, w, table, lengths)
     _contig(table, torch.int32, "paged_indexer_scores table")
-    _check(w.dim() == 1, "paged_indexer_scores: w (H,), table (B, MP)")
+    _check(table.dim() == 2, "paged_indexer_scores: table (B, MP)")
     ps = k_pages.shape[1]
     scores = _scores(False, q, k_pages, w, table, lengths, ps,
                      table.shape[1] * ps, "paged_indexer_scores")
@@ -286,9 +356,7 @@ def indexer_scores(q: torch.Tensor, kcache: torch.Tensor, w: torch.Tensor,
     n = kcache.shape[1]
     _check(0 < n and q.shape[0] * n < 2 ** 31,
            "indexer_scores: B*N beyond int32 indexing")
-    groups = q.shape[1] // _heads_per_thread(q.shape[1])
-    tile = max(1, min(64, 1024 // groups))
-    scores = _scores(True, q, kcache, w, None, lengths, tile, n,
+    scores = _scores(True, q, kcache, w, None, lengths, 0, n,
                      "indexer_scores")
     indexer_scores.launches += 1
     return scores

@@ -71,14 +71,18 @@ def paged_indexer_scores_ref(q: torch.Tensor, k_pages: torch.Tensor,
     score[b, n] = sum_h w_h ReLU(q[b,h] . k[n]) in f32, NEG at positions
     >= length and on unmapped (-1) pages.
 
-    q: (B, H, D) in the cache dtype; k_pages: (P, ps, D); w: (H,) f32;
-    table: (B, MP) int32; lengths: (B,). Returns (B, MP*ps) f32.
+    q: (B, H, D) in the cache dtype; k_pages: (P, ps, D); w: (H,) or
+    (B, H) f32; table: (B, MP) int32; lengths: (B,). Returns (B, MP*ps)
+    f32.
     """
     b, mp = table.shape
     p, ps, d = k_pages.shape
     view = k_pages[table.long().clamp(0, p - 1)].reshape(b, mp * ps, d)
     s = torch.einsum("bhd,bnd->bhn", q.float(), view.float()).clamp_min(0.0)
-    scores = torch.einsum("h,bhn->bn", w.float(), s)
+    if w.dim() == 1:
+        scores = torch.einsum("h,bhn->bn", w.float(), s)
+    else:
+        scores = torch.einsum("bh,bhn->bn", w.float(), s)
     pos = torch.arange(mp * ps, device=q.device)
     mapped = (table >= 0).repeat_interleave(ps, dim=1)
     keep = (pos[None, :] < lengths[:, None]) & mapped

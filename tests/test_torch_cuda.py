@@ -20,7 +20,12 @@ split over rows of B3/B4 (and B6/B8, which take B3's schedule) is held at
 its boundaries: K not a multiple of the split length R, K < R, a split
 with every entry masked, a slot with one valid entry, length < K with NEG
 ties, a B4 window that begins inside a split; two calls and one slot
-computed alone must equal the batched call bit for bit.
+computed alone must equal the batched call bit for bit. The scoring body
+of B2/B5/B9 is held at its edges in both dtypes (bf16 on the tensor
+cores, float32 on the CUDA cores): padded heads, head dims, page sizes,
+ragged lengths, unmapped pages inside a row, w (H,) and (B, H), rows long
+enough that a CTA walks two tiles; B5 == B2, B9's rows == B2's, two calls
+and each slot alone (another schedule) bit-identical.
 """
 
 import pytest
@@ -406,3 +411,125 @@ def test_b3_launches_overlapping_on_two_streams_keep_their_own_tickets(dev):
     torch.cuda.synchronize()
     for o in outs:
         assert torch.equal(o, want)
+
+
+# The scoring body's edges. B2, B5 and B9 share one body per cache dtype
+# (bf16: tensor cores, H padded to a multiple of 16; float32: CUDA cores):
+# H in {8, 64}, d in {64, 128}, ps in {4, 8, 16, 64}; lengths that are no
+# multiple of the 64-position tile, a length of 1, an unmapped page inside
+# a row's extent; w (H,) and (B, H).
+
+def _score_pools(g, dev, dtype, h, d, ps, n, lengths, hole_at):
+    """Pools of B*MP + 2 pages through a shuffled table; the page holding
+    position `hole_at` of the last slot unmapped."""
+    b, mp = len(lengths), n // ps
+    p = b * mp + 2
+    table = torch.randperm(p, generator=g, device=dev)[:b * mp].int().reshape(b, mp)
+    table[-1, hole_at // ps] = -1
+    pages = torch.randn((p, ps, d), generator=g, device=dev).to(dtype)
+    q = torch.randn((b, h, d), generator=g, device=dev).to(dtype)
+    return (table.contiguous(), pages, q,
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def _check_scoring_forms(g, dev, table, pages, q, lengths):
+    """B2 against its plain version; B5 == B2 on the mapped positions;
+    two calls and each slot alone bit-identical; for w (H,) and (B, H)."""
+    b, mp = table.shape
+    ps, d = pages.shape[1:]
+    h, n = q.shape[1], mp * ps
+    mapped = (table >= 0).repeat_interleave(ps, dim=1)
+    kc = pages[table.clamp(min=0).long()].reshape(b, n, d).contiguous()
+    for w in (torch.rand((h,), generator=g, device=dev),
+              torch.rand((b, h), generator=g, device=dev)):
+        s2 = ops.paged_indexer_scores(q, pages, w, table, lengths)
+        s0 = ref.paged_indexer_scores_ref(q, pages, w, table, lengths)
+        assert torch.equal(s2 < -1e38, s0 < -1e38)
+        torch.testing.assert_close(s2, s0, rtol=1e-5, atol=1e-5)
+        s5 = ops.indexer_scores(q, kc, w, lengths)
+        torch.testing.assert_close(s5, ref.indexer_scores_ref(q, kc, w, lengths),
+                                   rtol=1e-5, atol=1e-5)
+        assert torch.equal(s5[mapped], s2[mapped])                 # B5 == B2
+        assert torch.equal(ops.paged_indexer_scores(q, pages, w, table, lengths), s2)
+        assert torch.equal(ops.indexer_scores(q, kc, w, lengths), s5)
+        for s in range(b):
+            ws = w[s:s + 1] if w.dim() == 2 else w
+            one = slice(s, s + 1)
+            assert torch.equal(ops.paged_indexer_scores(
+                q[one], pages, ws, table[one], lengths[one]), s2[one])
+            assert torch.equal(ops.indexer_scores(
+                q[one], kc[one], ws, lengths[one]), s5[one])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [4, 8, 16, 64])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("h", [8, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_scoring_body_edges_on_card(dev, dtype, h, d, ps):
+    g = torch.Generator(device=dev).manual_seed(h + d + ps)
+    n = 320
+    table, pages, q, lengths = _score_pools(g, dev, dtype, h, d, ps, n,
+                                            [n - 5, 1, 145], hole_at=80)
+    _check_scoring_forms(g, dev, table, pages, q, lengths)
+    # B9: each of Q = 3 query rows == B2 at that row's length
+    qn = 3
+    q9 = torch.randn((3, qn, h, d), generator=g, device=dev).to(dtype)
+    l9 = (lengths[:, None] + torch.arange(qn, device=dev)).int().contiguous()
+    w = torch.rand((h,), generator=g, device=dev)
+    s9 = ops.paged_indexer_scores_mq(q9, pages, w, table, l9)
+    for j in range(qn):
+        assert torch.equal(s9[:, j], ops.paged_indexer_scores(
+            q9[:, j].contiguous(), pages, w, table, l9[:, j].contiguous()))
+    torch.testing.assert_close(
+        s9, ref.paged_indexer_scores_mq_ref(q9, pages, w, table, l9),
+        rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_scoring_schedules_agree_on_card(dev, dtype):
+    """Rows of 71 tiles (the last one partial): at B=4 a CTA of the bf16
+    body walks two tiles through its double buffer (the last CTA one),
+    alone (B=1) one; the rows stay bit-identical across the two
+    schedules."""
+    g = torch.Generator(device=dev).manual_seed(71)
+    ps, n = 16, 16 * 283
+    assert ops.score_schedule(torch.bfloat16, 4, n, 64, 128)["tiles_per_cta"] == 2
+    assert ops.score_schedule(torch.bfloat16, 1, n, 64, 128)["tiles_per_cta"] == 1
+    table, pages, q, lengths = _score_pools(
+        g, dev, dtype, 64, 128, ps, n, [n, n - 100, 3000, 1], hole_at=3000)
+    table[1, 100:110] = -1
+    _check_scoring_forms(g, dev, table, pages, q, lengths)
+
+
+@pytest.mark.cuda
+def test_scoring_route_follows_dtype_on_card(dev):
+    """bf16 runs the tensor-core kernel and float32 the CUDA-core one (by
+    the kernels' names in the profiler); a bf16 head dim that is no
+    multiple of 16 raises, naming the shape, where float32 takes it."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=dev).manual_seed(3)
+    lengths = torch.tensor([100, 37], dtype=torch.int32, device=dev)
+    for dtype, body in ((torch.bfloat16, "mma"), (torch.float32, "fma")):
+        kc = torch.randn((2, 128, 64), generator=g, device=dev).to(dtype)
+        q = torch.randn((2, 8, 64), generator=g, device=dev).to(dtype)
+        w = torch.rand((8,), generator=g, device=dev)
+        names = set()
+        for _ in range(3):                 # the profiler may drop an event
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    ops.indexer_scores(q, kc, w, lengths)
+                torch.cuda.synchronize()
+            names |= {e.name for e in prof.events() if "indexer_scores" in e.name}
+            if names:
+                break
+        assert names and all(f"indexer_scores_{body}_kernel" in nm for nm in names), names
+    q72 = torch.randn((2, 8, 72), generator=g, device=dev)
+    kc72 = torch.randn((2, 128, 72), generator=g, device=dev)
+    w = torch.rand((8,), generator=g, device=dev)
+    torch.testing.assert_close(ops.indexer_scores(q72, kc72, w, lengths),
+                               ref.indexer_scores_ref(q72, kc72, w, lengths),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match=r"\(2, 8, 72\)"):
+        ops.indexer_scores(q72.bfloat16(), kc72.bfloat16(), w, lengths)

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Time kernels B3 (paged sparse decode attention), B4 (paged dense
-decode attention) and B1 (GVR Top-K), and one B=4 DSA decode step, of two
-checkouts of the PyTorch port on one card.
+decode attention), B1 (GVR Top-K), the scoring launches of B2 (paged
+indexer scoring) and B5 (contiguous indexer scoring), and one B=4 DSA
+decode step, of two checkouts of the PyTorch port on one card.
 
     python3 tools/ab_decode_attn.py CHECKOUT_A CHECKOUT_B
 
 Runs A, B, B, A, each in a process of its own (the two packages share the
 name `repro_torch`), and prints one line per run:
 
-    AB <checkout>: B3 <ms> ms (wall <ms>), B4 ..., B1 ..., step <ms> ms (wall <ms>)
+    AB <checkout>: B3 <ms> ms (wall <ms>), B4 ..., B1 ..., B2s ..., B5s ...,
+        step <ms> ms (wall <ms>)
 
 Each kernel is built from the checkout's own sources into its
 `build/kernels/`. Shapes are those of `chip_smoke.py`'s kernel phase:
@@ -17,7 +19,10 @@ heads, head_dim 64), bf16 pools through a shuffled block table. B3 attends
 over K random distinct rows per slot at lengths 8192, 5000, 1000 and 3001;
 B4 over every slot's whole extent (N rows). B1 selects K of N normal
 scores per slot warm-started from the Top-K of a perturbed copy (C =
-6144). A time is the median over 50 calls of the call's device time alone
+6144). B2s scores the 64 indexer heads of width 128 (bf16) over the
+pages of an indexer pool through the same table at the same lengths as
+B3; B5s the same keys copied into a contiguous (B, N, 128) cache. A time
+is the median over 50 calls of the call's device time alone
 (torch.profiler, `chip_smoke.time_ms` of this script's own checkout, so
 both checkouts are timed by one method), with the L2 flushed before each
 call; "wall" is the median CUDA-event window around each call. The step
@@ -40,12 +45,13 @@ import numpy as np
 # this script's checkout, for chip_smoke.time_ms
 REPO = Path(__file__).resolve().parents[1]
 B, N, PS, K, H, KVH, HD = 4, 8192, 64, 2048, 32, 8, 64
+HI, DI = 64, 128                  # indexer heads and dim
 SPARSE_LENGTHS = (8192, 5000, 1000, 3001)
 
 
 def child(root: Path) -> None:
-    """Time B3, B4, B1 and the step of the checkout at `root` and print
-    the AB line."""
+    """Time B3, B4, B1, B2's and B5's scoring and the step of the checkout
+    at `root` and print the AB line."""
     import torch
     sys.path.insert(0, str(REPO))
     sys.path.insert(0, str(root / "src"))
@@ -79,6 +85,14 @@ def child(root: Path) -> None:
     prev = torch.topk(noisy, K, dim=-1).indices.sort(-1).values.int().contiguous()
     b1 = time_ms(lambda: ops.gvr_topk(scores, prev, K, max_candidates=6144),
                  flush, iters=50)
+    idx_pages = rnd(B * mp, PS, DI)
+    qi = rnd(B, HI, DI)
+    wi = torch.full((HI,), 1.0 / HI, device=dev)
+    kci = idx_pages[table.long()].reshape(B, N, DI).contiguous()
+    b2s = time_ms(lambda: ops.paged_indexer_scores(qi, idx_pages, wi, table,
+                                                   sparse_len), flush, iters=50)
+    b5s = time_ms(lambda: ops.indexer_scores(qi, kci, wi, sparse_len), flush,
+                  iters=50)
     cfg = get_config("llama3.2-1b")
     model = build_model(cfg)
     params = model.init_params(seed=0)
@@ -91,7 +105,8 @@ def child(root: Path) -> None:
               else f"{step['device_ms']:.5f} ms")
     print(f"AB {root}: " + ", ".join(
         f"{key} {v['ms']:.5f} ms (wall {v['wall_ms']:.5f})"
-        for key, v in (("B3", b3), ("B4", b4), ("B1", b1)))
+        for key, v in (("B3", b3), ("B4", b4), ("B1", b1), ("B2s", b2s),
+                       ("B5s", b5s)))
         + f", step {dev_ms} (wall {step['wall_ms']:.5f})", flush=True)
 
 
