@@ -10,7 +10,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
   2. kernels      — hold each kernel against its plain PyTorch version on
                     the card at the main path's shapes (B=4, N=8192,
                     K=2048, llama3.2-1b widths; B8/B9 with Q=3 query rows
-                    per slot), edge cases included; B5 and B6 against B2
+                    per slot), edge cases included (B1 also on slot 2's
+                    NEG plateau alone and on N=131072 rows, with its
+                    cluster schedule printed); B5 and B6 against B2
                     and B3 bit for bit on the same rows, B8 against B3 on
                     the folded rows, B9's scores against B2's and its chain
                     against sequential B1 launches; B3/B4's split over
@@ -324,14 +326,38 @@ def phase_kernels(cfg, flush):
         return st1
 
     st = check_b1(s_ref, prev, "main")
-    log(f"[kernels] B1 exact; per-row [secant, refine, cand, full-row] = "
-        f"{st[:, :4].int().tolist()}")
+    wide = ops.gvr_hosts_wide_cluster(dev)
+    sch1 = ops.gvr_schedule(n, k, wide=wide)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if sch1.ranks < 2:
+        fail(f"B1: N={n} scheduled on one CTA per row, not a cluster")
+    log(f"[kernels] B1 exact on a cluster per row: R={sch1.ranks} CTAs of "
+        f"{sch1.threads} threads, {b * sch1.ranks} CTAs on {sms} SMs, "
+        f"{sch1.smem} B of shared memory each; per-row [secant, refine, "
+        f"cand, full-row] = {st[:, :4].int().tolist()}")
     # fewer predictions than K (row-extrema bracket), and predictions past N
     few = prev[:, :512].contiguous()
     oob = prev.clone()
     oob[1, :100] = n + 7
     check_b1(s_ref, few, "M<K")
     check_b1(s_ref, oob, "prev>=N")
+    # slot 2's NEG plateau alone (B = 1: length 1000 < K, predictions -1),
+    # and warm rows of N = 131072, now in the cluster's shared memory
+    st_p = check_b1(s_ref[2:3].contiguous(), prev[2:3].contiguous(), "plateau B=1")
+    n_long = 131072
+    g_long = torch.Generator(device=dev).manual_seed(n_long)   # g's stream untouched
+    x_long = torch.randn((b, n_long), generator=g_long, device=dev)
+    prev_long = torch.topk(x_long + 0.01 * torch.randn(x_long.shape, generator=g_long, device=dev),
+                           k, dim=-1).indices.sort(-1).values.int().contiguous()
+    st_long = check_b1(x_long, prev_long, "N=131072")
+    sch_long = ops.gvr_schedule(n_long, k, wide=wide)
+    log(f"[kernels] B1 exact (warm, random, -1, even, M<K, prev>=N); the B=1 "
+        f"plateau row [secant, refine, cand, full-row] = "
+        f"{st_p[0, :4].int().tolist()}; N={n_long} warm rows on R="
+        f"{sch_long.ranks} CTAs of {sch_long.threads} threads "
+        f"({sch_long.smem} B of shared memory each; the card runs a cluster "
+        f"of 16: {wide}), per-row "
+        f"{st_long[:, :4].int().tolist()}")
 
     # ---- B2 whole (scoring + B1) vs the plain pipeline -------------------
     v2, i2, _ = ops.paged_indexer_topk(inp["qi"], inp["idx_pages"], inp["w"],
@@ -749,9 +775,46 @@ def _need(tag, counts, names):
             fail(f"{tag} never launched {name}")
 
 
+def _tally_b1_rows(ops):
+    """Install a wrapper of `ops.paged_indexer_topk` (B2 + B1, the fused
+    paged path's selection) that keeps, per call, the mask of rows shorter
+    than K (from the lengths the caller passes) and stats column 1 (0 where
+    P4 was settled by the row-minimum test). Only device tensors are kept,
+    so the run gains no host synchronisation; returns the list and a
+    function that puts the original back."""
+    orig, seen = ops.paged_indexer_topk, []
+
+    def tally(q, k_pages, w, table, prev_idx, k, **kw):
+        out = orig(q, k_pages, w, table, prev_idx, k, **kw)
+        seen.append((kw["lengths"] < k, out[2][:, 1]))
+        return out
+
+    ops.paged_indexer_topk = tally
+    return seen, lambda: setattr(ops, "paged_indexer_topk", orig)
+
+
+def _b1_row_shares(seen):
+    """(launches, launches with a row shorter than K, rows, rows shorter
+    than K, rows whose stats column 1 reads 0) over a tally's calls."""
+    import torch
+    if not seen:
+        return 0, 0, 0, 0, 0
+    short = [s for s, _ in seen]
+    any_short = int(torch.stack([s.any() for s in short]).sum())
+    flat = torch.cat(short)
+    minimum = int((torch.cat([c for _, c in seen]) == 0).sum())
+    return len(seen), any_short, flat.numel(), int(flat.sum()), minimum
+
+
 def phase_main(model, params, specs):
     """The main path: paged, fused, greedy engine at full width."""
-    eng, reqs, rep, counts = _engine_run(model, params, max_len=8192, specs=specs)
+    from repro_torch.kernels import ops
+    seen, restore = _tally_b1_rows(ops)
+    try:
+        eng, reqs, rep, counts = _engine_run(model, params, max_len=8192,
+                                             specs=specs)
+    finally:
+        restore()
     paths = _paths(eng, reqs)
     log(f"[main] llama3.2-1b full width, max_len 8192, 4 slots, "
         f"{len(reqs)} requests: {rep.decoded_tokens} decoded + "
@@ -764,6 +827,13 @@ def phase_main(model, params, specs):
         f"{rep.wall_s / max(steps, 1) * 1e3:.3f} ms host wall per step")
     log(f"[main] selector path per request (R radix/cold, G gvr): {paths}")
     log(f"[main] launches: {counts}")
+    calls, short_calls, rows, short_rows, minimum = _b1_row_shares(seen)
+    log(f"[main] B1 rows shorter than K={model.cfg.dsa.k}: {short_calls} of "
+        f"{calls} launches through paged_indexer_topk "
+        f"({short_calls / max(calls, 1):.4f}; gvr_topk launches "
+        f"{counts['gvr_topk']}) hold one, {short_rows} of {rows} rows "
+        f"({short_rows / max(rows, 1):.4f}); P4 settled by the row-minimum "
+        f"test (stats column 1 == 0) on {minimum} rows")
     _need("main path", counts, ("gvr_topk", "paged_indexer_scores",
                                 "paged_sparse_decode_attn"))
     _check_paths("[main]", eng, reqs)

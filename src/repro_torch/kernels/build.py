@@ -38,9 +38,11 @@ _F = ctypes.c_float
 # truncates them to 32 bits)
 SIGNATURES = {
     "gvr_topk": {"gvr_topk_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                                     _I, _P, _P, _P, _P],
+                                     _I, _I, _I, _P, _P, _P, _P],
                  "gvr_topk_chain_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                           _F, _F, _F, _I, _P, _P, _P, _P]},
+                                           _F, _F, _F, _I, _I, _I, _P, _P, _P,
+                                           _P],
+                 "gvr_cluster_capacity": [_I, _I, _I, _I]},
     "indexer_scores": {"indexer_scores_fma_launch": [_I, _I, _P, _P, _P, _I,
                                                      _P, _P, _I, _I, _I, _I,
                                                      _I, _I, _I, _I, _P, _P],

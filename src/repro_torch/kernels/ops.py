@@ -26,14 +26,14 @@ reads them all and `reset_launch_counts()` zeroes them.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import ref
 from .build import LIBRARIES
 
-# shared memory a CTA may use on Hopper, less room for the static part
+# dynamic shared memory a CTA may use on Hopper, less room for the static part
 _SMEM_BUDGET = 200 * 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -73,11 +73,96 @@ def _raise_on(rc: int, name: str) -> None:
 
 # ---------------------------------------------------------------- B1 ------
 
+class GvrSchedule(NamedTuple):
+    """How B1 and B9's chain lay one score row on a thread-block cluster:
+    rank r of `ranks` CTAs owns positions [r * span, (r + 1) * span) in
+    its own shared memory, each of its `threads` threads a contiguous run
+    of ceil(span / threads); `smem` is the dynamic shared memory per CTA
+    in bytes (the rank's slice, the radix histograms the ranks send it,
+    and the chain's k-entry value buffers and index buffer)."""
+    ranks: int
+    threads: int
+    span: int
+    smem: int
+
+
+GVR_RANKS = (1, 2, 4, 8, 16)      # cluster sizes the kernel takes (16 non-portable)
+GVR_THREADS = (256, 512, 1024)    # threads per CTA the kernel is built for
+_GVR_SPAN = 1024                  # positions per rank the schedule aims at
+_GVR_WIDE = 8 * 8192              # rows longer than this take a cluster of 16
+_GVR_RUN = 16                     # positions per thread it aims at
+
+
+def gvr_layout(n: int, k: int, ranks: int, threads: int,
+               chain: bool = False) -> GvrSchedule:
+    """The schedule of a row of n positions on `ranks` CTAs of `threads`
+    threads (shared memory for the chain's buffers too when `chain`)."""
+    span = -(-n // ranks)
+    per = -(-span // threads)
+    # the slice, R received 256-bin histograms of two parities, and for the
+    # chain the received and staged values (k rounded up to 4) and indices
+    chain_bytes = 8 * (-(-k // 4) * 4) + 4 * k if chain else 0
+    return GvrSchedule(ranks, threads, span,
+                       4 * per * threads + 2048 * ranks + chain_bytes)
+
+
+def gvr_schedule(n: int, k: int, chain: bool = False,
+                 wide: bool = True) -> GvrSchedule:
+    """B1's cluster schedule, by shape and by what the device hosts: R, the
+    least cluster size that gives each rank at most 1024 positions, up to
+    8 (the portable limit); 16 (non-portable) for rows of more than 65536
+    positions or whose slice does not fit shared memory at 8, when `wide`
+    says the device runs a cluster of 16 (`gvr_hosts_wide_cluster`), else
+    8; then the fewest threads per CTA (256, 512 or 1024) that give each
+    thread at most 16 positions. Rows of up to 1024 positions run on one
+    CTA (R = 1), a choice of shape, not a fallback. On the H100 this
+    schedule was the fastest or within 3% of it in every regime
+    `tools/sweep_gvr_cluster.py` times (PERF.md). Raises when the row does
+    not fit the shared memory of the largest cluster allowed (n beyond
+    ~680K at 16, ~377K at 8). The candidate capacity C does not enter: the
+    kernel keeps no candidate buffer (P4 and P5 filter the row in
+    place)."""
+    ranks = 1
+    while ranks < 8 and -(-n // ranks) > _GVR_SPAN:
+        ranks *= 2
+    if wide and (n > _GVR_WIDE or gvr_layout(
+            n, k, ranks, GVR_THREADS[-1], chain).smem > _SMEM_BUDGET):
+        ranks = 16
+    span = -(-n // ranks)
+    threads = next((t for t in GVR_THREADS if -(-span // t) <= _GVR_RUN),
+                   GVR_THREADS[-1])
+    sch = gvr_layout(n, k, ranks, threads, chain)
+    _check(sch.smem <= _SMEM_BUDGET,
+           f"GVR Top-K: a row of n={n} needs {sch.smem} B of shared memory "
+           f"per CTA on a {ranks}-CTA cluster, more than the kernel's "
+           f"{_SMEM_BUDGET} B")
+    return sch
+
+
+_WIDE_CLUSTER: Dict[Tuple[int, bool], bool] = {}
+
+
+def gvr_hosts_wide_cluster(device: torch.device, chain: bool = False) -> bool:
+    """Whether `device` runs B1's (or, with `chain`, B9's chain's) cluster of
+    16 CTAs at the largest launch the schedule gives one (1024 threads and
+    the whole shared-memory budget per CTA, so every smaller one fits too):
+    cudaOccupancyMaxActiveClusters, asked once per device and kernel. A
+    card or partition whose GPCs cannot hold 16 such CTAs answers no, and
+    `gvr_schedule` keeps its rows on clusters of 8."""
+    key = (torch.device(device).index or 0, chain)
+    if key not in _WIDE_CLUSTER:
+        with torch.cuda.device(key[0]):
+            got = LIBRARIES.get("gvr_topk").gvr_cluster_capacity(
+                16, GVR_THREADS[-1], _SMEM_BUDGET, int(chain))
+        _raise_on(-min(got, 0), "gvr_cluster_capacity")
+        _WIDE_CLUSTER[key] = got >= 1
+    return _WIDE_CLUSTER[key]
+
+
 def _gvr_args(scores: torch.Tensor, prev_idx: torch.Tensor, k: int,
-              max_candidates: Optional[int], name: str, extra: int = 0):
+              max_candidates: Optional[int], name: str, chain: bool = False):
     """Validate a GVR launch over score rows (..., N) with predictions
-    (B, M) and `extra` bytes of shared memory beside the candidate buffer;
-    returns (n, m, cmax, f_target, c_lo0, row_in_smem)."""
+    (B, M); returns (n, m, cmax, f_target, c_lo0, schedule)."""
     _contig(scores, torch.float32, f"{name} scores")
     _contig(prev_idx, torch.int32, f"{name} prev_idx")
     n = scores.shape[-1]
@@ -86,13 +171,11 @@ def _gvr_args(scores: torch.Tensor, prev_idx: torch.Tensor, k: int,
            f"{name}: prev_idx (B, M>=1)")
     _check(1 <= k <= n, f"{name}: need 1 <= k={k} <= n={n}")
     _check(n < 2 ** 30, f"{name}: n={n} beyond the kernel's int32 indexing")
+    _check(scores.shape[0] <= 65535, f"{name}: at most 65535 slots per launch")
     cmax = ref.resolve_cmax(k, n, max_candidates)
-    cand_bytes = 8 * cmax
-    _check(cand_bytes + extra <= _SMEM_BUDGET,
-           f"{name}: candidate buffer C={cmax} needs {cand_bytes + extra} B "
-           f"of shared memory, more than the kernel's {_SMEM_BUDGET} B")
-    row_in_smem = int(4 * n + cand_bytes + extra <= _SMEM_BUDGET)
-    return (n, m, cmax, float((k + cmax) // 2), _c_lo0(n, m, k), row_in_smem)
+    return (n, m, cmax, float((k + cmax) // 2), _c_lo0(n, m, k),
+            gvr_schedule(n, k, chain, gvr_hosts_wide_cluster(scores.device,
+                                                             chain)))
 
 
 def _c_lo0(n: int, m: int, k: int) -> float:
@@ -105,13 +188,16 @@ def gvr_topk(scores: torch.Tensor, prev_idx: torch.Tensor, k: int, *,
              max_secant_iters: int = 12):
     """B1 — exact Top-K of (B, N) f32 rows warm-started from (B, M) int32
     predictions. Returns (values (B,K) f32, indices (B,K) int32 in
-    ascending order, stats (B,8) f32; see `ref.gvr_topk_ref`)."""
+    ascending order, stats (B,8) f32; see `ref.gvr_topk_ref`). On the card
+    a row lies in one cluster's shared memory (`gvr_schedule`): up to
+    ~680K positions where the device runs a cluster of 16, ~377K where it
+    does not; a longer row raises ValueError."""
     if _on_cpu(scores, prev_idx):
         return ref.gvr_topk_ref(scores, prev_idx, k,
                                 max_candidates=max_candidates,
                                 max_secant_iters=max_secant_iters)
     _check(scores.dim() == 2 and prev_idx.dim() == 2, "gvr_topk: 2-D inputs")
-    n, m, cmax, f_target, c_lo0, row_in_smem = _gvr_args(
+    n, m, cmax, f_target, c_lo0, sch = _gvr_args(
         scores, prev_idx, k, max_candidates, "gvr_topk")
     b = scores.shape[0]
     vals = torch.empty((b, k), dtype=torch.float32, device=scores.device)
@@ -119,8 +205,8 @@ def gvr_topk(scores: torch.Tensor, prev_idx: torch.Tensor, k: int, *,
     stats = torch.empty((b, 8), dtype=torch.float32, device=scores.device)
     rc = LIBRARIES.get("gvr_topk").gvr_topk_launch(
         scores.data_ptr(), prev_idx.data_ptr(), b, n, m, k, cmax,
-        max_secant_iters, f_target, c_lo0, row_in_smem, vals.data_ptr(),
-        idx.data_ptr(), stats.data_ptr(), _stream(scores))
+        max_secant_iters, f_target, c_lo0, sch.ranks, sch.threads, sch.smem,
+        vals.data_ptr(), idx.data_ptr(), stats.data_ptr(), _stream(scores))
     _raise_on(rc, "gvr_topk")
     gvr_topk.launches += 1
     return vals, idx, stats
@@ -147,16 +233,17 @@ def gvr_topk_chain(scores: torch.Tensor, prev_idx: torch.Tensor, k: int, *,
         return ref.gvr_topk_chain_ref(scores, prev_idx, k,
                                       max_candidates=max_candidates,
                                       max_secant_iters=max_secant_iters)
-    n, m, cmax, f_target, c_lo0, row_in_smem = _gvr_args(
-        scores, prev_idx, k, max_candidates, "gvr_topk_chain", extra=4 * k)
+    n, m, cmax, f_target, c_lo0, sch = _gvr_args(
+        scores, prev_idx, k, max_candidates, "gvr_topk_chain", chain=True)
     b, qn = scores.shape[:2]
     vals = torch.empty((b, qn, k), dtype=torch.float32, device=scores.device)
     idx = torch.empty((b, qn, k), dtype=torch.int32, device=scores.device)
     stats = torch.empty((b, qn, 8), dtype=torch.float32, device=scores.device)
     rc = LIBRARIES.get("gvr_topk").gvr_topk_chain_launch(
         scores.data_ptr(), prev_idx.data_ptr(), b, qn, n, m, k, cmax,
-        max_secant_iters, f_target, c_lo0, _c_lo0(n, k, k), row_in_smem,
-        vals.data_ptr(), idx.data_ptr(), stats.data_ptr(), _stream(scores))
+        max_secant_iters, f_target, c_lo0, _c_lo0(n, k, k), sch.ranks,
+        sch.threads, sch.smem, vals.data_ptr(), idx.data_ptr(),
+        stats.data_ptr(), _stream(scores))
     _raise_on(rc, "gvr_topk_chain")
     gvr_topk_chain.launches += 1
     return vals, idx, stats

@@ -11,10 +11,13 @@ attention within 1e-4 (f32 softmax and PV sums over the same rows in
 another order); the page gather exact. The contiguous forms must equal the
 paged ones over the same keys bit for bit (B5 == B2, B6 == B3), and the
 multi-query forms the single-row ones (B8 == B3 on the folded rows, B9's
-score rows == B2's, its chain == sequential B1 launches). Shapes
-cover what `chip_smoke.py` does not: rows too long for shared memory (B1
-then reads the row from global memory, up to the gate's N = 200,000),
-ragged N, other GQA groups, head dims and page sizes, float32 caches, and
+score rows == B2's, its chain == sequential B1 launches at Q = 1, 3, 5).
+B1 runs a thread-block cluster per row: every (R, threads) schedule must
+give the same values, indices and stats, a row alone the same as in a
+batch, and a row shorter than K (every secant probe, the full-row refine)
+the single-CTA kernel's stats. Shapes cover what `chip_smoke.py` does
+not: long rows in the cluster's shared memory (up to the gate's N =
+200,000), ragged N, other GQA groups, head dims and page sizes, float32 caches, and
 pages whose size in bytes is not a multiple of 16 (B7's byte path). The
 split over rows of B3/B4 (and B6/B8, which take B3's schedule) is held at
 its boundaries: K not a multiple of the split length R, K < R, a split
@@ -47,7 +50,7 @@ def dev():
 @pytest.mark.parametrize("n,k,m,dist", [
     (5001, 300, 100, "normal"),          # ragged N, fewer predictions than K
     (8192, 2048, 2048, "ties"),
-    (60_000, 2048, 2048, "normal"),      # row too long for shared memory
+    (60_000, 2048, 2048, "normal"),      # past the single-CTA form's 38K
     (200_000, 2048, 2048, "neg_tail"),   # the gate's largest N, NEG ties
 ])
 def test_b1_gvr_topk_on_card(dev, n, k, m, dist):
@@ -533,3 +536,197 @@ def test_scoring_route_follows_dtype_on_card(dev):
                                rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match=r"\(2, 8, 72\)"):
         ops.indexer_scores(q72.bfloat16(), kc72.bfloat16(), w, lengths)
+
+
+# ---- B1 / B9's chain on a thread-block cluster per row -------------------
+
+_K, _C = 2048, 6144
+
+
+def _gvr_rows(dev, b, n, lengths=None, seed=0):
+    """Normal scores with NEG at and past each row's length."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, n), generator=g, device=dev)
+    if lengths is not None:
+        pos = torch.arange(n, device=dev)
+        x = torch.where(pos < torch.tensor(lengths, device=dev)[:, None], x,
+                        torch.full_like(x, NEG))
+    return x.contiguous(), g
+
+
+def _warm_prev(x, g):
+    noisy = x + 0.01 * torch.randn(x.shape, generator=g, device=x.device)
+    return torch.topk(noisy, _K, dim=-1).indices.sort(-1).values.int().contiguous()
+
+
+def _b1_exact(x, prev):
+    v1, i1, st1 = ops.gvr_topk(x, prev, _K, max_candidates=_C)
+    v0, i0, st0 = ref.gvr_topk_ref(x, prev, _K, max_candidates=_C)
+    assert torch.equal(i1, i0) and torch.equal(v1, v0)
+    assert torch.equal(st1[:, 4:], st0[:, 4:])
+    return st1, st0
+
+
+@pytest.mark.cuda
+def test_b1_neg_plateau_row_takes_every_probe_on_card(dev):
+    """A row of length 1000 < K padded with NEG to 8192, predictions -1 (a
+    recycled slot, slot 2 of chip_smoke's kernel phase): no threshold gives
+    K <= |x >= T| <= C, so all 12 secant probes run and P4/P5 take the
+    whole row. Stats 0, 2 and 3 as the single-CTA kernel gave them (12,
+    8192, 1); column 1 counts no radix pass, where that kernel always ran
+    four: fewer than K keys lie above the row's minimum (NEG), so the K-th
+    value is that minimum."""
+    x, _ = _gvr_rows(dev, 1, 8192, [1000], seed=1)
+    prev = torch.full((1, _K), -1, dtype=torch.int32, device=dev)
+    assert ops.gvr_schedule(8192, _K).ranks > 1
+    st1, _ = _b1_exact(x, prev)
+    assert st1[0, :4].tolist() == [12.0, 0.0, 8192.0, 1.0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072, 200000])
+def test_b1_long_rows_in_shared_memory_on_card(dev, n):
+    """Rows past the single-CTA form's 38K limit now sit in the cluster's
+    shared memory (R = 16: slices of 32 KB and 50 KB per CTA); warm and
+    random predictions, one row with a NEG tail below K."""
+    sch = ops.gvr_schedule(n, _K, wide=True)
+    assert sch.ranks == 16 and sch.span * 4 <= sch.smem <= 200 * 1024
+    assert ops.gvr_hosts_wide_cluster(dev)          # an H100 runs 16
+    x, g = _gvr_rows(dev, 3, n, [n, n, 1500], seed=n)
+    prev = _warm_prev(x, g)
+    prev[1] = torch.randint(0, n, (_K,), generator=g, device=dev).int()
+    _b1_exact(x, prev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", [False, True])
+def test_long_rows_on_eight_where_the_device_runs_no_cluster_of_16_on_card(
+        dev, chain, monkeypatch):
+    """Where the device answers that it cannot run a cluster of 16 (planted
+    in the per-device cache here, as the H100 answers yes), a row of
+    131072 positions takes R = 8 and its outputs equal the R = 16 launch's
+    bit for bit, B1 and the chain alike."""
+    n = 131072
+    x, g = _gvr_rows(dev, 2, n, [n, 1500], seed=n + 3)
+    prev = _warm_prev(x, g)
+    if chain:
+        x = torch.stack([x, x + 0.01], dim=1).contiguous()
+        run = lambda: ops.gvr_topk_chain(x, prev, _K, max_candidates=_C)
+    else:
+        run = lambda: ops.gvr_topk(x, prev, _K, max_candidates=_C)
+    key = (dev.index or 0, chain)
+    assert ops.gvr_hosts_wide_cluster(dev, chain)
+    wide = run()
+    monkeypatch.setitem(ops._WIDE_CLUSTER, key, False)
+    assert ops._gvr_args(x, prev, _K, _C, "t", chain)[-1].ranks == 8
+    eight = run()
+    assert all(torch.equal(a, b) for a, b in zip(eight, wide))
+
+
+@pytest.mark.cuda
+def test_b1_rows_alone_and_repeated_calls_bit_identical_on_card(dev):
+    """Each row computed alone (B = 1) equals the same row in the batch,
+    and two calls on the same inputs agree bit for bit, stats included."""
+    x, g = _gvr_rows(dev, 4, 8192, [8192, 5000, 1000, 3001], seed=7)
+    prev = _warm_prev(x, g)
+    prev[1] = torch.randint(0, 8192, (_K,), generator=g, device=dev).int()
+    prev[2] = -1
+    out = ops.gvr_topk(x, prev, _K, max_candidates=_C)
+    again = ops.gvr_topk(x, prev, _K, max_candidates=_C)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    for r in range(4):
+        alone = ops.gvr_topk(x[r:r + 1].contiguous(), prev[r:r + 1].contiguous(),
+                             _K, max_candidates=_C)
+        assert all(torch.equal(a, b[r:r + 1]) for a, b in zip(alone, out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 8192, 60000])
+def test_b1_every_cluster_schedule_bit_identical_on_card(dev, n, monkeypatch):
+    """Values, indices and all 8 stats columns do not depend on the cluster
+    size R or the threads per CTA: every (R, threads) the kernel takes
+    gives the default schedule's outputs (B1 and the chain)."""
+    k = min(_K, n // 2)
+    x, g = _gvr_rows(dev, 2, n, [n, n // 3], seed=n + 1)
+    prev = torch.stack([torch.randint(0, n, (k,), generator=g, device=dev),
+                        torch.full((k,), -1, device=dev)]).int().contiguous()
+    xq = torch.stack([x, x + 0.01], dim=1).contiguous()
+    want = ops.gvr_topk(x, prev, k)
+    want_chain = ops.gvr_topk_chain(xq, prev, k)
+    for ranks in ops.GVR_RANKS:
+        for threads in ops.GVR_THREADS:
+            if ops.gvr_layout(n, k, ranks, threads, True).smem > ops._SMEM_BUDGET:
+                continue                   # the slice outgrows shared memory
+            monkeypatch.setattr(ops, "gvr_schedule",
+                                lambda n_, k_, chain=False, wide=True: ops.gvr_layout(
+                                    n_, k_, ranks, threads, chain))
+            got = ops.gvr_topk(x, prev, k)
+            got_chain = ops.gvr_topk_chain(xq, prev, k)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (ranks, threads)
+            assert all(torch.equal(a, b) for a, b in zip(got_chain, want_chain)), (ranks, threads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qn", [1, 3, 5])
+def test_b9_chain_equals_sequential_b1_on_card(dev, qn):
+    """The chain at Q rows per slot equals Q sequential B1 launches in
+    values, indices and all 8 stats columns, at the main path's K and C,
+    across warm, random, recycled and short rows."""
+    n = 8192
+    x, g = _gvr_rows(dev, 4, n, None, seed=qn)
+    rows = [x]
+    for _ in range(qn - 1):
+        rows.append(rows[-1] + 0.01 * torch.randn(x.shape, generator=g, device=dev))
+    pos = torch.arange(n, device=dev)
+    xq = torch.stack([torch.where(pos < torch.tensor(
+        [n, 5000 + q, 700 + q, 3001 + q], device=dev)[:, None], r,
+        torch.full_like(r, NEG)) for q, r in enumerate(rows)], dim=1).contiguous()
+    prev = _warm_prev(xq[:, 0], g)
+    prev[1] = torch.randint(0, n, (_K,), generator=g, device=dev).int()
+    prev[2] = -1
+    v9, i9, st9 = ops.gvr_topk_chain(xq, prev, _K, max_candidates=_C)
+    pv = prev
+    for j in range(qn):
+        v1, i1, st1 = ops.gvr_topk(xq[:, j].contiguous(), pv, _K, max_candidates=_C)
+        assert torch.equal(v9[:, j], v1) and torch.equal(i9[:, j], i1)
+        assert torch.equal(st9[:, j], st1)
+        pv = i1
+
+
+def _regime(dev, name):
+    """tools/gvr_regimes.py's inputs of one regime (B=4, N=8192 or 131072,
+    or B=1 for the plateau), made the same way from the same seeds."""
+    names = ("kernel-mix", "warm", "random", "recycled", "even", "plateau",
+             "warm-131072")
+    g = torch.Generator(device=dev).manual_seed(1234 + names.index(name))
+    b, n = (1, 8192) if name == "plateau" else (
+        4, 131072 if name == "warm-131072" else 8192)
+    x = torch.randn((b, n), generator=g, device=dev)
+    if name in ("warm", "warm-131072"):
+        prev = _warm_prev(x, g)
+    elif name == "random":
+        prev = torch.randint(0, n, (b, _K), generator=g, device=dev).int()
+    elif name == "even":
+        prev = torch.linspace(0, n - 1, _K, device=dev).int().expand(b, _K)
+    else:
+        if name == "plateau":
+            x = torch.where(torch.arange(n, device=dev) < 1000, x,
+                            torch.full_like(x, NEG))
+        prev = torch.full((b, _K), -1, dtype=torch.int32, device=dev)
+    return x.contiguous(), prev.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cols", [
+    ("warm", (0, 2, 3)), ("random", (0, 2, 3)), ("recycled", (0, 2, 3)),
+    ("even", (0, 2, 3)), ("warm-131072", (0, 2, 3)), ("plateau", (0,))])
+def test_b1_path_stats_match_plain_where_the_single_cta_form_did_on_card(dev, name, cols):
+    """Stats columns 0 (secant probes), 2 (candidates) and 3 (full-row
+    refine) equal the plain version's wherever the single-CTA kernel's did
+    (checked on an H100 before the redesign): columns 0, 2 and 3 on the
+    buffered regimes; column 0 alone on a row shorter than K, where the
+    plain version's histogram refine counts its candidates otherwise."""
+    x, prev = _regime(dev, name)
+    st1, st0 = _b1_exact(x, prev)
+    for c in cols:
+        assert torch.equal(st1[:, c], st0[:, c]), (c, st1[:, :4], st0[:, :4])

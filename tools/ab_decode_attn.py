@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Time kernels B3 (paged sparse decode attention), B4 (paged dense
 decode attention), B1 (GVR Top-K), the scoring launches of B2 (paged
-indexer scoring) and B5 (contiguous indexer scoring), and one B=4 DSA
-decode step, of two checkouts of the PyTorch port on one card.
+indexer scoring) and B5 (contiguous indexer scoring), B1 in the regimes of
+`tools/gvr_regimes.py` and B9's chain, and one B=4 DSA decode step, of two
+checkouts of the PyTorch port on one card, and compare the two checkouts'
+B1 and chain outputs bit for bit.
 
     python3 tools/ab_decode_attn.py CHECKOUT_A CHECKOUT_B
 
@@ -11,6 +13,12 @@ name `repro_torch`), and prints one line per run:
 
     AB <checkout>: B3 <ms> ms (wall <ms>), B4 ..., B1 ..., B2s ..., B5s ...,
         step <ms> ms (wall <ms>)
+    AB <checkout> gvr: B1[kernel-mix] <ms> ms (wall <ms>), ..., chain ...
+
+then, from the first A and the first B run, one `AB bits` line per regime
+and for the chain: whether values, indices and each of the 8 stats
+columns agree bit for bit (where column 1, the refine's pass count,
+differs, both are printed), and an `AB bits verdict` line.
 
 Each kernel is built from the checkout's own sources into its
 `build/kernels/`. Shapes are those of `chip_smoke.py`'s kernel phase:
@@ -42,16 +50,21 @@ from pathlib import Path
 
 import numpy as np
 
-# this script's checkout, for chip_smoke.time_ms
+# this script's checkout, for chip_smoke.time_ms and the B1 regimes
 REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO / "tools"))
+from gvr_regimes import CMAX, REGIMES, chain_inputs, regime_inputs  # noqa: E402
+
+OUT = REPO / "build" / "ab"            # each run's B1 and chain outputs
 B, N, PS, K, H, KVH, HD = 4, 8192, 64, 2048, 32, 8, 64
 HI, DI = 64, 128                  # indexer heads and dim
 SPARSE_LENGTHS = (8192, 5000, 1000, 3001)
 
 
-def child(root: Path) -> None:
-    """Time B3, B4, B1, B2's and B5's scoring and the step of the checkout
-    at `root` and print the AB line."""
+def child(root: Path, out: Path) -> None:
+    """Time B3, B4, B1, B2's and B5's scoring, B1's regimes, B9's chain
+    and the step of the checkout at `root`, print the AB lines, and save
+    the B1 and chain outputs to `out`."""
     import torch
     sys.path.insert(0, str(REPO))
     sys.path.insert(0, str(root / "src"))
@@ -108,24 +121,62 @@ def child(root: Path) -> None:
         for key, v in (("B3", b3), ("B4", b4), ("B1", b1), ("B2s", b2s),
                        ("B5s", b5s)))
         + f", step {dev_ms} (wall {step['wall_ms']:.5f})", flush=True)
+    outs, cells = {}, []
+    for name in REGIMES:
+        x, pr = regime_inputs(name, dev)
+        outs[name] = [t.cpu() for t in ops.gvr_topk(x, pr, K, max_candidates=CMAX)]
+        t = time_ms(lambda: ops.gvr_topk(x, pr, K, max_candidates=CMAX), flush,
+                    iters=50)
+        cells.append(f"B1[{name}] {t['ms']:.5f} ms (wall {t['wall_ms']:.5f})")
+    xq, pq = chain_inputs(dev)
+    outs["chain"] = [t.cpu() for t in ops.gvr_topk_chain(xq, pq, K, max_candidates=CMAX)]
+    t = time_ms(lambda: ops.gvr_topk_chain(xq, pq, K, max_candidates=CMAX), flush,
+                iters=50)
+    cells.append(f"chain {t['ms']:.5f} ms (wall {t['wall_ms']:.5f})")
+    print(f"AB {root} gvr: " + ", ".join(cells), flush=True)
+    torch.save(outs, out)
+
+
+def compare_bits(a: Path, b: Path) -> bool:
+    """Print whether two runs' B1 and chain outputs agree bit for bit."""
+    import torch
+    oa, ob = torch.load(a), torch.load(b)
+    ok = True
+    for key in oa:
+        (va, ia, sa), (vb, ib, sb) = oa[key], ob[key]
+        cols = [bool(torch.equal(sa[..., c], sb[..., c])) for c in range(8)]
+        same = torch.equal(va, vb) and torch.equal(ia, ib)
+        ok &= same and all(cols[:1] + cols[2:])
+        extra = ("" if cols[1] else f" (column 1: {sa[..., 1].flatten().tolist()} "
+                 f"vs {sb[..., 1].flatten().tolist()})")
+        print(f"AB bits {key}: values and indices equal {same}; stats columns "
+              f"equal {cols}{extra}", flush=True)
+    print(f"AB bits verdict: {'equal' if ok else 'DIFFER'} (column 1 exempt)",
+          flush=True)
+    return ok
 
 
 def main(argv) -> int:
-    if len(argv) == 3 and argv[1] == "--child":
-        child(Path(argv[2]).resolve())
+    if len(argv) == 4 and argv[1] == "--child":
+        child(Path(argv[2]).resolve(), Path(argv[3]))
         return 0
     if len(argv) != 3:
         print(__doc__, file=sys.stderr)
         return 2
     a, b = (Path(p).resolve() for p in argv[1:])
-    for root in (a, b, b, a):
-        out = subprocess.run([sys.executable, __file__, "--child", str(root)],
-                             capture_output=True, text=True, timeout=900)
+    OUT.mkdir(parents=True, exist_ok=True)
+    saved = []
+    for i, root in enumerate((a, b, b, a)):
+        dest = OUT / f"run{i}.pt"
+        out = subprocess.run([sys.executable, __file__, "--child", str(root),
+                              str(dest)], capture_output=True, text=True,
+                             timeout=900)
         if out.returncode != 0:
             print(out.stdout + out.stderr, file=sys.stderr)
             return out.returncode
-        print(out.stdout.strip().splitlines()[-1], flush=True)
-    return 0
+        print("\n".join(out.stdout.strip().splitlines()[-2:]), flush=True)
+        saved.append(dest)
+    return 0 if compare_bits(saved[0], saved[1]) else 1
 
 
 if __name__ == "__main__":
