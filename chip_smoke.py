@@ -16,8 +16,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     and B3 bit for bit on the same rows, B8 against B3 on
                     the folded rows, B9's scores against B2's and its chain
                     against sequential B1 launches; B3/B4's split over
-                    rows and the B2/B5 scoring body's grid (CTAs >= SMs,
-                    two calls and each slot alone bit-identical); time
+                    rows, B10's split over positions (also on B=4 rows of
+                    N=131072) and the B2/B5 scoring body's grid (CTAs >=
+                    SMs, two calls and each slot alone bit-identical); time
                     kernel, its scoring half (B2/B5/B9, against its own
                     bound), plain version and (B1, B7)
                     the library call on the device alone (torch.profiler,
@@ -484,9 +485,41 @@ def phase_kernels(cfg, flush):
     valid10 = (idx >= 0) & (idx < ln[:, None])
     pages10 = [len(set((row[m] // ps).tolist())) for row, m in zip(idx, valid10)]
     stats10 = dsa.page_gather_stats(idx, page_size=ps, num_logical_pages=mp)
+    rps10, splits10 = ops.decode_attn_splits("paged_pages", k, n, ps)
+    ctas10 = _check_split("B10", ops.paged_sparse_decode_attn_pg, args3, o10,
+                          splits10 * cfg.n_kv_heads * b)
     log(f"[kernels] B10 allclose, max|err| {e10:.3e}; distinct pages with a "
         f"valid entry per slot {pages10} of {mp} (page_gather_stats over all "
-        f"entries {stats10.tolist()}), K={k}")
+        f"entries {stats10.tolist()}), K={k}; {splits10} splits of {rps10} "
+        f"positions: {ctas10}")
+
+    # ---- B10 on long rows: 2048 pages of 64, past the 97,536 positions a
+    # one-split kernel with a count per table position could hold ---------
+    n_long = 131072
+    lengths_long = [n_long, n_long - 100, 97536 + 777, 40000]
+    gl = torch.Generator(device=dev).manual_seed(n_long)   # leaves g alone
+    inp_l = _paged_inputs(gl, dev, b=b, mp=n_long // ps, ps=ps,
+                          lengths=lengths_long, kvh=cfg.n_kv_heads, hd=cfg.hd,
+                          h=cfg.n_heads, di=8, hi=1)
+    idx_l = torch.stack([torch.randperm(L, generator=gl, device=dev)[:k]
+                         for L in lengths_long]).int()
+    idx_l[1, :16] = -1
+    idx_l[0, 16:32] = lengths_long[0] - 1
+    idx_l = idx_l.contiguous()
+    args10l = (inp_l["q"], inp_l["k_pages"], inp_l["v_pages"], inp_l["table"],
+               idx_l, inp_l["lengths"])
+    o10l = ops.paged_sparse_decode_attn_pg(*args10l)
+    o10lr = ref.paged_sparse_attn_pg_ref(*args10l)
+    torch.cuda.synchronize()
+    e10l = float((o10l - o10lr).abs().max())
+    if not torch.allclose(o10l, o10lr, atol=1e-4, rtol=1e-4):
+        fail(f"B10 at N={n_long}: max |err| {e10l} beyond atol=rtol=1e-4")
+    rps10l, splits10l = ops.decode_attn_splits("paged_pages", k, n_long, ps)
+    ctas10l = _check_split(f"B10 N={n_long}", ops.paged_sparse_decode_attn_pg,
+                           args10l, o10l, splits10l * cfg.n_kv_heads * b)
+    rows10l = int(((idx_l >= 0) & (idx_l < inp_l["lengths"][:, None])).sum())
+    log(f"[kernels] B10 at B={b}, N={n_long}: allclose, max|err| "
+        f"{e10l:.3e}; {splits10l} splits of {rps10l} positions: {ctas10l}")
 
     # ---- B8 / B9: the verify tick's Q = d+1 query rows per slot ----------
     hi, di = cfg.dsa.indexer_heads, cfg.dsa.indexer_dim
@@ -606,6 +639,9 @@ def phase_kernels(cfg, flush):
                time_ms(lambda: inp["k_pages"].index_select(0, flat_table.flatten()), flush)),
         "B10": (time_ms(lambda: ops.paged_sparse_decode_attn_pg(*args3), flush),
                 time_ms(lambda: ref.paged_sparse_attn_pg_ref(*args3), flush), None),
+        "B10 N=131072": (time_ms(lambda: ops.paged_sparse_decode_attn_pg(*args10l), flush),
+                         time_ms(lambda: ref.paged_sparse_attn_pg_ref(*args10l), flush, iters=5),
+                         None),
         "B8": (time_ms(lambda: ops.paged_sparse_decode_attn_mq(*args8), flush),
                time_ms(lambda: ref.paged_sparse_attn_mq_ref(*args8), flush), None),
         "B9": (time_ms(lambda: ops.paged_indexer_topk_mq(qi9, *args9, prev9, k, lengths=lq, max_candidates=cmax), flush),
@@ -650,6 +686,11 @@ def phase_kernels(cfg, flush):
     # B10 computes B3's function (attention over the K selected rows), so
     # its bound is B3's; reading whole touched pages is this design's cost
     results["B10"] = dict(err=e10, bound=bound_ms(b3_bytes, 4 * h * hd * rows3))
+    b10l_bytes = (inp_l["q"].numel() * 2 + rows10l * kvh * hd * 2 * 2
+                  + idx_l.numel() * 4 + inp_l["table"].numel() * 4 + b * 4
+                  + b * h * hd * 4)
+    results["B10 N=131072"] = dict(err=e10l, bound=bound_ms(
+        b10l_bytes, 4 * h * hd * rows10l))
     # B8: each distinct selected (slot, row) pair read once across its Q
     # query rows; the design reads every valid entry of every row
     rows8 = int(valid8.sum())
@@ -1420,6 +1461,11 @@ def main() -> int:
         if "half" in r:
             kernels[-1].update(scoring_ms=r["half"][0],
                                scoring_bound_ms=r["half"][1][0])
+    # B10 also on rows of 131,072 positions (B = 4, K = 2048)
+    long10 = kres["B10 N=131072"]
+    next(r for r in kernels if r["name"].startswith("B10 ")).update(long_row_ms=long10["ms"], long_row_plain_ms=long10["plain_ms"],
+                       long_row_bound_ms=long10["bound"][0],
+                       long_row_max_abs_err=long10["err"])
     # the redesign order: device time lost against the bound over each
     # kernel's path in this run; B2, B5 and B9 by their scoring launch
     # alone, so that B1 (their second launch) is counted once

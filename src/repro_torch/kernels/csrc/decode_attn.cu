@@ -27,9 +27,10 @@
 // warps serves one split of one (KV head, row) pair and its G = H/KVH query
 // heads (GQA: head h reads KV head h / G). A split is a fixed run of R
 // entries of the row — R Top-K entries for B3/B6/B8, R positions (whole
-// pages, R a multiple of ps) for B4 — so the split count ceil(count / R)
-// depends on the row's entry count alone, never on B, Q, the mode or the
-// SM count, and a row's output depends on its own rows only. Inside a
+// pages, R a multiple of ps) for B4 and B10 — so the split count
+// ceil(count / R) depends on the row's entry count (B4, B10: the table's
+// width) alone, never on B, Q, the lengths or the SM count, and a row's
+// output depends on its own rows only. Inside a
 // split the CTA translates its entries to rows of the flattened cache
 // (idx -> table -> row; masked: idx < 0, idx >= length, unmapped page, and
 // for B4 the window), then streams the rows in tiles of 32 through a
@@ -54,19 +55,32 @@
 // when created and zero again after every launch; two launches that may
 // overlap in time (two streams) must not share one.
 //
-// B10 keeps one CTA per (KV head, slot) — a single split — because its
-// entries are the rows of the touched pages in page order, known only
-// after the CTA has counted the slot's Top-K per position (a 16-bit count
-// per logical position and a flag per logical page in shared memory,
-// marked from idx, the flagged pages compacted in ascending order with
-// ballots). It walks those rows in chunks of 1024, keeps the selected ones
-// (count > 0; the unselected rows of a touched page are not read),
-// compacted in page order by a block scan, and runs them through the same
-// tile loop, weighting a row by its count. It sums in page order, so it
-// agrees with the Top-K-ordered plain version to rounding only; a
-// duplicate entry counts as often as the token-granular form counts it.
-// The sparse length mask is one the Pallas kernels lack (the served XLA
-// path has it).
+// B10 splits over logical positions: a split is a fixed run of R
+// positions made of whole pages (R a multiple of ps; ops.py takes the least
+// multiple of ps that is >= 256 and >= MP*ps/64, so at most 64 splits), and
+// the split count depends on the table width and the page size alone. A
+// split that begins at or past the row's extent has nothing to add and ends
+// at once; the live splits, ceil(extent / R) of them (at least one, which
+// writes 0 for an empty row), are a function of the row's own length, and
+// only they merge (an empty partial adds nothing to a merge, so the bits
+// are those of merging all splits). A live CTA loads the row's idx in one
+// unrolled batch a thread (coalesced; the other splits' CTAs find it in
+// L2), counts each valid entry that falls in its positions into a 16-bit
+// count per position (shared-memory atomics on integers, so the counts do
+// not depend on the order), compacts the positions with a non-zero count in
+// ascending order (a warp per quarter of the counts, ballots within it: one
+// sweep counts, one barrier shares the warp totals, one sweep writes) and
+// runs the rows through the same tile loop, with four tiles in flight (a
+// split of a row whose entries crowd into few positions walks hundreds of
+// rows), weighting a row by its count. What remains of its time on the
+// H100 (PERF.md): the merge of up to 64 partials in the last CTA's tail,
+// and on long rows the prologue, since every KV head's CTA of a split scans
+// the whole idx row. Its shared memory is O(R + min(K, R)), independent of
+// the table width. The partials merge as B3's do, in split order, so the
+// sum runs in page order: it agrees with the Top-K-ordered plain version to
+// rounding only; a duplicate entry counts as often as the token-granular
+// form counts it. The sparse length mask is one the Pallas kernels lack
+// (the served XLA path has it).
 //
 // Bound on an H100: the bytes of the rows it must read. B3/B6 at B=4,
 // K=2048, KVH=8, hd=64, bf16: 4*2048*8*64*2*2 = 16.8 MB, ~5 us at 3.35
@@ -76,7 +90,10 @@
 // is only 128 B, so the bound is reached only with many gathers in flight:
 // the split gives B3 16*8*4 = 512 CTAs at B=4, K=2048 (B4 2048 at N=8192)
 // where one CTA per (KV head, slot) gave 32, and each CTA keeps two tiles
-// (16 KB at hd=64 bf16) in flight.
+// (16 KB at hd=64 bf16) in flight. B10 is held to B3's bound (it computes
+// B3's function over the same rows); its design reads each distinct
+// selected row once, and each CTA also reads the row's K indices (8 KB at
+// K=2048) from L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,8 +106,8 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;          // rows per tile: one lane per row in the softmax step
 constexpr int kStages = 2;         // tiles in flight (double buffer)
-constexpr int kPgChunk = 1024;     // B10: page rows compacted at a time
-constexpr int kPgPer = kPgChunk / kThreads;
+constexpr int kPgStages = 4;       // B10: tiles in flight on its longer runs of rows
+constexpr int kPgScan = 16;        // B10: idx entries a thread loads before using them
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -152,6 +169,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    float* __restrict__ ws, unsigned* __restrict__ tickets,
                    float* __restrict__ out) {
   constexpr bool PG = MODE == kPagedPages;
+  constexpr int STG = PG ? kPgStages : kStages;
   constexpr int EPL = 16 / (int)sizeof(T);   // elements per 16-byte chunk
   constexpr int C16 = HD / EPL;              // chunks (lanes) per row vector
   constexpr int RPP = kThreads / C16;        // rows scored per pass
@@ -160,23 +178,22 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   static_assert(NRG >= 1 && kThreads % HD == 0, "PV shape");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int npg_s, last_s, warp_n[kWarps];
-  const int chunk = PG ? kPgChunk : rps;     // entries translated at a time
+  __shared__ int last_s, warp_n[kWarps];
+  // entries translated at a time; B10: its split's selected rows, at most
+  // one per entry and one per position
+  const int chunk = PG ? min(kcols, rps) : rps;
   const int n = mp * ps;
-  T* kbuf = reinterpret_cast<T*>(smem);                        // (kStages, kTile, HD)
-  T* vbuf = kbuf + kStages * kTile * HD;                       // (kStages, kTile, HD)
+  T* kbuf = reinterpret_cast<T*>(smem);                        // (STG, kTile, HD)
+  T* vbuf = kbuf + STG * kTile * HD;                           // (STG, kTile, HD)
   float* red = reinterpret_cast<float*>(smem);                 // (NRG, G, HD), after the loop
-  int* rows_s = reinterpret_cast<int*>(vbuf + kStages * kTile * HD);   // (chunk,)
+  int* rows_s = reinterpret_cast<int*>(vbuf + STG * kTile * HD);       // (chunk,)
   float* w_s = reinterpret_cast<float*>(rows_s + chunk);       // (chunk,) B10 only
   float* p_s = w_s + (PG ? chunk : 0);                         // (G, kTile) scores, then weights
   float* alpha_s = p_s + G * kTile;                            // (G,)
   float* m_s = alpha_s + G;                                    // (G,)
   float* l_s = m_s + G;                                        // (G,)
-  // B10 only: 16-bit selection count per logical position, page flags and
-  // the compacted page list
-  unsigned* cnt = reinterpret_cast<unsigned*>(l_s + G);        // ((n+1)/2,)
-  int* pflag = reinterpret_cast<int*>(cnt + (n + 1) / 2);      // (mp,)
-  int* plist = pflag + mp;                                     // (mp,)
+  // B10 only: a 16-bit selection count per position of the split
+  unsigned* cnt = reinterpret_cast<unsigned*>(l_s + G);        // ((rps+1)/2,)
 
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int t = threadIdx.x, lane = t & 31, w = t >> 5;
@@ -187,41 +204,88 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   // B8: query row b belongs to slot b / qrows (not B6)
   const int tb_row = MODE == kPagedSparseMq ? b / qrows : b;
   const int* tb = table ? table + (size_t)tb_row * mp : nullptr;
+  // B10: the splits that merge are those that begin inside the row's
+  // extent (at least one, which writes 0 for an empty row); a split past it
+  // has nothing to add and ends here. The other modes merge all splits.
+  int live_pg = 0;
+  if constexpr (PG) {
+    live_pg = max(1, min((int)gridDim.x, (ext + rps - 1) / rps));
+    if (split >= live_pg) return;
+  }
 
   if (t < G) { m_s[t] = -INFINITY; l_s[t] = 0.f; }
   // this CTA's entries [e0, e1): B4 positions clipped to the window and the
-  // extent, the sparse modes a run of rps Top-K entries, B10 every row of
-  // the touched pages
+  // extent, the sparse modes a run of rps Top-K entries, B10 the selected
+  // rows of its positions, compacted into rows_s / w_s before the loop
   int e0 = 0, e1 = 0;
   if constexpr (MODE == kPagedDense) {
     const int start = window > 0 && ext - window > 0 ? ext - window : 0;
     e0 = max(split * rps, start);
     e1 = min((split + 1) * rps, ext);
   } else if constexpr (PG) {
-    for (int i = t; i < (n + 1) / 2; i += kThreads) cnt[i] = 0u;
-    for (int i = t; i < mp; i += kThreads) pflag[i] = 0;
-    __syncthreads();
-    for (int i = t; i < kcols; i += kThreads) {
-      const int pos = ib[i];
-      if (pos < 0 || pos >= ext) continue;
-      const int phys = tb[pos / ps];
-      if (phys < 0 || phys >= num_pages) continue;
-      atomicAdd(&cnt[pos >> 1], 1u << ((pos & 1) * 16));
-      pflag[pos / ps] = 1;
-    }
-    __syncthreads();
-    if (w == 0) {
-      int total = 0;
-      for (int base = 0; base < mp; base += 32) {
-        const bool f = base + lane < mp && pflag[base + lane] != 0;
-        const unsigned bal = __ballot_sync(kFull, f);
-        if (f) plist[total + __popc(bal & ((1u << lane) - 1u))] = base + lane;
-        total += __popc(bal);
+    // positions [p0, p0 + span) of the extent (span <= 0: an empty row)
+    const int p0 = split * rps;
+    const int span = min(rps, ext - p0);
+    if (span > 0) {
+      const int nw = (span + 1) / 2;                   // two counts a word
+      for (int i = t; i < nw; i += kThreads) cnt[i] = 0u;
+      __syncthreads();
+      for (int base = t; base < kcols; base += kPgScan * kThreads) {
+        int pos[kPgScan];                              // loads in flight together
+#pragma unroll
+        for (int j = 0; j < kPgScan; ++j) {
+          const int i = base + j * kThreads;
+          pos[j] = i < kcols ? ib[i] : -1;
+        }
+#pragma unroll
+        for (int j = 0; j < kPgScan; ++j) {
+          const int l = pos[j] - p0;
+          if (l < 0 || l >= span) continue;            // -1 too: p0 >= 0
+          const int phys = tb[pos[j] / ps];
+          if (phys < 0 || phys >= num_pages) continue;
+          atomicAdd(&cnt[l >> 1], 1u << ((l & 1) * 16));
+        }
       }
-      if (lane == 0) npg_s = total;
+      __syncthreads();
+      // compaction in ascending position: warp w owns the words [w0, w1),
+      // lane j of a 32-word group positions 2j and 2j + 1; a first pass
+      // counts the warp's selected positions, a second writes them
+      const int per = (nw + kWarps * 32 - 1) / (kWarps * 32) * 32;
+      const int w0 = min(w * per, nw), w1 = min(w0 + per, nw);
+      const unsigned below = (1u << lane) - 1u;
+      int mine = 0;
+      for (int base = w0; base < w1; base += 32) {
+        const unsigned c = base + lane < w1 ? cnt[base + lane] : 0u;
+        mine += __popc(__ballot_sync(kFull, (c & 0xffffu) != 0u))
+                + __popc(__ballot_sync(kFull, (c >> 16) != 0u));
+      }
+      if (lane == 0) warp_n[w] = mine;
+      __syncthreads();
+      int k = 0;
+#pragma unroll
+      for (int ww = 0; ww < kWarps; ++ww) {
+        if (ww < w) k += warp_n[ww];
+        e1 += warp_n[ww];
+      }
+      for (int base = w0; base < w1; base += 32) {
+        const int i = base + lane;
+        const unsigned c = i < w1 ? cnt[i] : 0u;
+        const unsigned lo = c & 0xffffu, hi = c >> 16;
+        const unsigned blo = __ballot_sync(kFull, lo != 0u);
+        const unsigned bhi = __ballot_sync(kFull, hi != 0u);
+        int o = k + __popc(blo & below) + __popc(bhi & below);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const unsigned cc = half ? hi : lo;
+          if (cc == 0u) continue;
+          const int pos = p0 + 2 * i + half;
+          rows_s[o] = tb[pos / ps] * ps + pos % ps;   // mapped: it was counted
+          w_s[o] = (float)cc;
+          ++o;
+        }
+        k += __popc(blo) + __popc(bhi);
+      }
     }
-    __syncthreads();
-    e1 = npg_s * ps;
   } else {
     e0 = split * rps;
     e1 = min(e0 + rps, kcols);
@@ -243,47 +307,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   for (int g = 0; g < G; ++g) acc[g] = 0.f;
 
   for (int c0 = e0; c0 < e1; c0 += chunk) {
-    int cl = min(chunk, e1 - c0);
-    if constexpr (PG) {
-      // the chunk's selected rows (count > 0), compacted in page order:
-      // thread t takes page rows [t * kPgPer, (t + 1) * kPgPer) of the chunk
-      auto count_at = [&](int e) -> unsigned {
-        const int pos = plist[e / ps] * ps + e % ps;
-        return (cnt[pos >> 1] >> ((pos & 1) * 16)) & 0xffffu;
-      };
-      int nv = 0;
-#pragma unroll
-      for (int j = 0; j < kPgPer; ++j) {
-        const int i = t * kPgPer + j;
-        if (i < cl && count_at(c0 + i) != 0u) ++nv;
-      }
-      int incl = nv;                                   // inclusive warp scan
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += y;
-      }
-      if (lane == 31) warp_n[w] = incl;
-      __syncthreads();
-      int k = incl - nv, total = 0;
-#pragma unroll
-      for (int ww = 0; ww < kWarps; ++ww) {
-        if (ww < w) k += warp_n[ww];
-        total += warp_n[ww];
-      }
-#pragma unroll
-      for (int j = 0; j < kPgPer; ++j) {
-        const int i = t * kPgPer + j;
-        if (i >= cl) break;
-        const unsigned c = count_at(c0 + i);
-        if (c == 0u) continue;
-        const int e = c0 + i;
-        rows_s[k] = tb[plist[e / ps]] * ps + e % ps;   // mapped by construction
-        w_s[k] = (float)c;
-        ++k;
-      }
-      cl = total;
-    } else {
+    const int cl = min(chunk, e1 - c0);
+    if constexpr (!PG) {
       for (int i = t; i < cl; i += kThreads) {
         const int e = c0 + i;
         int row = -1;
@@ -308,8 +333,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
     const int ntile = (cl + kTile - 1) / kTile;
     auto issue = [&](int tile) {
-      T* kb = kbuf + (tile % kStages) * kTile * HD;
-      T* vb = vbuf + (tile % kStages) * kTile * HD;
+      T* kb = kbuf + (tile % STG) * kTile * HD;
+      T* vb = vbuf + (tile % STG) * kTile * HD;
       for (int i = t; i < 2 * kTile * C16; i += kThreads) {
         const int which = i / (kTile * C16);           // 0: K, 1: V
         const int rem = i - which * kTile * C16;
@@ -323,14 +348,17 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     };
     issue(0);
     cp_async_commit();
-    if (ntile > 1) issue(1);
-    cp_async_commit();
+#pragma unroll
+    for (int st = 1; st < STG; ++st) {
+      if (st < ntile) issue(st);
+      cp_async_commit();
+    }
 
     for (int tl = 0; tl < ntile; ++tl) {
-      cp_async_wait<kStages - 1>();                    // tile tl has landed
+      cp_async_wait<STG - 1>();                        // tile tl has landed
       __syncthreads();
-      const T* kb = kbuf + (tl % kStages) * kTile * HD;
-      const T* vb = vbuf + (tl % kStages) * kTile * HD;
+      const T* kb = kbuf + (tl % STG) * kTile * HD;
+      const T* vb = vbuf + (tl % STG) * kTile * HD;
       // scores of the tile's rows for all G heads
 #pragma unroll
       for (int r0 = 0; r0 < kTile; r0 += RPP) {
@@ -396,8 +424,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 #pragma unroll
         for (int g = 0; g < G; ++g) acc[g] = fmaf(p_s[g * kTile + r], v, acc[g]);
       }
-      __syncthreads();                                   // buffer tl % kStages is free
-      if (tl + kStages < ntile) issue(tl + kStages);
+      __syncthreads();                                   // buffer tl % STG is free
+      if (tl + STG < ntile) issue(tl + STG);
       cp_async_commit();
     }
   }
@@ -420,7 +448,8 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 
   float* ob = out + ((size_t)b * h + kh * G) * HD;
-  if (gridDim.x == 1) {
+  const int ns = PG ? live_pg : (int)gridDim.x;         // partials to merge
+  if (ns == 1) {
     if (t < HD) {
 #pragma unroll
       for (int g = 0; g < G; ++g)
@@ -429,8 +458,9 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     return;
   }
 
-  // the combine: write this split's partial, draw a ticket; the last CTA
-  // of the (row, KV head) pair merges all partials in split order
+  // the combine: write this split's partial, draw a ticket; the last of the
+  // live CTAs of the (row, KV head) pair merges their partials in split
+  // order
   constexpr int kPart = G * (HD + 2);                  // m[G], l[G], acc[G][HD]
   const size_t pair = (size_t)b * kvh + kh;
   float* part = ws + (pair * gridDim.x + split) * kPart;
@@ -443,7 +473,7 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   __syncthreads();
   if (t == 0) {
     const unsigned tk = atomicAdd(&tickets[pair], 1u);
-    const bool last = tk == gridDim.x - 1;
+    const bool last = tk == (unsigned)ns - 1u;
     if (last) tickets[pair] = 0u;
     last_s = last;
   }
@@ -451,7 +481,6 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   if (!last_s) return;
   __threadfence();
   const float* pb = ws + pair * gridDim.x * kPart;
-  const int ns = gridDim.x;
   for (int e = t; e < G * HD; e += kThreads) {
     const int g = e / HD, dd = e - g * HD;
     float mm = -INFINITY;
@@ -475,11 +504,11 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
 template <typename T, int G, int HD, int MODE>
 size_t smem_bytes(const Args& a) {
-  const int chunk = MODE == kPagedPages ? kPgChunk : a.rps;
-  size_t s = (size_t)2 * kStages * kTile * HD * sizeof(T) + (size_t)chunk * 4
+  const int chunk = MODE == kPagedPages ? (a.kcols < a.rps ? a.kcols : a.rps) : a.rps;
+  const int stg = MODE == kPagedPages ? kPgStages : kStages;
+  size_t s = (size_t)2 * stg * kTile * HD * sizeof(T) + (size_t)chunk * 4
              + (size_t)G * kTile * 4 + (size_t)3 * G * 4;
-  if (MODE == kPagedPages)
-    s += (size_t)chunk * 4 + ((size_t)a.mp * a.ps + 1) / 2 * 4 + (size_t)2 * a.mp * 4;
+  if (MODE == kPagedPages) s += (size_t)chunk * 4 + ((size_t)a.rps + 1) / 2 * 4;
   return s;
 }
 
@@ -488,8 +517,8 @@ int launch(const Args& a) {
   auto kern = decode_attn_kernel<T, G, HD, MODE>;
   const size_t smem = smem_bytes<T, G, HD, MODE>(a);
   // the dynamic shared-memory limit is raised once per instance and device
-  // (B10's size follows the table width, so it is raised again only when a
-  // launch needs more than any before it)
+  // (B10's size follows its split length and K, so it is raised again only
+  // when a launch needs more than any before it)
   static size_t raised[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -497,7 +526,10 @@ int launch(const Args& a) {
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (smem > 48 * 1024 && smem > raised[dev]) {
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) {
+      cudaGetLastError();          // a refused size must not fail the next launch
+      return (int)err;
+    }
     raised[dev] = smem;
   }
   dim3 grid(a.splits, a.kvh, a.rows);
@@ -552,11 +584,13 @@ int by_group(int g, int hd, int mode, const Args& a) {
 //   1 dense over [0, length) through the table, optional window (> 0);
 //   2 sparse over idx into contiguous caches (rows, mp, kvh, hd), ps = 1,
 //     table unused;
-//   3 as 0 at page granularity (kcols < 65536, splits = 1);
+//   3 as 0 at page granularity (kcols < 65536; rps positions a split, a
+//     multiple of ps);
 //   4 (B8) as 0 with row r on table row r / qrows of a (rows / qrows, mp)
 //     table.
-// A split covers rps entries (mode 1: rps positions, a multiple of ps); the
-// grid is (splits, kvh, rows), splits * rps >= kcols (mode 1: >= mp * ps).
+// A split covers rps entries (modes 1 and 3: rps positions, a multiple of
+// ps); the grid is (splits, kvh, rows), splits * rps >= kcols (modes 1 and
+// 3: >= mp * ps).
 // With splits > 1, ws holds rows * kvh * splits * g * (hd + 2) floats and
 // tickets rows * kvh zeroed int32 counters, left zero by the launch; a
 // launch that may overlap this one in time needs tickets of its own. The
@@ -577,14 +611,13 @@ extern "C" int decode_attn_launch(int dtype, int mode, int g, int hd,
   // rows of the flattened cache are int32
   const long long cache_rows = (long long)num_pages * (mode == kContigSparse ? mp : ps);
   if (cache_rows >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  if (mode == kPagedPages) {
-    // one split; 16-bit selection counts
-    if (splits != 1 || kcols >= 65536) return (int)cudaErrorInvalidValue;
-  } else {
-    const long long count = mode == kPagedDense ? (long long)mp * ps : kcols;
-    if (rps < 1 || (long long)splits * rps < count) return (int)cudaErrorInvalidValue;
-    if (mode == kPagedDense && rps % ps != 0) return (int)cudaErrorInvalidValue;
-  }
+  // modes 1 and 3 split whole pages of positions, the others Top-K entries
+  const bool by_pos = mode == kPagedDense || mode == kPagedPages;
+  const long long count = by_pos ? (long long)mp * ps : kcols;
+  if (rps < 1 || (long long)splits * rps < count) return (int)cudaErrorInvalidValue;
+  if (by_pos && rps % ps != 0) return (int)cudaErrorInvalidValue;
+  if (mode == kPagedPages && kcols >= 65536)          // 16-bit selection counts
+    return (int)cudaErrorInvalidValue;
   if (splits > 1 && (ws == nullptr || tickets == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a{q, kp, vp, table, idx, lengths, rows, qrows, kvh, ps, mp, num_pages,

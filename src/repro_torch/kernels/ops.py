@@ -496,6 +496,12 @@ _MODE = {"paged_sparse": 0, "paged_dense": 1, "contig_sparse": 2,
 # the kernel cuts each row's entries into runs of this length and merges
 # the partials; `ref.py`'s split form takes the same R
 ROWS_PER_SPLIT = 128
+# B10's split (`pg_rows_per_split`): at least PG_MIN_ROWS positions, at most
+# PG_MAX_SPLITS splits per (row, KV head); on the H100 the fastest at N =
+# 8192 and within 3.4% of the fastest at N = 131072 and on short rows
+# (`tools/sweep_pg_split.py`, PERF.md)
+PG_MIN_ROWS = 256
+PG_MAX_SPLITS = 64
 # combine tickets per (device, stream): int32 counters, one per (query row,
 # KV head) pair, zero when created and left zero by every launch; launches
 # on two streams may overlap in time, so they never share an array
@@ -507,15 +513,24 @@ def dense_rows_per_split(page_size: int) -> int:
     return -(-ROWS_PER_SPLIT // page_size) * page_size
 
 
+def pg_rows_per_split(n: int, page_size: int) -> int:
+    """B10's split: the least multiple of the page size that is at least
+    PG_MIN_ROWS positions and at least n / PG_MAX_SPLITS, so a row of n
+    positions has at most PG_MAX_SPLITS splits and each CTA's scan of the
+    row's K entries does not grow in number with n."""
+    r = max(PG_MIN_ROWS, -(-n // PG_MAX_SPLITS))
+    return -(-r // page_size) * page_size
+
+
 def decode_attn_splits(mode: str, kcols: int, n: int, ps: int):
     """(entries per split R, splits) of the shared decode-attention body
-    for a row of `kcols` Top-K entries (B4: `n` = MP*ps positions). The
-    split count is a function of the row's entry count alone; B10 keeps
-    one split per (KV head, slot)."""
-    if mode == "paged_pages":
-        return 0, 1
-    if mode == "paged_dense":
-        rps = dense_rows_per_split(ps)
+    for a row of `kcols` Top-K entries (B4 and B10: R positions, whole
+    pages, of the `n` = MP*ps of the table). The split count is a function
+    of the row's entry count alone (B4 and B10: of n and ps alone), never
+    of B, the lengths or the entries."""
+    if mode in ("paged_dense", "paged_pages"):
+        rps = (pg_rows_per_split(n, ps) if mode == "paged_pages"
+               else dense_rows_per_split(ps))
         return rps, max(1, -(-n // rps))
     return ROWS_PER_SPLIT, max(1, -(-kcols // ROWS_PER_SPLIT))
 
@@ -680,11 +695,15 @@ def paged_sparse_decode_attn_pg(q: torch.Tensor, k_pages: torch.Tensor,
                                 v_pages: torch.Tensor, table: torch.Tensor,
                                 idx: torch.Tensor, lengths: torch.Tensor, *,
                                 scale: Optional[float] = None) -> torch.Tensor:
-    """B10 — `paged_sparse_decode_attn` at page granularity: each distinct
-    touched page is read whole and its unselected rows masked. Same
-    arguments and masking; the kernel sums in page order, so it agrees with
-    the token-granular form to rounding (the plain version, used on the
-    CPU, restores Top-K order and agrees bit for bit)."""
+    """B10 — `paged_sparse_decode_attn` at page granularity: the selected
+    rows are taken page by page, in ascending position, each weighted by
+    how often it was selected. Same arguments and masking; on the card the
+    row is split into runs of whole pages (`pg_rows_per_split`) merged in
+    split order, so the sum runs in page order and agrees with the
+    token-granular form to rounding (the plain version, used on the CPU,
+    restores Top-K order and agrees bit for bit). K must be below 65536
+    (the kernel's 16-bit selection counts): a launch beyond the kernel's
+    limits raises."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if _on_cpu(q, k_pages, v_pages, table, idx, lengths):
         return ref.paged_sparse_attn_pg_ref(q, k_pages, v_pages, table, idx,

@@ -23,7 +23,10 @@ split over rows of B3/B4 (and B6/B8, which take B3's schedule) is held at
 its boundaries: K not a multiple of the split length R, K < R, a split
 with every entry masked, a slot with one valid entry, length < K with NEG
 ties, a B4 window that begins inside a split; two calls and one slot
-computed alone must equal the batched call bit for bit. The scoring body
+computed alone must equal the batched call bit for bit. B10's split over
+positions is held the same way, with a slot whose splits lie wholly past
+its length, an all-masked slot (0), the mq page form's folded rows, and
+rows of 131,072 positions. The scoring body
 of B2/B5/B9 is held at its edges in both dtypes (bf16 on the tensor
 cores, float32 on the CUDA cores): padded heads, head dims, page sizes,
 ragged lengths, unmapped pages inside a row, w (H,) and (B, H), rows long
@@ -147,7 +150,8 @@ def test_b5_indexer_scores_on_card_equal_b2(dev, dtype, ps, hi, di):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,kvh,h,hd,ps", [
     (torch.bfloat16, 8, 32, 64, 64), (torch.float32, 2, 4, 32, 8),
-    (torch.bfloat16, 1, 8, 128, 16)])
+    (torch.bfloat16, 1, 8, 128, 16),
+    (torch.bfloat16, 2, 16, 32, 128)])     # B10: 20 splits of 256 positions
 def test_b6_b10_sparse_attention_on_card(dev, dtype, kvh, h, hd, ps):
     g = torch.Generator(device=dev).manual_seed(hd + ps)
     b, mp, k = 3, 40, 300
@@ -167,10 +171,12 @@ def test_b6_b10_sparse_attention_on_card(dev, dtype, kvh, h, hd, ps):
     assert torch.equal(o6, ops.paged_sparse_decode_attn(q, kp, vp, table, idx, lengths))
     torch.testing.assert_close(o6, ref.sparse_attn_ref(q, kc, vc, idx, lengths),
                                rtol=1e-4, atol=1e-4)
+    o10 = ops.paged_sparse_decode_attn_pg(q, kp, vp, table, idx, lengths)
     torch.testing.assert_close(
-        ops.paged_sparse_decode_attn_pg(q, kp, vp, table, idx, lengths),
-        ref.paged_sparse_attn_pg_ref(q, kp, vp, table, idx, lengths),
+        o10, ref.paged_sparse_attn_pg_ref(q, kp, vp, table, idx, lengths),
         rtol=1e-4, atol=1e-4)
+    assert torch.equal(o10, ops.paged_sparse_decode_attn_pg(
+        q, kp, vp, table, idx, lengths))
 
 
 @pytest.mark.cuda
@@ -392,6 +398,104 @@ def test_b4_split_over_pages_on_card(dev, dtype, kvh, h, hd, ps, window):
         alone = ops.paged_dense_decode_attn(q[s:s + 1], kp, vp, table[s:s + 1],
                                             lengths[s:s + 1], window=window)
         assert torch.equal(alone, o4[s:s + 1])
+
+
+def _pg_case(case, g, dev, b, n, k):
+    """(lengths, idx) of one edge case of B10's split over positions."""
+    lengths = torch.tensor([n, n - 5, 700, n // 2], dtype=torch.int32, device=dev)
+    idx = torch.randint(-1, n, (b, k), generator=g, device=dev).int()
+    idx[0, :9] = idx[0, 9]                        # duplicates
+    if case == "past_length":                     # splits wholly past 700
+        idx[2] = torch.randint(0, 1024, (k,), generator=g, device=dev).int()
+    elif case == "all_masked":                    # -1, past the length, past n
+        idx[1] = -1
+        idx[3] = torch.randint(n // 2, n + 40, (k,), generator=g, device=dev).int()
+    elif case == "one_split":                     # every entry in one split
+        idx[0] = torch.randint(256, 512, (k,), generator=g, device=dev).int()
+    return lengths, idx.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["spread", "past_length", "all_masked",
+                                  "one_split"])
+@pytest.mark.parametrize("dtype,kvh,h,hd,ps", _SPLIT_WIDTHS)
+def test_b10_split_over_positions_on_card(dev, dtype, kvh, h, hd, ps, case):
+    """B10 on 16 splits of 256 positions (n = 4096): allclose to its plain
+    version; two calls, each slot alone and the folded B*Q rows of the mq
+    page form against single-row launches bit-identical; a slot of length
+    700 whose splits 3-15 lie wholly past it; an all-masked slot gives 0."""
+    from repro_torch.sparse import dsa
+    g = torch.Generator(device=dev).manual_seed(hd + h + ps + len(case) + 10)
+    b, n, k = 4, 4096, 600
+    assert ops.decode_attn_splits("paged_pages", k, n, ps)[1] == 16
+    t2, kp, vp, q = _split_pools(g, dev, dtype, b, n, ps, kvh, h, hd)
+    table = t2.repeat_interleave(2, 0).contiguous()
+    lengths, idx = _pg_case(case, g, dev, b, n, k)
+    args = (q, kp, vp, table, idx, lengths)
+    o10 = ops.paged_sparse_decode_attn_pg(*args)
+    torch.testing.assert_close(o10, ref.paged_sparse_attn_pg_ref(*args),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(o10, ops.paged_sparse_decode_attn_pg(*args))
+    for s in range(b):
+        alone = ops.paged_sparse_decode_attn_pg(
+            q[s:s + 1], kp, vp, table[s:s + 1], idx[s:s + 1], lengths[s:s + 1])
+        assert torch.equal(alone, o10[s:s + 1])
+    folded = dsa.dsa_sparse_attention_paged_mq(
+        q.reshape(b // 2, 2, h, hd), kp, vp, t2, idx.reshape(b // 2, 2, -1),
+        lengths.reshape(b // 2, 2), scale=hd ** -0.5, granularity="page")
+    assert torch.equal(folded.reshape(b, h, hd), o10)
+    if case == "all_masked":
+        assert not o10[1].any() and not o10[3].any()
+
+
+@pytest.mark.cuda
+def test_b10_long_rows_on_card(dev):
+    """B10 at B = 4 over a table of 2048 pages of 64 (131,072 positions,
+    past the 97,536 that a one-split kernel with a count per position of
+    the table could hold in shared memory), llama3.2-1b head shapes, bf16:
+    allclose to its plain version, two calls and each slot alone
+    bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(131072)
+    b, n, ps, kvh, h, hd, k = 4, 131072, 64, 8, 32, 64, 2048
+    mp = n // ps
+    table = torch.randperm(b * mp, generator=g, device=dev).int().reshape(b, mp)
+    table[3, mp // 2:] = -1                       # unmapped past slot 3's extent
+    lengths = torch.tensor([n, n - 100, 97536 + 777, n // 2], dtype=torch.int32,
+                           device=dev)
+    kp = torch.randn((b * mp, ps, kvh, hd), generator=g, device=dev).bfloat16()
+    vp = torch.randn((b * mp, ps, kvh, hd), generator=g, device=dev).bfloat16()
+    q = torch.randn((b, h, hd), generator=g, device=dev).bfloat16()
+    idx = torch.stack([torch.randperm(int(L), generator=g, device=dev)[:k]
+                       for L in lengths]).int()
+    idx[1, :16] = -1
+    idx[2, :64] = torch.arange(97536, 97600, device=dev)   # past 97,536
+    idx[0, 100:120] = idx[0, 99]                            # duplicates
+    idx = idx.contiguous()
+    args = (q, kp, vp, table, idx, lengths)
+    o10 = ops.paged_sparse_decode_attn_pg(*args)
+    torch.testing.assert_close(o10, ref.paged_sparse_attn_pg_ref(*args),
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(o10, ops.paged_sparse_decode_attn_pg(*args))
+    for s in range(b):
+        alone = ops.paged_sparse_decode_attn_pg(
+            q[s:s + 1], kp, vp, table[s:s + 1], idx[s:s + 1], lengths[s:s + 1])
+        assert torch.equal(alone, o10[s:s + 1])
+
+
+@pytest.mark.cuda
+def test_b10_launch_beyond_its_counts_raises(dev):
+    """K >= 65536 overflows the kernel's 16-bit selection counts: the launch
+    is refused and the wrapper raises, with no fallback."""
+    b, mp, ps, kvh, h, hd = 1, 2, 64, 1, 2, 32
+    kp = torch.randn((mp, ps, kvh, hd), device=dev)
+    table = torch.arange(mp, device=dev).int()[None]
+    idx = torch.zeros((b, 65536), dtype=torch.int32, device=dev)
+    lengths = torch.full((b,), mp * ps, dtype=torch.int32, device=dev)
+    before = ops.launch_counts()["paged_sparse_decode_attn_pg"]
+    with pytest.raises(RuntimeError):
+        ops.paged_sparse_decode_attn_pg(torch.randn((b, h, hd), device=dev),
+                                        kp, kp, table, idx, lengths)
+    assert ops.launch_counts()["paged_sparse_decode_attn_pg"] == before
 
 
 @pytest.mark.cuda

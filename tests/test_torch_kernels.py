@@ -295,7 +295,8 @@ def test_b4_split_form_matches_unsplit_and_pallas(kvh, h, hd, window):
 
 def test_split_counts_depend_on_the_entry_count_alone():
     """The kernel's grid: splits = ceil(count / R), whatever B, Q or the
-    mode; B4 splits whole pages."""
+    mode; B4 and B10 split whole pages (B10: 32 splits of 256 positions at
+    N = 8192)."""
     r = ops.ROWS_PER_SPLIT
     for mode in ("paged_sparse", "contig_sparse", "paged_sparse_mq"):
         assert ops.decode_attn_splits(mode, 2048, 8192, 64) == (r, 16)
@@ -304,7 +305,51 @@ def test_split_counts_depend_on_the_entry_count_alone():
     assert ops.decode_attn_splits("paged_dense", 0, 8192, 64) == (128, 64)
     assert ops.decode_attn_splits("paged_dense", 0, 100, 3) == (129, 1)
     assert ops.decode_attn_splits("paged_dense", 0, 1024, 256) == (256, 4)
-    assert ops.decode_attn_splits("paged_pages", 2048, 8192, 64) == (0, 1)
+    assert ops.decode_attn_splits("paged_pages", 2048, 8192, 64) == (256, 32)
+
+
+# (n, ps): the kernel phase, the long row, the widths past the one-split
+# kernel's shared memory (97,536 positions at ps 64), short and ragged
+# tables, odd and large pages
+_PG_TABLES = [(8192, 64), (131072, 64), (102400, 64), (97536 + 64, 64),
+              (1024, 64), (320, 64), (4096, 16), (100, 3), (8256, 64),
+              (3 * 7 * 1000, 7), (65536, 256), (1 << 20, 64)]
+
+
+@pytest.mark.parametrize("n,ps", _PG_TABLES)
+def test_b10_splits_are_whole_pages(n, ps):
+    r, _ = ops.decode_attn_splits("paged_pages", 2048, n, ps)
+    assert r % ps == 0 and r >= ops.PG_MIN_ROWS
+
+
+@pytest.mark.parametrize("n,ps", _PG_TABLES)
+def test_b10_splits_cover_the_table(n, ps):
+    """Every position lies in a split and no split lies wholly past the
+    table."""
+    r, s = ops.decode_attn_splits("paged_pages", 2048, n, ps)
+    assert s * r >= n > (s - 1) * r
+
+
+@pytest.mark.parametrize("n,ps", _PG_TABLES)
+def test_b10_split_count_depends_on_the_table_alone(n, ps):
+    """The same schedule whatever K: a row's output depends on its own
+    inputs only, and rows of different K share it."""
+    got = {ops.decode_attn_splits("paged_pages", kc, n, ps)
+           for kc in (0, 1, 64, 2048, 65535)}
+    assert got == {ops.decode_attn_splits("paged_pages", 2048, n, ps)}
+
+
+@pytest.mark.parametrize("n,ps", _PG_TABLES)
+def test_b10_split_count_is_capped(n, ps):
+    """At most PG_MAX_SPLITS splits, exactly that many where
+    n / PG_MAX_SPLITS is a whole number of pages of at least PG_MIN_ROWS
+    positions, one where the table holds no more than PG_MIN_ROWS."""
+    r, s = ops.decode_attn_splits("paged_pages", 2048, n, ps)
+    assert 1 <= s <= ops.PG_MAX_SPLITS
+    if n % (ops.PG_MAX_SPLITS * ps) == 0 and n // ops.PG_MAX_SPLITS >= ops.PG_MIN_ROWS:
+        assert (r, s) == (n // ops.PG_MAX_SPLITS, ops.PG_MAX_SPLITS)
+    if n <= ops.PG_MIN_ROWS:
+        assert s == 1
 
 
 def test_wrappers_reject_mixed_devices():

@@ -185,6 +185,32 @@ def test_b10_page_granular_attn_matches_pallas(kvh, h):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+def test_b10_plain_matches_pallas_on_a_table_past_97536_positions():
+    """1600 pages of 64 positions (102,400, past the 97,536 whose
+    per-position counts once filled a CTA's shared memory on the card):
+    both packages serve the width, entries spread over the whole table,
+    some past 97,536, on aliased and unmapped pages."""
+    rng = np.random.default_rng(97536)     # leaves the module's RNG alone
+    b, kvh, h, d, ps, k, mp, p = 1, 1, 4, 32, 64, 64, 1600, 96
+    n = mp * ps
+    kp = rng.normal(size=(p, ps, kvh, d)).astype(np.float32)
+    vp = rng.normal(size=(p, ps, kvh, d)).astype(np.float32)
+    table = rng.integers(0, p, (b, mp)).astype(np.int32)
+    table[0, ::97] = -1
+    idx = np.concatenate([rng.choice(97536, k - 8, replace=False),
+                          97536 + rng.choice(n - 97536, 8, replace=False)])
+    idx = rng.permutation(idx)[None].astype(np.int32)
+    if not (idx // ps == 970).any():
+        idx[0, 0] = 970 * ps + 5            # on an unmapped page
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    want = jops.paged_sparse_decode_attn_pg(jnp.asarray(q), jnp.asarray(kp),
+                                            jnp.asarray(vp), jnp.asarray(table),
+                                            jnp.asarray(idx))
+    got = ops.paged_sparse_decode_attn_pg(_t(q), _t(kp), _t(vp), _t(table),
+                                          _t(idx), _t(np.full((b,), n, np.int32)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
 def test_b10_plain_equals_token_granular_bit_for_bit():
     """Duplicates, -1 entries, entries past the length and on unmapped
     pages: the page-granular plain version restores Top-K order and so

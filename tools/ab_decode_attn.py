@@ -2,9 +2,10 @@
 """Time kernels B3 (paged sparse decode attention), B4 (paged dense
 decode attention), B1 (GVR Top-K), the scoring launches of B2 (paged
 indexer scoring) and B5 (contiguous indexer scoring), B1 in the regimes of
-`tools/gvr_regimes.py` and B9's chain, and one B=4 DSA decode step, of two
-checkouts of the PyTorch port on one card, and compare the two checkouts'
-B1 and chain outputs bit for bit.
+`tools/gvr_regimes.py` and B9's chain, B6, B8 and B10 (page-granular
+sparse attention) in the shapes of `tools/sweep_pg_split.py`, and one B=4
+DSA decode step, of two checkouts of the PyTorch port on one card, and
+compare the two checkouts' outputs.
 
     python3 tools/ab_decode_attn.py CHECKOUT_A CHECKOUT_B
 
@@ -14,11 +15,16 @@ name `repro_torch`), and prints one line per run:
     AB <checkout>: B3 <ms> ms (wall <ms>), B4 ..., B1 ..., B2s ..., B5s ...,
         step <ms> ms (wall <ms>)
     AB <checkout> gvr: B1[kernel-mix] <ms> ms (wall <ms>), ..., chain ...
+    AB <checkout> attn: B6 ..., B8 ..., B10[kernel] ..., B10[long] ...,
+        B10[short] ...
 
-then, from the first A and the first B run, one `AB bits` line per regime
-and for the chain: whether values, indices and each of the 8 stats
-columns agree bit for bit (where column 1, the refine's pass count,
-differs, both are printed), and an `AB bits verdict` line.
+(a B10 launch the checkout refuses is printed as its error), then, from
+the first A and the first B run, one `AB bits` line per regime and for
+the chain: whether values, indices and each of the 8 stats columns agree
+bit for bit (where column 1, the refine's pass count, differs, both are
+printed); one `AB bits attn` line: whether B3, B4, B6 and B8 wrote the
+same outputs bit for bit, and B10's largest difference in each shape;
+and an `AB bits verdict` line.
 
 Each kernel is built from the checkout's own sources into its
 `build/kernels/`. Shapes are those of `chip_smoke.py`'s kernel phase:
@@ -33,7 +39,10 @@ B3; B5s the same keys copied into a contiguous (B, N, 128) cache. A time
 is the median over 50 calls of the call's device time alone
 (torch.profiler, `chip_smoke.time_ms` of this script's own checkout, so
 both checkouts are timed by one method), with the L2 flushed before each
-call; "wall" is the median CUDA-event window around each call. The step
+call; "wall" is the median CUDA-event window around each call. B6
+attends over B3's rows copied into contiguous caches; B8 over Q=3 query
+rows per slot (each slot's table shared, lengths L+1..L+3 capped at N,
+each row its own K random rows). The step
 is `serve_step_paged` of llama3.2-1b at full width (random weights, seed
 0) from `chip_smoke.py`'s [step] state (lengths 5000, 2300, 700, 8000,
 max_len 8192): its device time is the sum of a step's device events
@@ -134,14 +143,69 @@ def child(root: Path, out: Path) -> None:
                 iters=50)
     cells.append(f"chain {t['ms']:.5f} ms (wall {t['wall_ms']:.5f})")
     print(f"AB {root} gvr: " + ", ".join(cells), flush=True)
+    outs["attn"] = attn_cells(ops, time_ms, flush, dev, g, q, k_pages, v_pages,
+                              table, idx, sparse_len, full_len, root)
     torch.save(outs, out)
+
+
+def attn_cells(ops, time_ms, flush, dev, g, q, k_pages, v_pages, table, idx,
+               sparse_len, full_len, root):
+    """Time B6, B8 and B10 (three shapes), print the `AB ... attn` line and
+    return the outputs of B3, B4, B6, B8 and B10 on the CPU."""
+    import torch
+    from sweep_pg_split import PG_SHAPES, pg_inputs
+    kc = k_pages[table.long()].reshape(B, N, KVH, HD).contiguous()
+    vc = v_pages[table.long()].reshape(B, N, KVH, HD).contiguous()
+    q8 = torch.randn((B, 3, H, HD), generator=g, device=dev).bfloat16()
+    l8 = torch.clamp(sparse_len[:, None] + torch.arange(1, 4, device=dev),
+                     max=N).int().contiguous()
+    idx8 = torch.stack([torch.stack([torch.randperm(N, generator=g, device=dev)[:K]
+                                     for _ in range(3)]) for _ in range(B)]).int()
+    calls = {
+        "B3": lambda: ops.paged_sparse_decode_attn(q, k_pages, v_pages, table,
+                                                   idx, sparse_len),
+        "B4": lambda: ops.paged_dense_decode_attn(q, k_pages, v_pages, table,
+                                                  full_len),
+        "B6": lambda: ops.sparse_decode_attn(q, kc, vc, idx, sparse_len),
+        "B8": lambda: ops.paged_sparse_decode_attn_mq(q8, k_pages, v_pages, table,
+                                                      idx8.contiguous(), l8),
+    }
+    for shape in PG_SHAPES:
+        a = pg_inputs(shape, dev)
+        calls[f"B10[{shape}]"] = lambda a=a: ops.paged_sparse_decode_attn_pg(*a)
+    outs, cells = {}, []
+    for name, fn in calls.items():
+        try:
+            outs[name] = fn().cpu()
+        except RuntimeError as e:          # the parent's B10 past ~97.5K positions
+            outs[name] = None
+            cells.append(f"{name} launch error ({e})")
+            continue
+        if name in ("B6", "B8") or name.startswith("B10"):
+            t = time_ms(fn, flush, iters=50)
+            cells.append(f"{name} {t['ms']:.5f} ms (wall {t['wall_ms']:.5f})")
+    print(f"AB {root} attn: " + ", ".join(cells), flush=True)
+    return outs
 
 
 def compare_bits(a: Path, b: Path) -> bool:
     """Print whether two runs' B1 and chain outputs agree bit for bit."""
     import torch
     oa, ob = torch.load(a), torch.load(b)
+    attn_a, attn_b = oa.pop("attn"), ob.pop("attn")
+    cells = []
     ok = True
+    for key, xa in attn_a.items():
+        xb = attn_b[key]
+        if key.startswith("B10"):
+            cells.append(f"{key} max|diff| " + (
+                "n/a (a launch error)" if xa is None or xb is None
+                else f"{float((xa - xb).abs().max()):.3e}"))
+        else:
+            same = torch.equal(xa, xb)
+            ok &= same
+            cells.append(f"{key} equal {same}")
+    print("AB bits attn: " + ", ".join(cells), flush=True)
     for key in oa:
         (va, ia, sa), (vb, ib, sb) = oa[key], ob[key]
         cols = [bool(torch.equal(sa[..., c], sb[..., c])) for c in range(8)]
@@ -174,7 +238,7 @@ def main(argv) -> int:
         if out.returncode != 0:
             print(out.stdout + out.stderr, file=sys.stderr)
             return out.returncode
-        print("\n".join(out.stdout.strip().splitlines()[-2:]), flush=True)
+        print(out.stdout.strip(), flush=True)
         saved.append(dest)
     return 0 if compare_bits(saved[0], saved[1]) else 1
 
