@@ -24,6 +24,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     the library call on the device alone (torch.profiler,
                     L2 flushed before each call), with the CUDA-event
                     window around each call beside it (wall_ms);
+                    B3, B4 and B6 also at moonshot-v1-16b-a3b's widths
+                    (G = 1, hd 128, KVH 16);
   3. main         — serve requests through `DecodeEngine` (paged, fused,
                     greedy) at the full width of llama3.2-1b, max_len=8192,
                     4 slots; every path below zeroes the launch counts just
@@ -51,7 +53,17 @@ Phases (any failure exits non-zero; no exception is swallowed):
  10. dense        — engines at max_len=4096 <= dsa.min_n, the pre-DSA
                     fallback: paged (kernel B4) and the dense layout (plain
                     PyTorch attention);
- 11. summary      — each kernel's device time lost against its bound
+ 11. moe          — moonshot-v1-16b-a3b (the MoE family: 64 experts top-6
+                    through the one-device dense fallback) at full width
+                    and depth, bf16, after llama's model is freed: four
+                    greedy requests through the paged fused engine
+                    (B2/B1/B3), then the dense layout (B5/B1/B6), one after
+                    the other; the same tokens bit for bit;
+ 12. moe-step     — one B=4 DSA step of that model under torch.profiler,
+                    the fallback's share of its device time, then a 2-layer
+                    cut of the same weights (full width) on the card
+                    against the plain path on the CPU;
+ 13. summary      — each kernel's device time lost against its bound
                     over its path (launches x (ms - bound_ms); B2, B5 and
                     B9 by their scoring launch, so B1 counts once), the
                     `kernels` JSON line, the card's name and power limit,
@@ -64,6 +76,8 @@ non-zero before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -753,6 +767,107 @@ def phase_kernels(cfg, flush):
     return results
 
 
+def phase_kernels_moe_width(mcfg, flush):
+    """B3, B4 and B6 at moonshot-v1-16b-a3b's widths (G = 1, hd 128, KVH
+    16, bf16) at the kernel phase's lengths, each against its plain
+    version, timed and bounded as in `phase_kernels`. The entries are a
+    Top-K-like selection per slot (K distinct positions below the length;
+    a slot shorter than K takes [0, K), as B1's NEG ties give), with B3's
+    -1 padding and duplicates."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1408)
+    b, n, k, ps = 4, 8192, mcfg.dsa.k, 64
+    kvh, h, hd = mcfg.n_kv_heads, mcfg.n_heads, mcfg.hd
+    mp = n // ps
+    lengths = [8192, 5000, 1000, 3001]
+    inp = _paged_inputs(g, dev, b=b, mp=mp, ps=ps, lengths=lengths, kvh=kvh,
+                        hd=hd, h=h, di=8, hi=1)
+    table, ln = inp["table"], inp["lengths"]
+    idx = torch.stack([
+        torch.randperm(L, generator=g, device=dev)[:k].sort().values
+        if L >= k else torch.arange(k, device=dev) for L in lengths]).int()
+    idx[1, :16] = -1
+    idx[0, 16:32] = lengths[0] - 1
+    idx = idx.contiguous()
+    out = {}
+
+    args3 = (inp["q"], inp["k_pages"], inp["v_pages"], table, idx, ln)
+    o3 = ops.paged_sparse_decode_attn(*args3)
+    o3r = ref.paged_sparse_attn_ref(*args3)
+    torch.cuda.synchronize()
+    # tolerance: B3's at llama's widths (f32 softmax and PV sums in another
+    # order; hd 128 adds no sum over more rows)
+    e3 = float((o3 - o3r).abs().max())
+    if not torch.allclose(o3, o3r, atol=1e-4, rtol=1e-4):
+        fail(f"B3 at moe width: max |err| {e3} beyond atol=rtol=1e-4")
+    _, splits3 = ops.decode_attn_splits("paged_sparse", k, n, ps)
+    ctas3 = _check_split("B3 moe width", ops.paged_sparse_decode_attn, args3,
+                         o3, splits3 * kvh * b)
+
+    flat_table = table.clamp(min=0).long()
+    kc6 = inp["k_pages"][flat_table].reshape(b, n, kvh, hd).contiguous()
+    vc6 = inp["v_pages"][flat_table].reshape(b, n, kvh, hd).contiguous()
+    args6 = (inp["q"], kc6, vc6, idx, ln)
+    o6 = ops.sparse_decode_attn(*args6)
+    o6r = ref.sparse_attn_ref(*args6)
+    torch.cuda.synchronize()
+    if not torch.equal(o6, o3):
+        fail("B6 at moe width: output differs from B3's on the same rows")
+    e6 = float((o6 - o6r).abs().max())
+    if not torch.allclose(o6, o6r, atol=1e-4, rtol=1e-4):
+        fail(f"B6 at moe width: max |err| {e6} beyond atol=rtol=1e-4")
+
+    mp4, lengths4 = 4096 // ps, [4096, 2500, 1, 777]
+    inp4 = _paged_inputs(g, dev, b=b, mp=mp4, ps=ps, lengths=lengths4,
+                         kvh=kvh, hd=hd, h=h, di=8, hi=1)
+    args4 = (inp4["q"], inp4["k_pages"], inp4["v_pages"], inp4["table"],
+             inp4["lengths"])
+    o4 = ops.paged_dense_decode_attn(*args4)
+    o4r = ref.paged_dense_attn_ref(*args4)
+    o4w = ops.paged_dense_decode_attn(*args4, window=300)
+    o4wr = ref.paged_dense_attn_ref(*args4, window=300)
+    torch.cuda.synchronize()
+    e4 = max(float((o4 - o4r).abs().max()), float((o4w - o4wr).abs().max()))
+    if not (torch.allclose(o4, o4r, atol=1e-4, rtol=1e-4)
+            and torch.allclose(o4w, o4wr, atol=1e-4, rtol=1e-4)):
+        fail(f"B4 at moe width: max |err| {e4} beyond atol=rtol=1e-4")
+    _, splits4 = ops.decode_attn_splits("paged_dense", 0, mp4 * ps, ps)
+    ctas4 = _check_split("B4 moe width", ops.paged_dense_decode_attn, args4,
+                         o4, splits4 * kvh * b, per_slot=(0, 3, 4))
+    log(f"[kernels] moe width (G {h // kvh}, hd {hd}, KVH {kvh}, bf16): B3 "
+        f"allclose, max|err| {e3:.3e}, {ctas3}; B6 == B3 bit for bit, "
+        f"max|err| {e6:.3e}; B4 allclose (window None and 300), max|err| "
+        f"{e4:.3e}, {ctas4}")
+
+    rows3 = int(((idx >= 0) & (idx < ln[:, None])).sum())
+    b3_bytes = (inp["q"].numel() * 2 + rows3 * kvh * hd * 2 * 2 + idx.numel() * 4
+                + table.numel() * 4 + b * 4 + b * h * hd * 4)
+    b4_rows = sum(lengths4)
+    b4_bytes = (inp4["q"].numel() * 2 + b4_rows * kvh * hd * 2 * 2
+                + inp4["table"].numel() * 4 + b * 4 + b * h * hd * 4)
+    for key, err, fn, plain, bnd in (
+            ("B3", e3, lambda: ops.paged_sparse_decode_attn(*args3),
+             lambda: ref.paged_sparse_attn_ref(*args3),
+             bound_ms(b3_bytes, 4 * h * hd * rows3)),
+            ("B4", e4, lambda: ops.paged_dense_decode_attn(*args4),
+             lambda: ref.paged_dense_attn_ref(*args4),
+             bound_ms(b4_bytes, 4 * h * hd * b4_rows)),
+            ("B6", e6, lambda: ops.sparse_decode_attn(*args6),
+             lambda: ref.sparse_attn_ref(*args6),
+             bound_ms(b3_bytes - table.numel() * 4, 4 * h * hd * rows3))):
+        ker, pl = time_ms(fn, flush), time_ms(plain, flush)
+        out[key] = dict(err=err, ms=ker["ms"], wall_ms=ker["wall_ms"],
+                        plain_ms=pl["ms"], bound=bnd)
+        log(f"[kernels] {key} at moe width: device [least-most] / wall: "
+            f"kernel {ker['ms']:.5f} [{ker['lo']:.5f}-{ker['hi']:.5f}] / "
+            f"{ker['wall_ms']:.5f} ms, plain {pl['ms']:.5f} / "
+            f"{pl['wall_ms']:.5f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
+            f"{ker['ms'] / bnd[0]:.2f}x")
+    return out
+
+
 def _engine_run(model, params, *, max_len, specs, hook=None, **layout):
     """Serve `specs` [(prompt, max_new, arrival)] through a fresh 4-slot
     engine of the given layout, with the launch counts zeroed just before
@@ -867,6 +982,7 @@ def phase_main(model, params, specs):
     log(f"[main] {steps} model steps (batch-1 prefill + pool decode), "
         f"{rep.wall_s / max(steps, 1) * 1e3:.3f} ms host wall per step")
     log(f"[main] selector path per request (R radix/cold, G gvr): {paths}")
+    log(f"[main] tokens: {[list(r.generated) for r in reqs]}")
     log(f"[main] launches: {counts}")
     calls, short_calls, rows, short_rows, minimum = _b1_row_shares(seen)
     log(f"[main] B1 rows shorter than K={model.cfg.dsa.k}: {short_calls} of "
@@ -913,7 +1029,7 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
-def _profile_step(params, st, tokens, cfg, flush):
+def _profile_step(params, st, tokens, cfg, flush, tag="[step]"):
     """Host wall time of one B=4 DSA decode step and, from torch.profiler,
     the device time of its kernels (the L2 flushed before each profiled
     step): the device's busy and idle share. The step rewrites the same
@@ -937,7 +1053,7 @@ def _profile_step(params, st, tokens, cfg, flush):
     calls, seen = _profiled_calls(
         lambda: transformer.serve_step_paged(params, st, tokens, cfg), flush, reps)
     if not calls:
-        log(f"[step] B=4 DSA decode step: {step_ms:.3f} ms host wall; device "
+        log(f"{tag} B=4 DSA decode step: {step_ms:.3f} ms host wall; device "
             f"time not measured (the profiler saw no complete step)")
         return dict(wall_ms=step_ms, device_ms=None)
     dev = {}
@@ -946,22 +1062,26 @@ def _profile_step(params, st, tokens, cfg, flush):
             dev[name] = dev.get(name, 0.0) + us / len(calls) / 1e3
     busy = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
-    log(f"[step] B=4 DSA decode step: {step_ms:.3f} ms host wall, {busy:.3f} ms "
+    log(f"{tag} B=4 DSA decode step: {step_ms:.3f} ms host wall, {busy:.3f} ms "
         f"device busy ({busy / step_ms:.3f} busy share; {len(calls)} of {reps} "
         f"profiled steps complete); top device time per step (ms): "
         + ", ".join(f"{k[:48]}={v:.4f}" for k, v in top))
     return dict(wall_ms=step_ms, device_ms=busy)
 
 
-def _random_step_state(model, g, dev, lengths, b=4, max_len=8192, ps=64):
+def _random_step_state(model, g, dev, lengths, b=4, max_len=8192, ps=64,
+                       per_layer=False):
     """A paged DSA state with random pools, a shuffled full block table,
-    the given lengths and random (partly cold) feedback."""
+    the given lengths and random (partly cold) feedback. `per_layer` draws
+    the pools one layer at a time (another stream of numbers): a whole f32
+    draw of moonshot-v1-16b-a3b's K pool would be a 13 GB temporary."""
     import torch
     cfg = model.cfg
     mp = max_len // ps
     st = model.init_paged_decode_state(b, max_len, num_pages=b * mp, page_size=ps)
     for key in ("k_pages", "v_pages", "idx_k_pages"):
-        st[key].copy_(torch.randn(st[key].shape, generator=g, device=dev))
+        for pool in (st[key] if per_layer else [st[key]]):
+            pool.copy_(torch.randn(pool.shape, generator=g, device=dev))
     perm = torch.randperm(b * mp, generator=g, device=dev).int().reshape(b, mp)
     st["page_table"] = perm.contiguous()
     st["length"] = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -974,9 +1094,11 @@ def _random_step_state(model, g, dev, lengths, b=4, max_len=8192, ps=64):
     return st
 
 
-def phase_step(model, params, cpu_params, rng, flush):
+def phase_step(model, params, cpu_params, rng, flush, tag="[step]",
+               profile=True):
     """One serve_step_paged on the card and through the plain path on the
-    CPU, from the same state."""
+    CPU, from the same state; `profile` also times it on the card
+    (`_profile_step`)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.models import transformer
@@ -1000,7 +1122,7 @@ def phase_step(model, params, cpu_params, rng, flush):
     lg, lc = logits_gpu.cpu(), logits_cpu
     if not (torch.isfinite(lg).all() and lg.shape == (b, cfg.vocab)):
         fail("step: logits not finite or of the wrong shape")
-    rel, argmax_agree = _logits_vs("step", lg, lc)
+    rel, argmax_agree = _logits_vs(tag, lg, lc)
     agree = _topk_agreement(new_gpu["prev_topk"], new_cpu["prev_topk"])
     flips = []
     # near-tie flips of layer 0 (its input, the embedding, is identical):
@@ -1020,13 +1142,14 @@ def phase_step(model, params, cpu_params, rng, flush):
         for i in sorted(a ^ c)[:4]:
             kth = float(torch.topk(s0[row], kk).values[-1])
             flips.append((row, i, float(s0[row, i]) - kth))
-    _profile_step(params, st, tokens, cfg, flush)
-    log(f"[step] logits rel L2 err {rel:.3e} (argmax agreement "
+    if profile:
+        _profile_step(params, st, tokens, cfg, flush, tag)
+    log(f"{tag} logits rel L2 err {rel:.3e} (argmax agreement "
         f"{argmax_agree:.2f}); CPU plain step {cpu_s:.3f} s; per-layer "
         f"Top-K agreement {agree}")
-    log(f"[step] layer-0 near-tie flips (slot, index, score - kth): {flips}")
+    log(f"{tag} layer-0 near-tie flips (slot, index, score - kth): {flips}")
     if agree[0] < 0.99:
-        fail(f"step: layer-0 Top-K agreement {agree[0]} < 0.99")
+        fail(f"{tag} layer-0 Top-K agreement {agree[0]} < 0.99")
 
 
 def _logits_vs(tag, lg, lc):
@@ -1359,6 +1482,113 @@ def phase_dense(model, params, rng):
     return counts
 
 
+def moe_specs(rng, vocab):
+    """The [moe] trace: prompts of 192, 64, 40 and 24 tokens, 8 new tokens
+    each; the 64-token prompt is the first one's first page, and arrives
+    once that page is in the prefix cache (tick 4: the first prompt's
+    prefill ends at tick 2)."""
+    first = rng.integers(0, vocab, (192,))
+    return [(first, 8, 0), (first[:64].copy(), 8, 4),
+            (rng.integers(0, vocab, (40,)), 8, 0),
+            (rng.integers(0, vocab, (24,)), 8, 1)]
+
+
+def phase_moe(model, params, specs):
+    """The MoE family's main path: the [moe] trace through the paged
+    fused engine (B2/B1/B3), then through the dense layout (B5/B1/B6), one
+    engine at a time (each holds a 12.4 GiB cache beside 53.8 GiB of
+    weights). The two layouts' tokens must be equal."""
+    import torch
+    cfg = model.cfg
+    runs = {}
+    for layout, kw, need in (
+            ("paged fused", {}, ("paged_indexer_scores", "gvr_topk",
+                                 "paged_sparse_decode_attn")),
+            ("dense layout", dict(kv_layout="dense"),
+             ("indexer_scores", "gvr_topk", "sparse_decode_attn"))):
+        torch.cuda.reset_peak_memory_stats()
+        eng, reqs, rep, counts = _engine_run(model, params, max_len=8192,
+                                             specs=specs, **kw)
+        paths = _check_paths(f"[moe] {layout}", eng, reqs)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps = counts["gvr_topk"] // cfg.n_layers
+        log(f"[moe] {cfg.name}, {layout}, {cfg.n_layers} layers, max_len "
+            f"8192, 4 slots, {len(reqs)} requests: {rep.decoded_tokens} "
+            f"decoded + {rep.prefill_tokens} prefill tokens in {rep.ticks} "
+            f"ticks, {rep.wall_s:.3f} s wall, {rep.tokens_per_s:.3f} decoded "
+            f"tokens/s, {steps} model steps, "
+            f"{rep.wall_s / max(steps, 1) * 1e3:.3f} ms host wall per step, "
+            f"gvr_hit_rate {rep.gvr_hit_rate:.4f}, prefix_hit_tokens "
+            f"{rep.prefix_hit_tokens}, peak device memory {peak:.3f} GiB")
+        log(f"[moe] {layout} selector path per request (R radix/cold, G "
+            f"gvr): {paths}; launches: {counts}")
+        _need(f"[moe] {layout}", counts, need)
+        runs[layout] = ([list(r.generated) for r in reqs], counts)
+        del eng, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+    (paged, paged_counts), (dense, dense_counts) = runs.values()
+    if paged != dense:
+        bad = [i for i, (a, c) in enumerate(zip(paged, dense)) if a != c]
+        fail(f"[moe] dense-layout tokens differ from the paged run's for "
+             f"requests {bad}")
+    log(f"[moe] dense-layout tokens == paged fused tokens for every request: "
+        f"{paged}")
+    return paged_counts, dense_counts
+
+
+def _first_layers(tree, n):
+    """The first n layers' views of a stacked parameter tree."""
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def phase_moe_step(model, params, rng, flush):
+    """One B=4 DSA step of the MoE model at STEP_LENGTHS under the
+    profiler, with the dense fallback timed alone (one layer's call at the
+    step's shape, times the layers: its share of the step's device time);
+    then a 2-layer cut of the same weights at full width, on the card and
+    through the plain path on the CPU (`phase_step`; the full model has no
+    CPU copy)."""
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers import moe_mlp_dense_fallback
+    from repro_torch.models.transformer import layer_params
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(99)
+    st = _random_step_state(model, g, dev, STEP_LENGTHS, per_layer=True)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, (4,)), dtype=torch.int32,
+                          device=dev)
+    prof = _profile_step(params, st, tokens, cfg, flush, "[moe-step]")
+    del st
+    torch.cuda.empty_cache()
+    lay = layer_params(params["layers"], 0)
+    e, f, d = cfg.moe.num_experts, cfg.moe.expert_d_ff, cfg.d_model
+    h = torch.randn((4, 1, d), generator=g, device=dev).to(lay["w_gate"].dtype)
+    moe = time_ms(lambda: moe_mlp_dense_fallback(
+        h, lay["router"], lay["w_gate"], lay["w_up"], lay["w_down"],
+        top_k=cfg.moe.top_k), flush)
+    # every expert's three matrices, the f32 router, x in and out once
+    bnd = bound_ms(3 * e * d * f * 2 + d * e * 4 + 2 * h.numel() * 2,
+                   2 * h.shape[0] * 3 * e * d * f)
+    per_step = moe["ms"] * cfg.n_layers
+    share = ("not measured" if prof["device_ms"] is None
+             else f"{per_step / prof['device_ms']:.3f}")
+    log(f"[moe-step] dense fallback, one layer at B=4 (all {e} experts): "
+        f"device {moe['ms']:.5f} ms [{moe['lo']:.5f}-{moe['hi']:.5f}], wall "
+        f"{moe['wall_ms']:.5f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
+        f"{moe['ms'] / bnd[0]:.2f}x; x {cfg.n_layers} layers = "
+        f"{per_step:.3f} ms, {share} of the step's device time")
+    cut = build_model(dataclasses.replace(cfg, n_layers=2), device=model.device)
+    cut_params = {**params, "layers": _first_layers(params["layers"], 2)}
+    phase_step(cut, cut_params, _to_cpu(cut_params), rng, flush,
+               tag="[moe-step] 2-layer cut", profile=False)
+    return dict(wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+                moe_ms=moe["ms"])
+
+
 def main() -> int:
     try:
         import torch
@@ -1389,6 +1619,8 @@ def main() -> int:
     cfg = get_config("llama3.2-1b")
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     kres = phase_kernels(cfg, flush)
+    mcfg = get_config("moonshot-v1-16b-a3b")
+    kres_moe = phase_kernels_moe_width(mcfg, flush)
 
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -1416,6 +1648,26 @@ def main() -> int:
     spec_counts = timed("spec", phase_spec, model, params, fused)
     timed("verify-step", phase_verify_step, model, params, rng)
     dense_counts = timed("dense", phase_dense, model, params, rng)
+
+    # the MoE family at full width and depth: llama's model and its CPU
+    # copy go first, and no CPU copy of this one is made
+    del model, params, cpu_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mmodel = build_model(mcfg)
+    t0 = time.perf_counter()
+    mparams = mmodel.init_params(seed=0)
+    torch.cuda.synchronize()
+    log(f"[moe] {mcfg.name}: params {mcfg.param_count() / 1e9:.3f} B "
+        f"(approx), {mcfg.active_param_count() / 1e9:.3f} B active per token, "
+        f"bf16, {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB on the card, "
+        f"random init in {time.perf_counter() - t0:.3f} s")
+    moe_paged, moe_dense = timed("moe", phase_moe, mmodel, mparams,
+                                 moe_specs(np.random.default_rng(19), mcfg.vocab))
+    timed("moe-step", phase_moe_step, mmodel, mparams, rng, flush)
+    del mmodel, mparams
+    gc.collect()
+    torch.cuda.empty_cache()
 
     rows = [("B1 gvr_topk", "gvr_topk.cu", "src/repro/kernels/gvr_topk.py:334",
              main_counts["gvr_topk"]),
@@ -1461,6 +1713,21 @@ def main() -> int:
         if "half" in r:
             kernels[-1].update(scoring_ms=r["half"][0],
                                scoring_bound_ms=r["half"][1][0])
+    # launches on the [moe] paths (B1, B2, B3 paged; B5, B6 dense layout),
+    # and B3, B4 and B6 also at moonshot-v1-16b-a3b's widths
+    for r, counts, key in ((kernels[0], moe_paged, "gvr_topk"),
+                           (kernels[1], moe_paged, "paged_indexer_scores"),
+                           (kernels[2], moe_paged, "paged_sparse_decode_attn"),
+                           (kernels[4], moe_dense, "indexer_scores"),
+                           (kernels[5], moe_dense, "sparse_decode_attn")):
+        r["moe_launches"] = int(counts[key])
+    for r in kernels:
+        m = kres_moe.get(r["name"].split()[0])
+        if m is not None:
+            r.update(moe_width_ms=m["ms"], moe_width_wall_ms=m["wall_ms"],
+                     moe_width_bound_ms=m["bound"][0],
+                     moe_width_plain_ms=m["plain_ms"],
+                     moe_width_max_abs_err=m["err"])
     # B10 also on rows of 131,072 positions (B = 4, K = 2048)
     long10 = kres["B10 N=131072"]
     next(r for r in kernels if r["name"].startswith("B10 ")).update(long_row_ms=long10["ms"], long_row_plain_ms=long10["plain_ms"],

@@ -1,1 +1,2 @@
-"""Model code of the PyTorch port (dense decoder family, decode side)."""
+"""Model code of the PyTorch port (dense and MoE decoder families, decode
+side)."""

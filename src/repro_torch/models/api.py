@@ -15,9 +15,8 @@ import torch
 from . import transformer
 from .config import ModelConfig
 
-_FAMILIES = {"dense": transformer}
+_FAMILIES = {"dense": transformer, "moe": transformer}
 _PENDING = {
-    "moe": "ROADMAP Queue A item 5 (other model families: MoE)",
     "vlm": "ROADMAP Queue A item 5 (other model families: vlm)",
     "hybrid": "ROADMAP Queue A item 5 (other model families: hybrid)",
     "ssm": "ROADMAP Queue A item 5 (other model families: ssm)",

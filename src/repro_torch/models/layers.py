@@ -1,5 +1,5 @@
 """Shared model layers of the PyTorch port: norm, rotary embedding, decode
-attention, SwiGLU MLP.
+attention, SwiGLU MLP, the MoE feed-forward on one device.
 
 Dtype handling follows the JAX package's `models/layers.py` step for step
 (which ops run in f32, where results are cast back), so a float32 smoke
@@ -90,3 +90,35 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
 def swiglu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                w_down: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def moe_route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
+    """The router: f32 logits x @ router_w (JAX promotes a bf16 x against
+    the f32 router_w), the top_k experts by a stable descending sort (equal
+    logits pick the lower expert index first, as `jax.lax.top_k` does;
+    `torch.topk` promises no order among ties) and their f32 softmax gates.
+    x (..., D); router_w (D, E). Returns (gates (..., K) f32, experts
+    (..., K) int64)."""
+    order = torch.sort(x.float() @ router_w, dim=-1, descending=True,
+                       stable=True)
+    return (torch.softmax(order.values[..., :top_k], dim=-1),
+            order.indices[..., :top_k])
+
+
+def moe_mlp_dense_fallback(x: torch.Tensor, router_w: torch.Tensor,
+                           w_gate: torch.Tensor, w_up: torch.Tensor,
+                           w_down: torch.Tensor, *, top_k: int) -> torch.Tensor:
+    """The MoE feed-forward as the reference serves it on one device:
+    every expert runs on every token, then the top-k outputs are combined
+    with the gates cast to the activation dtype. x (B, S, D); router_w
+    (D, E) f32; w_gate, w_up (E, D, F); w_down (E, F, D). Returns (B, S, D)
+    in x's dtype. The experts run as a batched product over E
+    ((1, T, D) @ (E, D, F)), which reads each weight in place."""
+    b, s, d = x.shape
+    gates, eidx = moe_route(x, router_w, top_k)           # (B, S, K)
+    xt = x.reshape(1, b * s, d)
+    h = F.silu(xt @ w_gate) * (xt @ w_up)                 # (E, T, F)
+    all_down = (h @ w_down).transpose(0, 1)               # (T, E, D)
+    sel = torch.take_along_dim(all_down, eidx.reshape(b * s, top_k, 1), dim=1)
+    out = gates.reshape(b * s, 1, top_k).to(sel.dtype) @ sel     # (T, 1, D)
+    return out.reshape(b, s, d)

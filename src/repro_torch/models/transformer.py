@@ -1,4 +1,5 @@
-"""Decoder-only transformer LM, decode side of the dense family, PyTorch port.
+"""Decoder-only transformer LM, decode side of the dense and MoE families,
+PyTorch port.
 
 Parameters are a plain dict of tensors stacked over layers (L, ...) in the
 JAX package's layout (weights (in, out), used as `x @ W`), so the JAX
@@ -29,6 +30,12 @@ is what JAX's functional update costs and what this port avoids; a row
 whose write is masked keeps its old contents (dense) or writes the sink
 page (paged). The small per-slot leaves (length, prev_topk, topk_valid,
 sel_gvr) come back as new tensors, so the engine can merge them row by row.
+
+The MoE family (`cfg.moe.num_experts > 0`) differs only in the
+feed-forward: `layers.moe_mlp_dense_fallback`, what the reference serves
+on one device, called with the (B, 1, D) shape as the reference calls it
+— in the mq verify body once per draft position, as the scan does, so
+that both bodies round alike.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ from repro_torch.kernels import ops
 from repro_torch.sparse import dsa as dsa_mod
 from .config import ModelConfig
 from .layers import (apply_rotary, decode_attention, decode_attention_paged,
-                     rms_norm, swiglu_mlp)
+                     moe_mlp_dense_fallback, rms_norm, swiglu_mlp)
 
 # min_write_pos sentinel larger than any position: the row never writes.
 # Rows whose write is masked (inactive slots, shared-prefix replay over
@@ -58,7 +65,8 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe.num_experts or cfg.num_patches:
+    if (cfg.family not in ("dense", "moe") or cfg.num_patches
+            or (cfg.family == "moe") != bool(cfg.moe.num_experts)):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue A item "
             f"5: other model families)")
@@ -71,14 +79,24 @@ def _check_family(cfg: ModelConfig) -> None:
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> Dict[str, Any]:
     """Random-init parameters from `generator` (N(0, 1/fan_in) weights,
-    unit norms), stacked over layers."""
+    unit norms), stacked over layers. The MoE experts take the reference's
+    scales (`_dense` scales by shape[0] ** -0.5: E^-0.5 for w_gate and
+    w_up, f^-0.5 for w_down, d^-0.5 for the f32 router) and are drawn one
+    layer at a time into bf16 storage: a whole f32 draw of moonshot's
+    w_gate would be a 35 GB temporary."""
     _check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
     l, d, hd, f = cfg.n_layers, cfg.d_model, cfg.hd, cfg.d_ff
 
-    def dense(shape, scale):
+    def dense(shape, scale, dt=dtype):
         return (torch.randn(shape, generator=generator, device=device)
-                * scale).to(dtype)
+                * scale).to(dt)
+
+    def per_layer(shape, scale):
+        out = torch.empty((l,) + shape, dtype=dtype, device=device)
+        for i in range(l):
+            out[i] = dense(shape, scale)
+        return out
 
     def ones(shape):
         return torch.ones(shape, dtype=torch.float32, device=device)
@@ -90,10 +108,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "wk": dense((l, d, cfg.n_kv_heads * hd), d ** -0.5),
         "wv": dense((l, d, cfg.n_kv_heads * hd), d ** -0.5),
         "wo": dense((l, cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5),
-        "w_gate": dense((l, d, f), d ** -0.5),
-        "w_up": dense((l, d, f), d ** -0.5),
-        "w_down": dense((l, f, d), f ** -0.5),
     }
+    if cfg.moe.num_experts:
+        e, fe = cfg.moe.num_experts, cfg.moe.expert_d_ff
+        layers["router"] = dense((l, d, e), d ** -0.5, torch.float32)
+        layers["w_gate"] = per_layer((e, d, fe), e ** -0.5)
+        layers["w_up"] = per_layer((e, d, fe), e ** -0.5)
+        layers["w_down"] = per_layer((e, fe, d), fe ** -0.5)
+    else:
+        layers["w_gate"] = dense((l, d, f), d ** -0.5)
+        layers["w_up"] = dense((l, d, f), d ** -0.5)
+        layers["w_down"] = dense((l, f, d), f ** -0.5)
     if cfg.dsa.enabled:
         layers["indexer"] = dsa_mod.indexer_init(
             generator, d, cfg.dsa.indexer_heads, cfg.dsa.indexer_dim, dtype,
@@ -283,6 +308,16 @@ def _attend_views(cfg: ModelConfig, state, i: int, p, h, q, kc, vc, idx_kc,
                             window=cfg.swa_window), None
 
 
+def _mlp(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Layer p's feed-forward of one token per row, h (B, D): SwiGLU, or
+    the MoE with the reference's (B, 1, D) call shape."""
+    if cfg.moe.num_experts:
+        return moe_mlp_dense_fallback(h[:, None, :], p["router"], p["w_gate"],
+                                      p["w_up"], p["w_down"],
+                                      top_k=cfg.moe.top_k)[:, 0]
+    return swiglu_mlp(h, p["w_gate"], p["w_up"], p["w_down"])
+
+
 def _lm_head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Final norm and the (tied) output projection: f32 logits (..., V).
     The one GEMM whose rounding on the CPU depends on the row count M
@@ -313,8 +348,7 @@ def _decode_layers(params, state, tokens: torch.Tensor, cfg: ModelConfig,
             sel_out.append(res.gvr_rows)
         attn = attn.reshape(b, cfg.n_heads * cfg.hd).to(x.dtype)
         x = x + attn @ p["wo"]
-        h = rms_norm(x, p["ln2"])
-        x = x + swiglu_mlp(h, p["w_gate"], p["w_up"], p["w_down"])
+        x = x + _mlp(p, rms_norm(x, p["ln2"]), cfg)
 
     new_state = dict(state)
     if prev_out:
@@ -673,7 +707,11 @@ def _paged_verify_mq(params, state, tokens: torch.Tensor, cfg: ModelConfig,
         attn = attn.reshape(b, d1, cfg.n_heads * hd).to(x.dtype)
         x = x + attn @ p["wo"]
         h2 = rms_norm(x, p["ln2"])
-        x = x + swiglu_mlp(h2, p["w_gate"], p["w_up"], p["w_down"])
+        if cfg.moe.num_experts:
+            # one call per position, as the scan makes it (see the header)
+            x = x + torch.stack([_mlp(p, h2[:, j], cfg) for j in range(d1)], 1)
+        else:
+            x = x + swiglu_mlp(h2, p["w_gate"], p["w_up"], p["w_down"])
 
     logits = _lm_head(params, x, cfg)                      # (B, Q, V)
     ys = {"logits": logits.transpose(0, 1)}                # (Q, B, V)

@@ -31,13 +31,17 @@ of B2/B5/B9 is held at its edges in both dtypes (bf16 on the tensor
 cores, float32 on the CUDA cores): padded heads, head dims, page sizes,
 ragged lengths, unmapped pages inside a row, w (H,) and (B, H), rows long
 enough that a CTA walks two tiles; B5 == B2, B9's rows == B2's, two calls
-and each slot alone (another schedule) bit-identical.
+and each slot alone (another schedule) bit-identical. moonshot-v1-16b-a3b's
+widths (G = 1, hd 128, KVH 16, bf16) run through the B3/B4, B6/B10 and
+split cases, and its MoE feed-forward (one layer, 64 experts) is held on
+the card against the CPU.
 """
 
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.models import layers
 
 NEG = -3.4028234663852886e38
 
@@ -92,10 +96,15 @@ def test_b2_paged_indexer_scores_on_card(dev, dtype, ps, hi, di):
     torch.testing.assert_close(s1, s0, rtol=1e-5, atol=1e-5)
 
 
+# moonshot-v1-16b-a3b's decode attention: G = 1, hd 128, KVH 16, bf16
+_MOE_WIDTH = (torch.bfloat16, 16, 16, 128, 64)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,kvh,h,hd,ps", [
     (torch.bfloat16, 8, 32, 64, 64), (torch.float32, 2, 4, 32, 8),
-    (torch.bfloat16, 1, 8, 128, 16), (torch.float32, 4, 4, 64, 4)])
+    (torch.bfloat16, 1, 8, 128, 16), (torch.float32, 4, 4, 64, 4),
+    _MOE_WIDTH])
 def test_b3_b4_paged_attention_on_card(dev, dtype, kvh, h, hd, ps):
     g = torch.Generator(device=dev).manual_seed(hd + h)
     b, mp, k = 3, 40, 300
@@ -151,7 +160,8 @@ def test_b5_indexer_scores_on_card_equal_b2(dev, dtype, ps, hi, di):
 @pytest.mark.parametrize("dtype,kvh,h,hd,ps", [
     (torch.bfloat16, 8, 32, 64, 64), (torch.float32, 2, 4, 32, 8),
     (torch.bfloat16, 1, 8, 128, 16),
-    (torch.bfloat16, 2, 16, 32, 128)])     # B10: 20 splits of 256 positions
+    (torch.bfloat16, 2, 16, 32, 128),      # B10: 20 splits of 256 positions
+    _MOE_WIDTH])
 def test_b6_b10_sparse_attention_on_card(dev, dtype, kvh, h, hd, ps):
     g = torch.Generator(device=dev).manual_seed(hd + ps)
     b, mp, k = 3, 40, 300
@@ -308,7 +318,8 @@ def test_wrappers_count_launches_and_raise_on_bad_input(dev):
 _SPLIT_WIDTHS = [
     (torch.bfloat16, 8, 32, 64, 64), (torch.float32, 2, 4, 32, 8),
     (torch.bfloat16, 1, 8, 128, 16), (torch.float32, 4, 4, 64, 4),
-    (torch.bfloat16, 2, 16, 32, 64), (torch.float32, 1, 8, 128, 16)]
+    (torch.bfloat16, 2, 16, 32, 64), (torch.float32, 1, 8, 128, 16),
+    _MOE_WIDTH]
 
 
 def _split_pools(g, dev, dtype, b, n, ps, kvh, h, hd):
@@ -834,3 +845,31 @@ def test_b1_path_stats_match_plain_where_the_single_cta_form_did_on_card(dev, na
     st1, st0 = _b1_exact(x, prev)
     for c in cols:
         assert torch.equal(st1[:, c], st0[:, c]), (c, st1[:, :4], st0[:, :4])
+
+
+@pytest.mark.cuda
+def test_moe_mlp_dense_fallback_card_equals_cpu_at_moonshot_widths(dev):
+    """One layer of moonshot-v1-16b-a3b's feed-forward (64 experts of
+    2048 x 1408, top-6, bf16) for a B=4 decode step on the card against
+    the same call on the CPU: the same experts (the f32 router's logits
+    differ by f32 rounding only), the output within 2e-2 of its scale
+    (bf16 products rounded at the same places after sums in other orders,
+    as the CPU tests hold the port against JAX)."""
+    g = torch.Generator(device=dev).manual_seed(2048)
+    e, d, f, k = 64, 2048, 1408, 6
+
+    def rnd(shape, scale, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    x = rnd((4, 1, d), 1.0)
+    args = (rnd((d, e), d ** -0.5, torch.float32), rnd((e, d, f), e ** -0.5),
+            rnd((e, d, f), e ** -0.5), rnd((e, f, d), f ** -0.5))
+    gates, idx = layers.moe_route(x, args[0], k)
+    gates_c, idx_c = layers.moe_route(x.cpu(), args[0].cpu(), k)
+    assert torch.equal(idx.cpu(), idx_c)
+    torch.testing.assert_close(gates.cpu(), gates_c, rtol=1e-5, atol=1e-6)
+    out = layers.moe_mlp_dense_fallback(x, *args, top_k=k)
+    out_c = layers.moe_mlp_dense_fallback(x.cpu(), *(a.cpu() for a in args), top_k=k)
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    err = float((out.cpu().float() - out_c.float()).abs().max())
+    assert err <= 2e-2 * float(out_c.float().abs().max()), err

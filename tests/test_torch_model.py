@@ -98,26 +98,52 @@ def test_bridge_carries_bf16_exactly():
     np.testing.assert_array_equal(t.float().numpy(), x.astype(np.float32))
     tree = bridge.params_from_numpy({"a": {"b": x}, "c": np.arange(3)})
     assert tree["c"].dtype == torch.int64 and tree["a"]["b"].shape == (4, 5)
-
-
-def test_init_params_layout_matches_jax(jax_model_params):
-    _, jparams = jax_model_params
-    tm = build_model(get_config("llama3.2-1b", smoke=True), device="cpu")
-    tparams = tm.init_params(seed=0)
+    # the MoE tree (f32 router, bf16 experts) leaf by leaf, value for value
+    jcfg = dataclasses.replace(jax_config("moonshot-v1-16b-a3b", smoke=True),
+                               dtype="bfloat16")
+    jparams = jax.tree.map(np.asarray, jax_build(jcfg).init_params(
+        jax.random.PRNGKey(0)))
+    tparams = bridge.params_from_numpy(jparams)
     for path, leaf in jax.tree_util.tree_flatten_with_path(jparams)[0]:
         node = tparams
         for p in path:
             node = node[p.key]
-        assert tuple(node.shape) == tuple(leaf.shape), path
         assert str(node.dtype).split(".")[-1] == str(leaf.dtype), path
+        np.testing.assert_array_equal(node.float().numpy(), leaf.astype(np.float32))
+    assert tparams["layers"]["router"].dtype == torch.float32
+    assert tparams["layers"]["w_gate"].dtype == torch.bfloat16
+
+
+def test_init_params_layout_matches_jax(jax_model_params):
+    """Leaf by leaf, the port's init has the JAX init's tree, shapes and
+    dtypes: llama3.2-1b's smoke config and the two MoE smoke configs."""
+    _, llama_params = jax_model_params
+    for arch in ("llama3.2-1b", "granite-moe-1b-a400m", "moonshot-v1-16b-a3b"):
+        jparams = (llama_params if arch == "llama3.2-1b" else
+                   jax_build(jax_config(arch, smoke=True)).init_params(
+                       jax.random.PRNGKey(0)))
+        tm = build_model(get_config(arch, smoke=True), device="cpu")
+        tparams = tm.init_params(seed=0)
+        leaves = jax.tree_util.tree_flatten_with_path(jparams)[0]
+        assert len(leaves) == len(jax.tree_util.tree_leaves(tparams)), arch
+        for path, leaf in leaves:
+            node = tparams
+            for p in path:
+                node = node[p.key]
+            assert tuple(node.shape) == tuple(leaf.shape), (arch, path)
+            assert str(node.dtype).split(".")[-1] == str(leaf.dtype), (arch, path)
 
 
 def test_unported_families_and_options_raise():
     cfg = get_config("llama3.2-1b", smoke=True)
     with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        build_model(dataclasses.replace(cfg, family="moe"), device="cpu")
+        build_model(dataclasses.replace(cfg, family="vlm"), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue A item 5"):
         get_config("qwen2-vl-7b")
+    for arch in ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b"):
+        moe = get_config(arch)
+        assert moe.family == "moe" and moe.moe.num_experts > 0
+        assert build_model(get_config(arch, smoke=True), device="cpu").cfg.family == "moe"
 
 
 def test_indexer_scores_and_dsa_select_match_jax(jax_model_params):
