@@ -25,16 +25,22 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     L2 flushed before each call), with the CUDA-event
                     window around each call beside it (wall_ms);
                     B3, B4 and B6 also at moonshot-v1-16b-a3b's widths
-                    (G = 1, hd 128, KVH 16);
+                    (G = 1, hd 128, KVH 16); B3, B4, B6, B8 and B10 at the
+                    rest of the dense family's widths (G 16, 48 and 7 as
+                    head chunks of 8; G 4 at hd 120), B6 == B3 and B8 ==
+                    B3 bit for bit there; B2/B5/B9 scoring and B1 under
+                    h2o-danube's window of 4096;
   3. main         — serve requests through `DecodeEngine` (paged, fused,
-                    greedy) at the full width of llama3.2-1b, max_len=8192,
-                    4 slots; every path below zeroes the launch counts just
-                    before it and reads them just after;
+                    greedy) at the full width of llama3.2-1b and MAIN_DEPTH
+                    of its 16 layers, max_len=8192, 4 slots; every path
+                    below zeroes the launch counts just before it and reads
+                    them just after;
   4. dense-layout — the same trace through `DecodeEngine(kv_layout="dense")`
                     (kernels B5, B1, B6): the same tokens as [main];
   5. step         — one `serve_step_paged` from one state on the card and
                     through the plain path on the CPU: logits, per-layer
-                    Top-K;
+                    Top-K (run after phase 13's child processes end, so
+                    that the profile has the card to itself);
   6. layouts      — one B=4 DSA step from one state in four forms (paged
                     fused, paged gather, paged page-granular, dense): fused,
                     gather and dense bit-identical; the dense form also
@@ -49,13 +55,15 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     every tick) and with the default n-gram drafter;
   9. verify-step  — one full-width verify tick of B=4 slots from one state
                     through scan and mq: tokens, acceptance and the
-                    rolled-back state equal; logits and Top-K compared;
+                    rolled-back state equal; logits and Top-K compared
+                    (after the child processes, as phase 5);
  10. dense        — engines at max_len=4096 <= dsa.min_n, the pre-DSA
                     fallback: paged (kernel B4) and the dense layout (plain
                     PyTorch attention);
  11. moe          — moonshot-v1-16b-a3b (the MoE family: 64 experts top-6
                     through the one-device dense fallback) at full width
-                    and depth, bf16, after llama's model is freed: four
+                    and MOE_DEPTH of its 48 layers, bf16, after llama's
+                    model is freed: four
                     greedy requests through the paged fused engine
                     (B2/B1/B3), then the dense layout (B5/B1/B6), one after
                     the other; the same tokens bit for bit;
@@ -63,9 +71,24 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     the fallback's share of its device time, then a 2-layer
                     cut of the same weights (full width) on the card
                     against the plain path on the CPU;
- 13. summary      — each kernel's device time lost against its bound
-                    over its path (launches x (ms - bound_ms); B2, B5 and
-                    B9 by their scoring launch, so B1 counts once), the
+ 13. dense-family — h2o-danube-3-4b (SWA window 4096, hd 120) at full
+                    width and depth: a prompt past the window and three
+                    short ones through the paged fused engine (B2/B1/B3)
+                    and the dense layout (B5/B1/B6), the same tokens, in
+                    two child processes started after phase 2 that run
+                    beside phases 3, 4, 6-8 and 10 (each engine is
+                    host-bound) and are joined before phases 5 and 9;
+                    [dense-family-step]: one profiled B=4 DSA step and a
+                    2-layer cut against the CPU; then chatglm3-6b,
+                    qwen2-vl-7b and granite-34b at full width and a depth
+                    cut to FAMILY_CUT_DEPTH layers (granite-34b's 88
+                    layers do not fit one card), each through both
+                    layouts and its 2-layer cut against the CPU;
+ 14. summary      — each kernel's device time lost against its bound
+                    over its path at llama's 16 layers (launches x (ms -
+                    bound_ms), the launches of phases 3 and 4 scaled from
+                    MAIN_DEPTH layers; B2, B5 and B9 by their scoring
+                    launch, so B1 counts once), the
                     `kernels` JSON line, the card's name and power limit,
                     and the contract line `{"ok": true, ...}` last.
 
@@ -868,6 +891,264 @@ def phase_kernels_moe_width(mcfg, flush):
     return out
 
 
+# the rest of the dense family's attention widths at full width: (label,
+# arch, KVH, H, hd) — head groups 16, 48 and 7 run as head chunks of 8,
+# head dim 120 on the 128-lane instance
+FAMILY_WIDTHS = [("chatglm3", "chatglm3-6b", 2, 32, 128),
+                 ("granite34", "granite-34b", 1, 48, 128),
+                 ("qwen2vl", "qwen2-vl-7b", 4, 28, 128),
+                 ("danube", "h2o-danube-3-4b", 8, 32, 120)]
+
+
+def phase_kernels_family_widths(flush):
+    """B3, B4, B6, B8 and B10 at the rest of the dense family's widths
+    (FAMILY_WIDTHS, bf16, B=4, N=8192, K=2048, the kernel phase's lengths),
+    each against its plain version, B6 == B3 and B8 == B3 on the folded
+    rows bit for bit, B3/B4/B10 two calls and each slot alone
+    bit-identical, B4 also under h2o-danube's window of 4096 (slot 1 at
+    length 5000: the window begins at 904, inside the split [896, 1024));
+    timed and bounded as in `phase_kernels`."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    b, n, k, ps = 4, 8192, 2048, 64
+    mp = n // ps
+    lengths = [8192, 5000, 1000, 3001]
+    out = {}
+    for label, arch, kvh, h, hd in FAMILY_WIDTHS:
+        g = torch.Generator(device=dev).manual_seed(2000 + h + hd)
+        inp = _paged_inputs(g, dev, b=b, mp=mp, ps=ps, lengths=lengths,
+                            kvh=kvh, hd=hd, h=h, di=8, hi=1)
+        table, ln = inp["table"], inp["lengths"]
+        idx = torch.stack([
+            torch.randperm(L, generator=g, device=dev)[:k].sort().values
+            if L >= k else torch.arange(k, device=dev) for L in lengths]).int()
+        idx[1, :16] = -1
+        idx[0, 16:32] = lengths[0] - 1
+        idx = idx.contiguous()
+        gc, chunks = ops.attn_head_chunk(h // kvh)
+        tag = f"{arch} width (G {h // kvh} as {chunks} x {gc}, KVH {kvh}, hd {hd})"
+        res = {}
+
+        def close(name, a, c):
+            err = float((a - c).abs().max())
+            # tolerance: B3's at llama's widths (f32 softmax and PV sums in
+            # another order; more heads or chunks add no longer sum)
+            if not torch.allclose(a, c, atol=1e-4, rtol=1e-4):
+                fail(f"{name} at {tag}: max |err| {err} beyond atol=rtol=1e-4")
+            return err
+
+        args3 = (inp["q"], inp["k_pages"], inp["v_pages"], table, idx, ln)
+        o3 = ops.paged_sparse_decode_attn(*args3)
+        e3 = close("B3", o3, ref.paged_sparse_attn_ref(*args3))
+        _, splits3 = ops.decode_attn_splits("paged_sparse", k, n, ps)
+        ctas3 = _check_split(f"B3 {tag}", ops.paged_sparse_decode_attn, args3,
+                             o3, splits3 * kvh * chunks * b)
+        flat = table.clamp(min=0).long()
+        kc6 = inp["k_pages"][flat].reshape(b, n, kvh, hd).contiguous()
+        vc6 = inp["v_pages"][flat].reshape(b, n, kvh, hd).contiguous()
+        args6 = (inp["q"], kc6, vc6, idx, ln)
+        o6 = ops.sparse_decode_attn(*args6)
+        if not torch.equal(o6, o3):
+            fail(f"B6 at {tag}: output differs from B3's on the same rows")
+        e6 = close("B6", o6, ref.sparse_attn_ref(*args6))
+        # B8: slots (0, 1) and (2, 3) as two slots of Q = 2 verify rows on
+        # table rows 0 and 2; B3 over the folded rows with the table repeated
+        t8 = table[0::2].contiguous()
+        args8 = (inp["q"].reshape(2, 2, h, hd), inp["k_pages"], inp["v_pages"],
+                 t8, idx.reshape(2, 2, k), ln.reshape(2, 2))
+        o8 = ops.paged_sparse_decode_attn_mq(*args8)
+        fold = ops.paged_sparse_decode_attn(
+            inp["q"], inp["k_pages"], inp["v_pages"],
+            t8.repeat_interleave(2, 0).contiguous(), idx, ln)
+        if not torch.equal(o8.reshape(b, h, hd), fold):
+            fail(f"B8 at {tag}: output differs from B3's on the folded rows")
+        e8 = close("B8", o8, ref.paged_sparse_attn_mq_ref(*args8))
+        args4 = (inp["q"], inp["k_pages"], inp["v_pages"], table, ln)
+        o4 = ops.paged_dense_decode_attn(*args4)
+        o4w = ops.paged_dense_decode_attn(*args4, window=4096)
+        e4 = max(close("B4", o4, ref.paged_dense_attn_ref(*args4)),
+                 close("B4 window 4096", o4w,
+                       ref.paged_dense_attn_ref(*args4, window=4096)))
+        _, splits4 = ops.decode_attn_splits("paged_dense", 0, n, ps)
+        ctas4 = _check_split(f"B4 {tag}", ops.paged_dense_decode_attn, args4,
+                             o4, splits4 * kvh * chunks * b, per_slot=(0, 3, 4))
+        o10 = ops.paged_sparse_decode_attn_pg(*args3)
+        e10 = close("B10", o10, ref.paged_sparse_attn_pg_ref(*args3))
+        _, splits10 = ops.decode_attn_splits("paged_pages", k, n, ps)
+        ctas10 = _check_split(f"B10 {tag}", ops.paged_sparse_decode_attn_pg,
+                              args3, o10, splits10 * kvh * chunks * b)
+        log(f"[kernels] {tag}, bf16: B3 allclose, max|err| {e3:.3e}, {ctas3}; "
+            f"B6 == B3 and B8 == B3 (folded rows) bit for bit, max|err| "
+            f"{e6:.3e} / {e8:.3e}; B4 allclose (window None and 4096), max|err| "
+            f"{e4:.3e}, {ctas4}; B10 allclose, max|err| {e10:.3e}, {ctas10}")
+        rows3 = int(((idx >= 0) & (idx < ln[:, None])).sum())
+        row_bytes = kvh * hd * 2 * 2
+        b3_bytes = (inp["q"].numel() * 2 + rows3 * row_bytes + idx.numel() * 4
+                    + table.numel() * 4 + b * 4 + b * h * hd * 4)
+        b4_bytes = (inp["q"].numel() * 2 + sum(lengths) * row_bytes
+                    + table.numel() * 4 + b * 4 + b * h * hd * 4)
+        # B8's valid entries: in the row's length and on a page its slot's
+        # table row maps; each distinct (slot, row) pair read once
+        t8f = t8.repeat_interleave(2, 0)
+        valid8 = ((idx >= 0) & (idx < ln[:, None])
+                  & (t8f.gather(1, (idx.clamp(min=0) // ps).long()) >= 0))
+        rows8 = int(valid8.sum())
+        pairs8 = sum(len(set(idx[2 * s:2 * s + 2][valid8[2 * s:2 * s + 2]].tolist()))
+                     for s in range(2))
+        b8_bytes = (inp["q"].numel() * 2 + pairs8 * row_bytes + idx.numel() * 4
+                    + t8.numel() * 4 + b * 4 + b * h * hd * 4)
+        for key, err, fn, plain, bnd in (
+                ("B3", e3, lambda: ops.paged_sparse_decode_attn(*args3),
+                 lambda: ref.paged_sparse_attn_ref(*args3),
+                 bound_ms(b3_bytes, 4 * h * hd * rows3)),
+                ("B4", e4, lambda: ops.paged_dense_decode_attn(*args4),
+                 lambda: ref.paged_dense_attn_ref(*args4),
+                 bound_ms(b4_bytes, 4 * h * hd * sum(lengths))),
+                ("B6", e6, lambda: ops.sparse_decode_attn(*args6),
+                 lambda: ref.sparse_attn_ref(*args6),
+                 bound_ms(b3_bytes - table.numel() * 4, 4 * h * hd * rows3)),
+                ("B8", e8, lambda: ops.paged_sparse_decode_attn_mq(*args8),
+                 lambda: ref.paged_sparse_attn_mq_ref(*args8),
+                 bound_ms(b8_bytes, 4 * h * hd * rows8)),
+                ("B10", e10, lambda: ops.paged_sparse_decode_attn_pg(*args3),
+                 lambda: ref.paged_sparse_attn_pg_ref(*args3),
+                 bound_ms(b3_bytes, 4 * h * hd * rows3))):
+            ker, pl = time_ms(fn, flush), time_ms(plain, flush, iters=10)
+            res[key] = dict(err=err, ms=ker["ms"], wall_ms=ker["wall_ms"],
+                            plain_ms=pl["ms"], bound=bnd)
+            log(f"[kernels] {key} at {label} width: device [least-most] / wall: "
+                f"kernel {ker['ms']:.5f} [{ker['lo']:.5f}-{ker['hi']:.5f}] / "
+                f"{ker['wall_ms']:.5f} ms, plain {pl['ms']:.5f} / "
+                f"{pl['wall_ms']:.5f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
+                f"{ker['ms'] / bnd[0]:.2f}x")
+        out[label] = res
+        del inp, kc6, vc6
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernels_window(dcfg, flush):
+    """The scoring body under h2o-danube's sliding window (4096) at the
+    kernel phase's shapes (B=4, N=8192, H_i=64, d_i=128, bf16, lengths
+    8192/5000/1000/3001; B9 at Q=3): B2, B5 and B9 allclose to their plain
+    versions, every position below length - window (and at or past the
+    length) exactly NEG, B5 == B2 and B9's rows == B2's at their own
+    lengths bit for bit, two calls and each slot alone bit-identical; B1
+    exact on the windowed rows (a NEG prefix, the short slots a NEG
+    suffix too) from warm, random, -1 and even predictions. Times each
+    scoring launch with and without the window, and B1 on the windowed
+    rows."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4096)
+    win = dcfg.swa_window
+    b, n, k, ps = 4, 8192, dcfg.dsa.k, 64
+    hi, di, cmax = dcfg.dsa.indexer_heads, dcfg.dsa.indexer_dim, dcfg.dsa.max_candidates
+    mp = n // ps
+    lengths = [8192, 5000, 1000, 3001]
+    inp = _paged_inputs(g, dev, b=b, mp=mp, ps=ps, lengths=lengths, kvh=1,
+                        hd=32, h=1, di=di, hi=hi)
+    table, ln, qi, pages, w = (inp["table"], inp["lengths"], inp["qi"],
+                               inp["idx_pages"], inp["w"])
+    s2 = ops.paged_indexer_scores(qi, pages, w, table, ln, win)
+    s0 = ref.paged_indexer_scores_ref(qi, pages, w, table, ln, win)
+    torch.cuda.synchronize()
+    pos = torch.arange(n, device=dev)[None]
+    inside = (pos < ln[:, None]) & (pos >= ln[:, None] - win)
+    if not torch.equal(s2 > -1e38, s0 > -1e38) or not bool((s2[~inside] == ref.NEG).all()):
+        fail("windowed B2 scoring: a position outside [length - window, "
+             "length) does not score NEG")
+    live = s0 > -1e38
+    err = float((s2 - s0)[live].abs().max())
+    scale = float(s0[live].abs().max())
+    # tolerance: B2's (the window masks positions, it changes no sum)
+    if err > 1e-4 * scale:
+        fail(f"windowed B2 scoring: max |err| {err} > 1e-4 * {scale}")
+    sched = ops.score_schedule(qi.dtype, b, n, hi, di, ps)
+    ctas = _check_split("windowed B2 scoring",
+                        lambda *a: ops.paged_indexer_scores(*a, win),
+                        (qi, pages, w, table, ln), s2,
+                        sched["ctas_per_row"] * b, per_slot=(0, 3, 4))
+    kc5 = pages[table.clamp(min=0).long()].reshape(b, n, di).contiguous()
+    s5 = ops.indexer_scores(qi, kc5, w, ln, win)
+    if not torch.equal(s5, s2):
+        fail("windowed B5 scoring: score row differs from B2's")
+    e5 = float((s5 - ref.indexer_scores_ref(qi, kc5, w, ln, win))[live].abs().max())
+    qn = SPEC_DEPTH + 1
+    lq = (ln[:, None] - qn + 1 + torch.arange(qn, device=dev)).int().contiguous()
+    qi9 = torch.randn((b, qn, hi, di), generator=g, device=dev).to(torch.bfloat16)
+    s9 = ops.paged_indexer_scores_mq(qi9, pages, w, table, lq, win)
+    s9r = ref.paged_indexer_scores_mq_ref(qi9, pages, w, table, lq, win)
+    for j in range(qn):
+        if not torch.equal(s9[:, j], ops.paged_indexer_scores(
+                qi9[:, j].contiguous(), pages, w, table, lq[:, j].contiguous(), win)):
+            fail(f"windowed B9 scoring: row {j} differs from B2's at its length")
+    live9 = s9r > -1e38
+    if not torch.equal(live9, s9 > -1e38):
+        fail("windowed B9 scoring: NEG mask differs from the plain version's")
+    e9 = float((s9 - s9r)[live9].abs().max())
+    if max(e5, e9) > 1e-4 * scale:
+        fail(f"windowed B5/B9 scoring: max |err| {max(e5, e9)} > 1e-4 * {scale}")
+    noisy = s0 + 0.01 * scale * torch.randn(s0.shape, generator=g, device=dev)
+    noisy = torch.where(s0 > -1e38, noisy, s0)
+    warm = ref.gvr_topk_ref(noisy, torch.zeros((b, k), dtype=torch.int32, device=dev), k)[1]
+    prev = torch.stack([
+        warm[0], torch.randint(0, n, (k,), generator=g, device=dev).int(),
+        torch.full((k,), -1, dtype=torch.int32, device=dev),
+        torch.linspace(0, lengths[3] - 1, k, device=dev).int()]).contiguous()
+    for pr, name in ((prev, "warm/random/-1/even"), (warm, "warm")):
+        v1, i1, st1 = ops.gvr_topk(s2, pr, k, max_candidates=cmax)
+        v0, i0, st0 = ref.gvr_topk_ref(s2, pr, k, max_candidates=cmax)
+        torch.cuda.synchronize()
+        if not (torch.equal(i1, i0) and torch.equal(v1, v0)
+                and torch.equal(st1[:, 4:], st0[:, 4:])):
+            fail(f"B1 on windowed rows ({name}): differs from the plain version")
+    lo = (ln - win).clamp(min=0)
+    if not bool((i1 >= lo[:, None]).all()):
+        fail("B1 on windowed rows selected a position below length - window")
+    log(f"[kernels] window {win} (h2o-danube): B2 scoring NEG outside "
+        f"[length - window, length), max|err| {err:.3e} (scale {scale:.3e}); "
+        f"{ctas}; B5 == B2 and B9 rows == B2 at their own lengths bit for "
+        f"bit (max|err| {e5:.3e} / {e9:.3e}); B1 exact on the windowed rows "
+        f"(warm, random, -1, even); per-row [secant, refine, cand, full-row] "
+        f"= {st1[:, :4].int().tolist()}")
+    # times: the scoring launches with and without the window; B1 on the
+    # windowed rows. Bound: the keys of [lo, length) once, q, w, table,
+    # lengths, the f32 row written
+    in_keys = sum(-(-int(L) // ps) - int(lo_) // ps for L, lo_ in zip(lengths, lo.tolist()))
+    flops = 2 * hi * di * int(inside.sum())
+    out = {}
+    for key, fn, fn_free, plain, bnd in (
+            ("B2", lambda: ops.paged_indexer_scores(qi, pages, w, table, ln, win),
+             lambda: ops.paged_indexer_scores(qi, pages, w, table, ln),
+             lambda: ref.paged_indexer_scores_ref(qi, pages, w, table, ln, win),
+             bound_ms(qi.numel() * 2 + in_keys * ps * di * 2 + hi * 4
+                      + table.numel() * 4 + b * 4 + b * n * 4, flops)),
+            ("B5", lambda: ops.indexer_scores(qi, kc5, w, ln, win),
+             lambda: ops.indexer_scores(qi, kc5, w, ln),
+             lambda: ref.indexer_scores_ref(qi, kc5, w, ln, win),
+             bound_ms(qi.numel() * 2 + int(inside.sum()) * di * 2 + hi * 4
+                      + b * 4 + b * n * 4, flops))):
+        tw, tf = time_ms(fn, flush), time_ms(fn_free, flush)
+        tp = time_ms(plain, flush, iters=5)
+        out[key] = dict(ms=tw["ms"], free_ms=tf["ms"], plain_ms=tp["ms"],
+                        bound=bnd)
+        log(f"[kernels] {key} scoring under the window: device {tw['ms']:.5f} "
+            f"ms (without it {tf['ms']:.5f}), plain {tp['ms']:.5f} ms, bound "
+            f"{bnd[0]:.5f} ms ({bnd[1]}), {tw['ms'] / bnd[0]:.1f}x")
+    t1 = time_ms(lambda: ops.gvr_topk(s2, prev, k, max_candidates=cmax), flush)
+    p1 = time_ms(lambda: ref.gvr_topk_ref(s2, prev, k, max_candidates=cmax),
+                 flush, iters=5)
+    out["B1"] = dict(ms=t1["ms"], plain_ms=p1["ms"],
+                     bound=bound_ms(b * n * 4 + prev.numel() * 4 + b * k * 8
+                                    + b * 32, 0))
+    log(f"[kernels] B1 on the windowed rows: device {t1['ms']:.5f} ms, wall "
+        f"{t1['wall_ms']:.5f} ms, plain {p1['ms']:.5f} ms")
+    return out
+
+
 def _engine_run(model, params, *, max_len, specs, hook=None, **layout):
     """Serve `specs` [(prompt, max_new, arrival)] through a fresh 4-slot
     engine of the given layout, with the launch counts zeroed just before
@@ -972,7 +1253,8 @@ def phase_main(model, params, specs):
     finally:
         restore()
     paths = _paths(eng, reqs)
-    log(f"[main] llama3.2-1b full width, max_len 8192, 4 slots, "
+    log(f"[main] llama3.2-1b full width, {model.cfg.n_layers} layers, "
+        f"max_len 8192, 4 slots, beside h2o-danube's two engine processes, "
         f"{len(reqs)} requests: {rep.decoded_tokens} decoded + "
         f"{rep.prefill_tokens} prefill tokens in {rep.ticks} ticks, "
         f"{rep.wall_s:.3f} s wall, {rep.tokens_per_s:.2f} decoded tokens/s, "
@@ -1006,7 +1288,8 @@ def phase_dense_layout(model, params, specs, main_tokens):
                                          specs=specs, kv_layout="dense")
     steps = counts["gvr_topk"] // model.cfg.n_layers
     paths = _check_paths("[dense-layout]", eng, reqs)
-    log(f"[dense-layout] llama3.2-1b full width, max_len 8192, 4 slots: "
+    log(f"[dense-layout] llama3.2-1b full width, {model.cfg.n_layers} "
+        f"layers, max_len 8192, 4 slots: "
         f"{rep.decoded_tokens} decoded + {rep.prefill_tokens} prefill tokens "
         f"in {rep.ticks} ticks, {rep.wall_s:.3f} s wall, "
         f"{rep.tokens_per_s:.2f} decoded tokens/s, {steps} model steps, "
@@ -1135,7 +1418,8 @@ def phase_step(model, params, cpu_params, rng, flush, tag="[step]",
                        dtype=cpu_state["idx_k_pages"].dtype)
     s0 = ref.paged_indexer_scores_ref(q0, cpu_state["idx_k_pages"][0],
                                       lay0["indexer"]["w"].float(),
-                                      cpu_state["page_table"], cpu_state["length"] + 1)
+                                      cpu_state["page_table"], cpu_state["length"] + 1,
+                                      cfg.swa_window)
     for row in range(b):
         a = set(new_gpu["prev_topk"][0, row].cpu().tolist())
         c = set(new_cpu["prev_topk"][0, row].tolist())
@@ -1493,48 +1777,72 @@ def moe_specs(rng, vocab):
             (rng.integers(0, vocab, (24,)), 8, 1)]
 
 
-def phase_moe(model, params, specs):
-    """The MoE family's main path: the [moe] trace through the paged
-    fused engine (B2/B1/B3), then through the dense layout (B5/B1/B6), one
-    engine at a time (each holds a 12.4 GiB cache beside 53.8 GiB of
-    weights). The two layouts' tokens must be equal."""
+_LAYOUT_NEED = {"paged": ("paged_indexer_scores", "gvr_topk",
+                          "paged_sparse_decode_attn"),
+                "dense": ("indexer_scores", "gvr_topk", "sparse_decode_attn")}
+_LAYOUT_KW = {"paged": {}, "dense": dict(kv_layout="dense")}
+
+
+def _layout_run(model, params, specs, layout, tag):
+    """One engine run of a trace at max_len 8192 and 4 slots in one
+    layout ("paged": fused, B2/B1/B3; "dense": B5/B1/B6): paths R then all
+    G and the layout's kernels launched, else it fails. Returns what
+    `_log_layout_run` prints, JSON-serialisable."""
     import torch
-    cfg = model.cfg
-    runs = {}
-    for layout, kw, need in (
-            ("paged fused", {}, ("paged_indexer_scores", "gvr_topk",
-                                 "paged_sparse_decode_attn")),
-            ("dense layout", dict(kv_layout="dense"),
-             ("indexer_scores", "gvr_topk", "sparse_decode_attn"))):
-        torch.cuda.reset_peak_memory_stats()
-        eng, reqs, rep, counts = _engine_run(model, params, max_len=8192,
-                                             specs=specs, **kw)
-        paths = _check_paths(f"[moe] {layout}", eng, reqs)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        steps = counts["gvr_topk"] // cfg.n_layers
-        log(f"[moe] {cfg.name}, {layout}, {cfg.n_layers} layers, max_len "
-            f"8192, 4 slots, {len(reqs)} requests: {rep.decoded_tokens} "
-            f"decoded + {rep.prefill_tokens} prefill tokens in {rep.ticks} "
-            f"ticks, {rep.wall_s:.3f} s wall, {rep.tokens_per_s:.3f} decoded "
-            f"tokens/s, {steps} model steps, "
-            f"{rep.wall_s / max(steps, 1) * 1e3:.3f} ms host wall per step, "
-            f"gvr_hit_rate {rep.gvr_hit_rate:.4f}, prefix_hit_tokens "
-            f"{rep.prefix_hit_tokens}, peak device memory {peak:.3f} GiB")
-        log(f"[moe] {layout} selector path per request (R radix/cold, G "
-            f"gvr): {paths}; launches: {counts}")
-        _need(f"[moe] {layout}", counts, need)
-        runs[layout] = ([list(r.generated) for r in reqs], counts)
-        del eng, reqs
-        gc.collect()
-        torch.cuda.empty_cache()
-    (paged, paged_counts), (dense, dense_counts) = runs.values()
-    if paged != dense:
-        bad = [i for i, (a, c) in enumerate(zip(paged, dense)) if a != c]
-        fail(f"[moe] dense-layout tokens differ from the paged run's for "
+    torch.cuda.reset_peak_memory_stats()
+    eng, reqs, rep, counts = _engine_run(model, params, max_len=8192,
+                                         specs=specs, **_LAYOUT_KW[layout])
+    paths = _check_paths(f"{tag} {layout}", eng, reqs)
+    _need(f"{tag} {layout}", counts, _LAYOUT_NEED[layout])
+    out = dict(layout=layout, tokens=[list(map(int, r.generated)) for r in reqs],
+               counts=counts, paths={u: len(p) for u, p in paths.items()},
+               decoded=rep.decoded_tokens, prefill=rep.prefill_tokens,
+               ticks=rep.ticks, wall_s=rep.wall_s, tokens_per_s=rep.tokens_per_s,
+               gvr_hit_rate=rep.gvr_hit_rate, prefix_hit=rep.prefix_hit_tokens,
+               steps=counts["gvr_topk"] // model.cfg.n_layers,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del eng, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _log_layout_run(tag, cfg, specs, res, note=""):
+    log(f"{tag} {cfg.name}, {res['layout']}, {cfg.n_layers} layers, max_len "
+        f"8192, 4 slots, prompts {[len(p) for p, _, _ in specs]}{note}: "
+        f"{res['decoded']} decoded + {res['prefill']} prefill tokens in "
+        f"{res['ticks']} ticks, {res['wall_s']:.3f} s wall, "
+        f"{res['tokens_per_s']:.3f} decoded tokens/s, {res['steps']} model "
+        f"steps, {res['wall_s'] / max(res['steps'], 1) * 1e3:.3f} ms host wall "
+        f"per step, gvr_hit_rate {res['gvr_hit_rate']:.4f}, prefix_hit_tokens "
+        f"{res['prefix_hit']}, peak device memory {res['peak_gib']:.3f} GiB")
+    log(f"{tag} {res['layout']} selector path per request: R then all G "
+        f"({ {u: n for u, n in res['paths'].items()} } ticks); launches: "
+        f"{res['counts']}")
+
+
+def _same_tokens(tag, paged, dense):
+    if paged["tokens"] != dense["tokens"]:
+        bad = [i for i, (a, c) in enumerate(zip(paged["tokens"], dense["tokens"]))
+               if a != c]
+        fail(f"{tag} dense-layout tokens differ from the paged run's for "
              f"requests {bad}")
-    log(f"[moe] dense-layout tokens == paged fused tokens for every request: "
-        f"{paged}")
-    return paged_counts, dense_counts
+    log(f"{tag} dense-layout tokens == paged fused tokens for every request: "
+        f"{paged['tokens']}")
+
+
+def phase_two_layouts(model, params, specs, tag):
+    """A model family's main path: a trace through the paged fused engine
+    (B2/B1/B3), then through the dense layout (B5/B1/B6), one engine at a
+    time (`_layout_run`); the two layouts' tokens must be equal. [moe]
+    and the cut-depth [dense-family] runs. Returns the two runs' launch
+    counts."""
+    runs = {}
+    for layout in ("paged", "dense"):
+        runs[layout] = _layout_run(model, params, specs, layout, tag)
+        _log_layout_run(tag, model.cfg, specs, runs[layout])
+    _same_tokens(tag, runs["paged"], runs["dense"])
+    return runs["paged"]["counts"], runs["dense"]["counts"]
 
 
 def _first_layers(tree, n):
@@ -1542,6 +1850,18 @@ def _first_layers(tree, n):
     if isinstance(tree, dict):
         return {k: _first_layers(v, n) for k, v in tree.items()}
     return tree[:n]
+
+
+def _cut_vs_cpu(model, params, rng, flush, tag):
+    """The first 2 layers of a model's weights (views, full width) through
+    one step on the card and through the plain path on the CPU
+    (`phase_step`, unprofiled); the whole model has no CPU copy."""
+    from repro_torch.models.api import build_model
+    cut = build_model(dataclasses.replace(model.cfg, n_layers=2),
+                      device=model.device)
+    cut_params = {**params, "layers": _first_layers(params["layers"], 2)}
+    phase_step(cut, cut_params, _to_cpu(cut_params), rng, flush,
+               tag=f"{tag} 2-layer cut", profile=False)
 
 
 def phase_moe_step(model, params, rng, flush):
@@ -1552,7 +1872,6 @@ def phase_moe_step(model, params, rng, flush):
     through the plain path on the CPU (`phase_step`; the full model has no
     CPU copy)."""
     import torch
-    from repro_torch.models.api import build_model
     from repro_torch.models.layers import moe_mlp_dense_fallback
     from repro_torch.models.transformer import layer_params
     cfg = model.cfg
@@ -1581,15 +1900,194 @@ def phase_moe_step(model, params, rng, flush):
         f"{moe['wall_ms']:.5f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}), "
         f"{moe['ms'] / bnd[0]:.2f}x; x {cfg.n_layers} layers = "
         f"{per_step:.3f} ms, {share} of the step's device time")
-    cut = build_model(dataclasses.replace(cfg, n_layers=2), device=model.device)
-    cut_params = {**params, "layers": _first_layers(params["layers"], 2)}
-    phase_step(cut, cut_params, _to_cpu(cut_params), rng, flush,
-               tag="[moe-step] 2-layer cut", profile=False)
+    _cut_vs_cpu(model, params, rng, flush, "[moe-step]")
     return dict(wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
                 moe_ms=moe["ms"])
 
 
+# the [dense-family] trace: one prompt longer than h2o-danube's window of
+# 4096, so that the last rows of its prefill and every decode row are cut
+FAMILY_LONG_PROMPT = 4200
+
+
+def family_specs(rng, vocab):
+    """The [dense-family] trace: prompts of FAMILY_LONG_PROMPT, 300, 64
+    and 40 tokens, 8 new tokens each; the 64-token prompt is the 300-token
+    one's first page and arrives once that page is in the prefix cache."""
+    mid = rng.integers(0, vocab, (300,))
+    return [(rng.integers(0, vocab, (FAMILY_LONG_PROMPT,)), 8, 0), (mid, 8, 0),
+            (mid[:64].copy(), 8, 8), (rng.integers(0, vocab, (40,)), 8, 1)]
+
+
+def short_family_specs(rng, vocab):
+    """The trace of the cut-depth family runs: prompts of 300, 64 (the
+    first one's first page, arriving once it is cached) and 40 tokens, 8
+    new tokens each."""
+    first = rng.integers(0, vocab, (300,))
+    return [(first, 8, 0), (first[:64].copy(), 8, 8),
+            (rng.integers(0, vocab, (40,)), 8, 1)]
+
+
+# h2o-danube-3-4b's two layouts run in two child processes beside the
+# llama engine phases (`python3 chip_smoke.py --family-engine
+# paged|dense`). This is what fits the 1200 s limit: the prompt past the
+# window prefills one token a model step, ~4,600 steps of 24 layers a
+# layout at ~85 ms each (host-bound, the card idle ~85% of a step), so
+# ~400 s a layout and ~800 s for both in this process, where the rest of
+# the script, the build included, takes ~730 s on the H100. Side by side
+# the two layouts and the llama engine phases end together (~430 s); the
+# llama engines' host walls read higher while they run (PERF.md), and
+# the profiled llama steps wait for the children.
+FAMILY_ARCH = "h2o-danube-3-4b"
+FAMILY_CHILD_TIMEOUT_S = 900
+
+
+def family_engine_child(layout: str) -> int:
+    """A child's work: h2o-danube-3-4b at full width and depth, seed 0,
+    the [dense-family] trace in one layout; prints the run as JSON last."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config(FAMILY_ARCH)
+    model = build_model(cfg)
+    params = model.init_params(seed=0)
+    res = _layout_run(model, params, family_specs(np.random.default_rng(20),
+                                                  cfg.vocab),
+                      layout, "[dense-family]")
+    torch.cuda.synchronize()
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def start_family_children(log_dir: Path):
+    """Start one child per layout; their output goes to log files."""
+    log_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for layout in ("paged", "dense"):
+        f = open(log_dir / f"family_{layout}.log", "w")
+        procs[layout] = (subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--family-engine",
+             layout], stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT)), f)
+    return procs
+
+
+def stop_family_children(procs) -> None:
+    for proc, f in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        f.close()
+
+
+def join_family_children(procs, log_dir: Path, specs, cfg):
+    """Wait for both children, print their runs, hold the tokens equal.
+    Returns (paged counts, dense counts)."""
+    runs = {}
+    for layout, (proc, f) in procs.items():
+        try:
+            rc = proc.wait(timeout=FAMILY_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"[dense-family] the {layout} child ran past "
+                 f"{FAMILY_CHILD_TIMEOUT_S} s")
+        f.close()
+        text = (log_dir / f"family_{layout}.log").read_text().strip()
+        if rc != 0:
+            fail(f"[dense-family] the {layout} child exited {rc}: "
+                 f"{text[-3000:]}")
+        runs[layout] = json.loads(text.splitlines()[-1])
+        _log_layout_run("[dense-family]", cfg, specs, runs[layout],
+                        " (a child process, beside the llama phases)")
+    _same_tokens("[dense-family]", runs["paged"], runs["dense"])
+    return runs["paged"]["counts"], runs["dense"]["counts"]
+
+
+FAMILY_STEP_LENGTHS = [8000, 5000, 1000, 3001]   # [dense-family-step]
+FAMILY_CUT_DEPTH = 4     # layers of chatglm3-6b, qwen2-vl-7b and granite-34b
+# moonshot-v1-16b-a3b's layers in [moe] and [moe-step] (of 48): cut so
+# that h2o-danube-3-4b's full-depth engines fit the time limit
+MOE_DEPTH = 12
+# llama3.2-1b's layers in [main] and [dense-layout] (of 16): the two
+# longest llama phases, they run beside h2o-danube's child processes
+MAIN_DEPTH = 8
+
+
+def phase_family_step(model, params, rng, flush, tag):
+    """One B=4 DSA step at FAMILY_STEP_LENGTHS under the profiler (slots 0
+    and 1 past h2o-danube's window), then a 2-layer cut of the same
+    weights at full width on the card against the plain path on the CPU
+    (`phase_step`)."""
+    import torch
+    cfg = model.cfg
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(99)
+    st = _random_step_state(model, g, dev, FAMILY_STEP_LENGTHS, per_layer=True)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab, (4,)), dtype=torch.int32,
+                          device=dev)
+    prof = _profile_step(params, st, tokens, cfg, flush, tag)
+    del st
+    torch.cuda.empty_cache()
+    _cut_vs_cpu(model, params, rng, flush, tag)
+    return prof
+
+
+def phase_family_cut(arch, depth, rng, flush):
+    """One more config of the dense family at full width and `depth`
+    layers: built and initialised on the card, the short trace through
+    both layouts (`phase_two_layouts`), then its first 2 layers against
+    the CPU plain path (`phase_step`). The model is freed before it
+    returns."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=depth)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(seed=0)
+    torch.cuda.synchronize()
+    tag = f"[dense-family] {arch}"
+    log(f"{tag}: full width, depth cut to {depth} of {full.n_layers} "
+        f"layers ({cfg.param_count() / 1e9:.3f} B params, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB on the card; at "
+        f"full depth {full.param_count() / 1e9:.3f} B, "
+        f"{full.param_count() * 2 / 2 ** 30:.1f} GiB in bf16), random init in "
+        f"{time.perf_counter() - t0:.3f} s; H/KVH {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, hd {cfg.hd}, rope {cfg.rope_kind} over "
+        f"{cfg.rope_fraction} of the dims")
+    counts = phase_two_layouts(model, params,
+                                  short_family_specs(rng, cfg.vocab), tag)
+    _cut_vs_cpu(model, params, rng, flush, tag)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_llama_phases(model, params, cpu_params, rng, specs, timed):
+    """The llama3.2-1b engine phases, [main] through [dense], which run
+    beside h2o-danube's child processes (their host walls with them);
+    returns their launch counts (main, dense-layout, gather, page, spec,
+    dense). [main] and [dense-layout] run the first MAIN_DEPTH layers
+    (views of the same weights, full width), the other phases all 16. The
+    profiled steps, [step] and [verify-step], run after the children."""
+    from repro_torch.models.api import build_model
+    cut = build_model(dataclasses.replace(model.cfg, n_layers=MAIN_DEPTH),
+                      device=model.device)
+    cut_params = {**params, "layers": _first_layers(params["layers"], MAIN_DEPTH)}
+    main_counts, main_tokens = timed("main", phase_main, cut, cut_params, specs)
+    dl_counts = timed("dense-layout", phase_dense_layout, cut, cut_params,
+                      specs, main_tokens)
+    timed("layouts", phase_layouts, model, params, cpu_params, rng)
+    gather_counts, page_counts, fused = timed("gather+page", phase_gather_page,
+                                              model, params, rng)
+    spec_counts = timed("spec", phase_spec, model, params, fused)
+    dense_counts = timed("dense", phase_dense, model, params, rng)
+    return (main_counts, dl_counts, gather_counts, page_counts, spec_counts,
+            dense_counts)
+
+
 def main() -> int:
+    child = sys.argv[1:3] if sys.argv[1:2] == ["--family-engine"] else None
     try:
         import torch
     except ImportError:
@@ -1609,6 +2107,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if child is not None:
+        return family_engine_child(child[1])
     t_start = time.perf_counter()
     log(f"[env] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -1621,6 +2121,9 @@ def main() -> int:
     kres = phase_kernels(cfg, flush)
     mcfg = get_config("moonshot-v1-16b-a3b")
     kres_moe = phase_kernels_moe_width(mcfg, flush)
+    kres_family = phase_kernels_family_widths(flush)
+    dcfg = get_config("h2o-danube-3-4b")
+    kres_window = phase_kernels_window(dcfg, flush)
 
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -1638,36 +2141,66 @@ def main() -> int:
         log(f"[phase] {name}: {time.perf_counter() - t:.3f} s")
         return out
 
-    main_counts, main_tokens = timed("main", phase_main, model, params, specs)
-    dl_counts = timed("dense-layout", phase_dense_layout, model, params, specs,
-                      main_tokens)
+    # h2o-danube-3-4b's [dense-family] engines start now, in two child
+    # processes, and are joined after the llama phases
+    family_dir = ROOT / "build" / "chip_smoke"
+    fspecs = family_specs(np.random.default_rng(20), dcfg.vocab)
+    children = start_family_children(family_dir)
+    try:
+        llama = run_llama_phases(model, params, cpu_params, rng, specs, timed)
+        fam_paged, fam_dense = timed("dense-family (join)", join_family_children,
+                                     children, family_dir, fspecs, dcfg)
+    finally:
+        stop_family_children(children)
+    # llama's profiled steps, with the card to this process alone
     timed("step", phase_step, model, params, cpu_params, rng, flush)
-    timed("layouts", phase_layouts, model, params, cpu_params, rng)
-    gather_counts, page_counts, fused = timed("gather+page", phase_gather_page,
-                                              model, params, rng)
-    spec_counts = timed("spec", phase_spec, model, params, fused)
     timed("verify-step", phase_verify_step, model, params, rng)
-    dense_counts = timed("dense", phase_dense, model, params, rng)
+    (main_counts, dl_counts, gather_counts, page_counts, spec_counts,
+     dense_counts) = llama
 
-    # the MoE family at full width and depth: llama's model and its CPU
-    # copy go first, and no CPU copy of this one is made
+    # the MoE family at full width and MOE_DEPTH layers: llama's model and
+    # its CPU copy go first, and no CPU copy of this one is made
     del model, params, cpu_params
     gc.collect()
     torch.cuda.empty_cache()
-    mmodel = build_model(mcfg)
+    mmodel = build_model(dataclasses.replace(mcfg, n_layers=MOE_DEPTH))
     t0 = time.perf_counter()
     mparams = mmodel.init_params(seed=0)
     torch.cuda.synchronize()
-    log(f"[moe] {mcfg.name}: params {mcfg.param_count() / 1e9:.3f} B "
-        f"(approx), {mcfg.active_param_count() / 1e9:.3f} B active per token, "
-        f"bf16, {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB on the card, "
-        f"random init in {time.perf_counter() - t0:.3f} s")
-    moe_paged, moe_dense = timed("moe", phase_moe, mmodel, mparams,
-                                 moe_specs(np.random.default_rng(19), mcfg.vocab))
+    log(f"[moe] {mcfg.name}: full width, depth cut to {MOE_DEPTH} of "
+        f"{mcfg.n_layers} layers (the script's time limit); params "
+        f"{mmodel.cfg.param_count() / 1e9:.3f} B (approx; {mcfg.param_count() / 1e9:.3f} B "
+        f"at full depth), {mmodel.cfg.active_param_count() / 1e9:.3f} B active "
+        f"per token, bf16, {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB "
+        f"on the card, random init in {time.perf_counter() - t0:.3f} s")
+    moe_paged, moe_dense = timed(
+        "moe", phase_two_layouts, mmodel, mparams,
+        moe_specs(np.random.default_rng(19), mcfg.vocab), "[moe]")
     timed("moe-step", phase_moe_step, mmodel, mparams, rng, flush)
     del mmodel, mparams
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the rest of the dense family: h2o-danube-3-4b's step at full width
+    # and depth (its engines ran above), then chatglm3-6b, qwen2-vl-7b and
+    # granite-34b at full width and a cut depth, one model at a time
+    dmodel = build_model(dcfg)
+    t0 = time.perf_counter()
+    dparams = dmodel.init_params(seed=0)
+    torch.cuda.synchronize()
+    log(f"[dense-family] {dcfg.name}: params {dcfg.param_count() / 1e9:.3f} B "
+        f"(approx), bf16, {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB on "
+        f"the card, random init in {time.perf_counter() - t0:.3f} s; window "
+        f"{dcfg.swa_window}, H/KVH {dcfg.n_heads}/{dcfg.n_kv_heads}, hd "
+        f"{dcfg.hd}, depth not cut")
+    timed("dense-family-step", phase_family_step, dmodel, dparams, rng, flush,
+          "[dense-family-step]")
+    del dmodel, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in ("chatglm3-6b", "qwen2-vl-7b", "granite-34b"):
+        timed(f"dense-family {arch}", phase_family_cut, arch, FAMILY_CUT_DEPTH,
+              rng, flush)
 
     rows = [("B1 gvr_topk", "gvr_topk.cu", "src/repro/kernels/gvr_topk.py:334",
              main_counts["gvr_topk"]),
@@ -1728,20 +2261,57 @@ def main() -> int:
                      moe_width_bound_ms=m["bound"][0],
                      moe_width_plain_ms=m["plain_ms"],
                      moe_width_max_abs_err=m["err"])
+    # launches on the [dense-family] paths of h2o-danube-3-4b (B1, B2, B3
+    # paged; B5, B6 dense layout); B3/B4/B6/B8/B10 at the rest of the
+    # family's widths; B1, B2 and B5 scoring under the window
+    for r, counts, key in ((kernels[0], fam_paged, "gvr_topk"),
+                           (kernels[1], fam_paged, "paged_indexer_scores"),
+                           (kernels[2], fam_paged, "paged_sparse_decode_attn"),
+                           (kernels[4], fam_dense, "indexer_scores"),
+                           (kernels[5], fam_dense, "sparse_decode_attn")):
+        r["dense_family_launches"] = int(counts[key])
+    for r in kernels:
+        short = r["name"].split()[0]
+        for label, res in kres_family.items():
+            m = res.get(short)
+            if m is not None:
+                r.update({f"{label}_width_ms": m["ms"],
+                          f"{label}_width_wall_ms": m["wall_ms"],
+                          f"{label}_width_bound_ms": m["bound"][0],
+                          f"{label}_width_plain_ms": m["plain_ms"],
+                          f"{label}_width_max_abs_err": m["err"]})
+        m = kres_window.get(short)
+        if m is not None and short == "B1":
+            r.update(window_ms=m["ms"], window_plain_ms=m["plain_ms"],
+                     window_bound_ms=m["bound"][0])
+        elif m is not None:
+            r.update(window_scoring_ms=m["ms"],
+                     window_scoring_free_ms=m["free_ms"],
+                     window_scoring_plain_ms=m["plain_ms"],
+                     window_scoring_bound_ms=m["bound"][0])
     # B10 also on rows of 131,072 positions (B = 4, K = 2048)
     long10 = kres["B10 N=131072"]
     next(r for r in kernels if r["name"].startswith("B10 ")).update(long_row_ms=long10["ms"], long_row_plain_ms=long10["plain_ms"],
                        long_row_bound_ms=long10["bound"][0],
                        long_row_max_abs_err=long10["err"])
     # the redesign order: device time lost against the bound over each
-    # kernel's path in this run; B2, B5 and B9 by their scoring launch
-    # alone, so that B1 (their second launch) is counted once
-    lost = sorted(((k["launches"] * (k.get("scoring_ms", k["ms"])
-                                     - k.get("scoring_bound_ms", k["bound_ms"])) / 1e3,
+    # kernel's path in this run, at llama's full depth: B1, B2, B3, B5 and
+    # B6 were counted in [main] and [dense-layout], which ran MAIN_DEPTH
+    # layers, so their launches count n_layers / MAIN_DEPTH times; B2, B5
+    # and B9 by their scoring launch alone, so that B1 (their second
+    # launch) is counted once
+    depth = cfg.n_layers / MAIN_DEPTH
+
+    def at_depth(k):
+        return k["launches"] * (depth if k["name"].split()[0] in
+                                ("B1", "B2", "B3", "B5", "B6") else 1)
+
+    lost = sorted(((at_depth(k) * (k.get("scoring_ms", k["ms"])
+                                   - k.get("scoring_bound_ms", k["bound_ms"])) / 1e3,
                     k["name"].split()[0] + (" scoring" if "scoring_ms" in k else ""))
                    for k in kernels), reverse=True)
-    log("[summary] launches x (ms - bound_ms): " + ", ".join(
-        f"{name} {sec:.4f} s" for sec, name in lost))
+    log(f"[summary] launches at {cfg.n_layers} layers x (ms - bound_ms): "
+        + ", ".join(f"{name} {sec:.4f} s" for sec, name in lost))
     log(f"[summary] total {time.perf_counter() - t_start:.3f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

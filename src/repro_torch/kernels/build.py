@@ -45,14 +45,15 @@ SIGNATURES = {
                  "gvr_cluster_capacity": [_I, _I, _I, _I]},
     "indexer_scores": {"indexer_scores_fma_launch": [_I, _I, _P, _P, _P, _I,
                                                      _P, _P, _I, _I, _I, _I,
-                                                     _I, _I, _I, _I, _P, _P],
+                                                     _I, _I, _I, _I, _I, _P,
+                                                     _P],
                        "indexer_scores_mma_launch": [_I, _P, _P, _P, _I, _P,
                                                      _P, _I, _I, _I, _I, _I,
-                                                     _I, _I, _I, _I, _I, _P,
-                                                     _P]},
-    "decode_attn": {"decode_attn_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P,
-                                           _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                           _I, _I, _F, _P, _P, _P, _P]},
+                                                     _I, _I, _I, _I, _I, _I,
+                                                     _P, _P]},
+    "decode_attn": {"decode_attn_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                           _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                           _I, _I, _I, _F, _P, _P, _P, _P]},
     "paged_gather": {"paged_gather_launch": [_P, _P, _I, _I, _I, _L, _I, _P,
                                              _P]},
 }

@@ -23,9 +23,33 @@
 //       (kernel _paged_attn_pg_kernel) — one grid step per distinct touched
 //       page, loaded whole, the unselected rows masked.
 //
-// The split over rows. The grid is (splits, KVH, rows): one CTA of four
-// warps serves one split of one (KV head, row) pair and its G = H/KVH query
-// heads (GQA: head h reads KV head h / G). A split is a fixed run of R
+// The split over rows. The grid is (splits, KVH x head chunks, rows): one
+// CTA of four warps serves one split of one (KV head, row) pair and one
+// chunk of its grp = H/KVH query heads (GQA: head h reads KV head h / grp).
+// A chunk is G <= 8 heads, the least power of two >= grp capped at 8
+// (ops.attn_head_chunk), because the body keeps q, the scores and the PV
+// sums of its G heads in registers (qf[G][EPL], s[G], acc[G]): at grp 48
+// (granite-34b, MQA) one CTA would hold 48 x 8 + 96 floats a thread and
+// spill, so grp 16 runs as 2 chunks of 8 and grp 48 as 6, each chunk
+// streaming the same K/V rows (the second and later from L2). A grp that
+// is no power of two (qwen2-vl's 7) runs as one chunk of 8 with the eighth
+// head masked (a zero q, no output): that costs an eighth of the scoring
+// FMAs, which the body has to spare (it is bound by its row gathers), and
+// no template instance of its own (build time). Each head's arithmetic is
+// that of the unchunked body (the heads share nothing but the rows), so a
+// chunked launch changes no sum. The workspace and the tickets are per
+// (row, KV head, chunk).
+//
+// The head dim. A row vector is C16 = HD*size/16 lanes of 16 bytes, HD a
+// power of two (32, 64, 128) so that a row's lanes are a power-of-two
+// group inside one warp (the butterfly sums) and the PV step's threads
+// tile 128. A head dim below its lane width (h2o-danube's 120) runs on
+// the 128-lane instance with the global strides at hd = 120: the lanes
+// past the row are zero-filled by cp.async's predicate without a read and
+// q's are zero, so they add exact zeros to each dot product's fixed
+// butterfly, and PV threads past hd sum zeros and write nothing.
+//
+// A split is a fixed run of R
 // entries of the row — R Top-K entries for B3/B6/B8, R positions (whole
 // pages, R a multiple of ps) for B4 and B10 — so the split count
 // ceil(count / R) depends on the row's entry count (B4, B10: the table's
@@ -43,8 +67,9 @@
 //
 // The combine. Each CTA of a multi-split row writes its partial
 // (m, l, acc[G][hd]) in f32 to a workspace the wrapper allocates; the last
-// CTA of the (row, KV head) pair to finish — an atomic ticket it resets
-// itself, so one launch does both passes — merges the partials in split
+// CTA of the (row, KV head, head chunk) triple to finish — an atomic
+// ticket, one per triple, that it resets itself, so one launch does both
+// passes — merges the partials in split
 // order with the guards `isfinite(m)` and l >= 1e-30, and writes 0 for an
 // all-masked row. The merge order is fixed and nothing else is atomic, so
 // two calls on the same inputs agree bit for bit; B6 over a contiguous
@@ -153,19 +178,29 @@ __device__ __forceinline__ void cp_async_wait() {
 struct Args {
   const void* q; const void* kp; const void* vp;
   const int* table; const int* idx; const int* lengths;
-  int rows, qrows, kvh, ps, mp, num_pages, kcols, window, rps, splits;
+  int rows, qrows, kvh, grp, chunks, hd, ps, mp, num_pages, kcols, window,
+      rps, splits;
   float scale;
   float* ws; unsigned* tickets; float* out;
   cudaStream_t stream;
 };
 
+// G: the heads of one CTA (a chunk of the KV head's grp query heads, the
+// last chunk's heads past grp masked); HD: the lane width of a row vector,
+// hd (the head dim, runtime) padded up to it. The compiler is held to 6
+// CTAs an SM at G <= 4 (at most 85 registers a thread) and to 4 elsewhere
+// (128): left free it gave the G 4 instances ~125 registers where they
+// had needed 72, and the launches of many CTAs (B4, B8) lost a third of
+// their occupancy. B10 keeps its 16 idx loads a thread in flight in
+// registers (~122), as before.
 template <typename T, int G, int HD, int MODE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads,
+                                  (G <= 4 && MODE != kPagedPages ? 6 : 4))
 decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ table,
                    const int* __restrict__ idx, const int* __restrict__ lengths,
-                   int kvh, int ps, int mp, int num_pages, int kcols,
-                   int window, int qrows, int rps, float scale,
+                   int kvh, int grp, int hd_arg, int ps, int mp, int num_pages,
+                   int kcols, int window, int qrows, int rps, float scale,
                    float* __restrict__ ws, unsigned* __restrict__ tickets,
                    float* __restrict__ out) {
   constexpr bool PG = MODE == kPagedPages;
@@ -176,6 +211,10 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   constexpr int NRG = kThreads / HD;         // row groups of the PV step
   static_assert(C16 >= 1 && C16 <= 32 && kTile % RPP == 0, "tile shape");
   static_assert(NRG >= 1 && kThreads % HD == 0, "PV shape");
+  // the head dim: the lane width itself below 128 lanes (a constant), the
+  // runtime value (120 or 128) at 128
+  const int hd = HD == 128 ? hd_arg : HD;
+  const int creal = hd / EPL;                // chunks that hold the row
 
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last_s, warp_n[kWarps];
@@ -195,9 +234,12 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   // B10 only: a 16-bit selection count per position of the split
   unsigned* cnt = reinterpret_cast<unsigned*>(l_s + G);        // ((rps+1)/2,)
 
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int nch = (int)gridDim.y / kvh;      // head chunks per KV head
+  const int kh = blockIdx.y / nch, hc = (blockIdx.y - kh * nch) * G;
+  const int gv = min(G, grp - hc);           // live heads of this chunk
   const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  const int h = kvh * G;
+  const int h = kvh * grp;
   const int len = lengths[b];
   const int ext = len < n ? len : n;
   const int* ib = idx ? idx + (size_t)b * kcols : nullptr;        // not B4
@@ -292,13 +334,15 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 
   // scoring: lane lc of each row group holds q's chunk lc for all G heads
+  // (zero past the row and for a masked head)
   const int lc = t % C16, rr = t / C16;
   float qf[G][EPL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const T* qg = q + ((size_t)b * h + kh * G + g) * HD + lc * EPL;
+    const bool live = g < gv && lc < creal;
+    const T* qg = q + ((size_t)b * h + kh * grp + hc + g) * hd + lc * EPL;
 #pragma unroll
-    for (int i = 0; i < EPL; ++i) qf[g][i] = to_f32(qg[i]);
+    for (int i = 0; i < EPL; ++i) qf[g][i] = live ? to_f32(qg[i]) : 0.f;
   }
   // PV: thread (d, rg) accumulates dimension d over rows r = rg mod NRG
   const int d = t % HD, rg = t / HD;
@@ -342,8 +386,10 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         const int e = tile * kTile + r;
         const int row = e < cl ? rows_s[e] : -1;
         const T* src = which ? vp : kp;
-        const T* gp = row >= 0 ? src + ((size_t)row * kvh + kh) * HD + c * EPL : src;
-        cp_async16((which ? vb : kb) + r * HD + c * EPL, gp, row >= 0);
+        // lanes past the row (hd < HD) are zero-filled without a read
+        const bool ld = row >= 0 && c < creal;
+        const T* gp = ld ? src + ((size_t)row * kvh + kh) * hd + c * EPL : src;
+        cp_async16((which ? vb : kb) + r * HD + c * EPL, gp, ld);
       }
     };
     issue(0);
@@ -447,26 +493,28 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
   }
 
-  float* ob = out + ((size_t)b * h + kh * G) * HD;
+  // the chunk's live heads, dimensions [0, hd) (threads past hd idle)
+  float* ob = out + ((size_t)b * h + kh * grp + hc) * hd;
   const int ns = PG ? live_pg : (int)gridDim.x;         // partials to merge
   if (ns == 1) {
-    if (t < HD) {
+    if (t < hd) {
 #pragma unroll
       for (int g = 0; g < G; ++g)
-        ob[g * HD + d] = isfinite(m_s[g]) ? acc[g] / fmaxf(l_s[g], 1e-30f) : 0.f;
+        if (g < gv)
+          ob[g * hd + d] = isfinite(m_s[g]) ? acc[g] / fmaxf(l_s[g], 1e-30f) : 0.f;
     }
     return;
   }
 
   // the combine: write this split's partial, draw a ticket; the last of the
-  // live CTAs of the (row, KV head) pair merges their partials in split
-  // order
-  constexpr int kPart = G * (HD + 2);                  // m[G], l[G], acc[G][HD]
-  const size_t pair = (size_t)b * kvh + kh;
+  // live CTAs of the (row, KV head, head chunk) triple merges their
+  // partials in split order
+  const int kPart = G * (hd + 2);                      // m[G], l[G], acc[G][hd]
+  const size_t pair = (size_t)b * gridDim.y + blockIdx.y;
   float* part = ws + (pair * gridDim.x + split) * kPart;
-  if (t < HD) {
+  if (t < hd) {
 #pragma unroll
-    for (int g = 0; g < G; ++g) part[2 * G + g * HD + d] = acc[g];
+    for (int g = 0; g < G; ++g) part[2 * G + g * hd + d] = acc[g];
   }
   if (t < G) { part[t] = m_s[t]; part[G + t] = l_s[t]; }
   __threadfence();
@@ -481,8 +529,11 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   if (!last_s) return;
   __threadfence();
   const float* pb = ws + pair * gridDim.x * kPart;
+  // a fixed trip count over the lane width (unrolled, shifts), the masked
+  // heads and the lanes past hd skipped
   for (int e = t; e < G * HD; e += kThreads) {
-    const int g = e / HD, dd = e - g * HD;
+    const int g = e / HD, dd = e % HD;
+    if (g >= gv || dd >= hd) continue;
     float mm = -INFINITY;
     for (int s = 0; s < ns; ++s) mm = fmaxf(mm, __ldcg(pb + (size_t)s * kPart + g));
     float res = 0.f;
@@ -494,11 +545,11 @@ decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         if (!isfinite(ms)) continue;
         const float f = expf(ms - mm);
         ll = fmaf(__ldcg(ps_ + G + g), f, ll);
-        aa = fmaf(__ldcg(ps_ + 2 * G + g * HD + dd), f, aa);
+        aa = fmaf(__ldcg(ps_ + 2 * G + g * hd + dd), f, aa);
       }
       res = aa / fmaxf(ll, 1e-30f);
     }
-    ob[g * HD + dd] = res;
+    ob[g * hd + dd] = res;
   }
 }
 
@@ -532,12 +583,12 @@ int launch(const Args& a) {
     }
     raised[dev] = smem;
   }
-  dim3 grid(a.splits, a.kvh, a.rows);
+  dim3 grid(a.splits, a.kvh * a.chunks, a.rows);
   kern<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.kp),
-      static_cast<const T*>(a.vp), a.table, a.idx, a.lengths, a.kvh, a.ps,
-      a.mp, a.num_pages, a.kcols, a.window, a.qrows, a.rps, a.scale, a.ws,
-      a.tickets, a.out);
+      static_cast<const T*>(a.vp), a.table, a.idx, a.lengths, a.kvh, a.grp,
+      a.hd, a.ps, a.mp, a.num_pages, a.kcols, a.window, a.qrows, a.rps,
+      a.scale, a.ws, a.tickets, a.out);
   return (int)cudaGetLastError();
 }
 
@@ -553,12 +604,13 @@ int by_mode(int mode, const Args& a) {
   }
 }
 
+// the lane width a head dim runs at: 32, 64, or 128 (hd 120 padded)
 template <typename T, int G>
 int by_hd(int hd, int mode, const Args& a) {
   switch (hd) {
     case 32: return by_mode<T, G, 32>(mode, a);
     case 64: return by_mode<T, G, 64>(mode, a);
-    case 128: return by_mode<T, G, 128>(mode, a);
+    case 120: case 128: return by_mode<T, G, 128>(mode, a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -576,9 +628,12 @@ int by_group(int g, int hd, int mode, const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q and both caches share it); g = H/KVH;
-// hd in {32, 64, 128}. Modes over `rows` query rows of q (rows, H, hd),
-// lengths (rows,), out (rows, H, hd) f32:
+// dtype: 0 = float32, 1 = bfloat16 (q and both caches share it); grp =
+// H/KVH query heads per KV head, laid over ceil(grp / gc) head chunks of gc
+// in {1, 2, 4, 8} heads (the last chunk's heads past grp masked); hd in
+// {32, 64, 120, 128} (120 runs on 128 lanes, the last 8 zero). Modes over
+// `rows` query rows of q (rows, H, hd), lengths (rows,), out (rows, H, hd)
+// f32:
 //   0 sparse over idx (rows, kcols) through table (rows, mp) into pools
 //     (num_pages, ps, kvh, hd);
 //   1 dense over [0, length) through the table, optional window (> 0);
@@ -589,14 +644,15 @@ int by_group(int g, int hd, int mode, const Args& a) {
 //   4 (B8) as 0 with row r on table row r / qrows of a (rows / qrows, mp)
 //     table.
 // A split covers rps entries (modes 1 and 3: rps positions, a multiple of
-// ps); the grid is (splits, kvh, rows), splits * rps >= kcols (modes 1 and
-// 3: >= mp * ps).
-// With splits > 1, ws holds rows * kvh * splits * g * (hd + 2) floats and
-// tickets rows * kvh zeroed int32 counters, left zero by the launch; a
-// launch that may overlap this one in time needs tickets of its own. The
-// schedule's limits (grid, int32 rows, 16-bit counts, shared memory) are
-// checked here alone: a launch beyond them returns an error code.
-extern "C" int decode_attn_launch(int dtype, int mode, int g, int hd,
+// ps); the grid is (splits, kvh * chunks, rows), splits * rps >= kcols
+// (modes 1 and 3: >= mp * ps).
+// With splits > 1, ws holds rows * kvh * chunks * splits * gc * (hd + 2)
+// floats and tickets rows * kvh * chunks zeroed int32 counters, left zero
+// by the launch; a launch that may overlap this one in time needs tickets
+// of its own. The schedule's limits (grid, int32 rows, 16-bit counts,
+// shared memory) are checked here alone: a launch beyond them returns an
+// error code.
+extern "C" int decode_attn_launch(int dtype, int mode, int grp, int gc, int hd,
                                   const void* q, const void* kp, const void* vp,
                                   const int* table, const int* idx,
                                   const int* lengths, int rows, int qrows,
@@ -604,7 +660,10 @@ extern "C" int decode_attn_launch(int dtype, int mode, int g, int hd,
                                   int kcols, int window, int rps, int splits,
                                   float scale, float* ws, unsigned* tickets,
                                   float* out, void* stream) {
-  if (rows < 1 || rows > 65535 || kvh < 1 || kvh > 65535 || splits < 1)
+  if (grp < 1 || gc < 1) return (int)cudaErrorInvalidValue;
+  const int chunks = (grp + gc - 1) / gc;
+  if (rows < 1 || rows > 65535 || kvh < 1 || (long long)kvh * chunks > 65535
+      || splits < 1)
     return (int)cudaErrorInvalidValue;
   if (qrows < 1 || rows % qrows != 0 || (mode != kPagedSparseMq && qrows != 1))
     return (int)cudaErrorInvalidValue;
@@ -620,10 +679,10 @@ extern "C" int decode_attn_launch(int dtype, int mode, int g, int hd,
     return (int)cudaErrorInvalidValue;
   if (splits > 1 && (ws == nullptr || tickets == nullptr))
     return (int)cudaErrorInvalidValue;
-  Args a{q, kp, vp, table, idx, lengths, rows, qrows, kvh, ps, mp, num_pages,
-         kcols, window, rps, splits, scale, ws, tickets, out,
-         (cudaStream_t)stream};
-  if (dtype == 0) return by_group<float>(g, hd, mode, a);
-  if (dtype == 1) return by_group<__nv_bfloat16>(g, hd, mode, a);
+  Args a{q, kp, vp, table, idx, lengths, rows, qrows, kvh, grp, chunks, hd,
+         ps, mp, num_pages, kcols, window, rps, splits, scale, ws, tickets,
+         out, (cudaStream_t)stream};
+  if (dtype == 0) return by_group<float>(gc, hd, mode, a);
+  if (dtype == 1) return by_group<__nv_bfloat16>(gc, hd, mode, a);
   return (int)cudaErrorInvalidValue;
 }

@@ -22,7 +22,16 @@
 // own q and length, so each of its score rows equals B2's for the same
 // slot and length bit for bit. Positions >= length and positions on
 // unmapped (-1) or out-of-range pages score the NEG sentinel and are never
-// read (a -1 is never clipped to page 0).
+// read (a -1 is never clipped to page 0). Under a sliding window (window >
+// 0, h2o-danube's 4096) a row scores only [lo, length), lo = max(0,
+// length - window) — the reference's `pos > length - 1 - window` mask
+// (src/repro/sparse/dsa.py:dsa_select) — and positions below lo score NEG
+// too: a tile wholly below lo is neither translated nor loaded, a tile
+// across it zero-fills its rows below lo without a read. At 8192
+// positions and a window of 4096 that halves the key bytes. B9's row r
+// takes its own lo from its own length L0 + q + 1. The masks touch no sum
+// of a kept position, so B5 == B2 and B9's rows == B2's hold under a
+// window as without.
 //
 // Bound on an H100: the key bytes, each slot's keys up to its length read
 // once (4.4 MB at the kernel phase's lengths 8192, 5000, 1000, 3001 with
@@ -118,15 +127,17 @@ __global__ void indexer_scores_fma_kernel(
     const float* __restrict__ q, const float* __restrict__ keys,
     const float* __restrict__ w, int w_stride, const int* __restrict__ table,
     const int* __restrict__ lengths, int h, int d, int tile, int mp,
-    int num_pages, int n_out, int qrows, float* __restrict__ scores) {
+    int num_pages, int n_out, int qrows, int window,
+    float* __restrict__ scores) {
   extern __shared__ float sm[];
   const int j = blockIdx.x, b = blockIdx.y;
   const int len = lengths[b];
+  const int lo = window > 0 ? max(0, len - window) : 0;   // the window's start
   const int base = j * tile;
   const int rows = CONTIG ? min(tile, n_out - base) : tile;
   float* out = scores + (size_t)b * n_out + base;
   const float* kb;
-  bool skip = base >= len;
+  bool skip = base >= len || base + rows <= lo;
   if constexpr (CONTIG) {
     kb = keys + ((size_t)b * n_out + base) * d;
   } else {
@@ -169,7 +180,7 @@ __global__ void indexer_scores_fma_kernel(
     const int groups = blockDim.x / tile;
     float tot = 0.f;
     for (int gg = 0; gg < groups; ++gg) tot += part[gg * tile + p];
-    out[p] = base + p < len ? tot : kNeg;
+    out[p] = base + p < len && base + p >= lo ? tot : kNeg;
   }
 }
 
@@ -177,7 +188,7 @@ template <int HG, bool CONTIG>
 int launch_fma(const float* q, const float* keys, const float* w,
                int w_stride, const int* table, const int* lengths, int rows,
                int h, int d, int tile, int mp, int num_pages, int n_out,
-               int qrows, float* scores, cudaStream_t stream) {
+               int qrows, int window, float* scores, cudaStream_t stream) {
   const int groups = h / HG;
   if (tile < 1 || tile * groups > 1024) return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)h * d + (size_t)d * tile + (size_t)groups * tile) * 4;
@@ -189,7 +200,7 @@ int launch_fma(const float* q, const float* keys, const float* w,
   dim3 grid((n_out + tile - 1) / tile, rows);
   kern<<<grid, tile * groups, smem, stream>>>(
       q, keys, w, w_stride, table, lengths, h, d, tile, mp, num_pages, n_out,
-      qrows, scores);
+      qrows, window, scores);
   return (int)cudaGetLastError();
 }
 
@@ -197,13 +208,13 @@ template <bool CONTIG>
 int fma_by_heads(int hg, const float* q, const float* keys, const float* w,
                  int w_stride, const int* table, const int* lengths, int rows,
                  int h, int d, int tile, int mp, int num_pages, int n_out,
-                 int qrows, float* scores, cudaStream_t st) {
+                 int qrows, int window, float* scores, cudaStream_t st) {
   switch (hg) {
-    case 1: return launch_fma<1, CONTIG>(q, keys, w, w_stride, table, lengths, rows, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
-    case 2: return launch_fma<2, CONTIG>(q, keys, w, w_stride, table, lengths, rows, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
-    case 4: return launch_fma<4, CONTIG>(q, keys, w, w_stride, table, lengths, rows, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
-    case 8: return launch_fma<8, CONTIG>(q, keys, w, w_stride, table, lengths, rows, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
-    case 16: return launch_fma<16, CONTIG>(q, keys, w, w_stride, table, lengths, rows, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
+    case 1: return launch_fma<1, CONTIG>(q, keys, w, w_stride, table, lengths, rows, h, d, tile, mp, num_pages, n_out, qrows, window, scores, st);
+    case 2: return launch_fma<2, CONTIG>(q, keys, w, w_stride, table, lengths, rows, h, d, tile, mp, num_pages, n_out, qrows, window, scores, st);
+    case 4: return launch_fma<4, CONTIG>(q, keys, w, w_stride, table, lengths, rows, h, d, tile, mp, num_pages, n_out, qrows, window, scores, st);
+    case 8: return launch_fma<8, CONTIG>(q, keys, w, w_stride, table, lengths, rows, h, d, tile, mp, num_pages, n_out, qrows, window, scores, st);
+    case 16: return launch_fma<16, CONTIG>(q, keys, w, w_stride, table, lengths, rows, h, d, tile, mp, num_pages, n_out, qrows, window, scores, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -251,22 +262,23 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
 
 // Row sources of tile j of row r: src[i] = the key row (of the flattened
 // (rows * n_out) cache or (num_pages * ps) pool) of position j*64 + i, or
-// -1 where that position is not scored (at or past lim; for pages,
+// -1 where that position is not scored (outside [lo, lim); for pages,
 // unmapped or outside the pool). One table read per position, all in
 // parallel; the CTA's copies then need no dependent load.
 template <bool CONTIG>
 __device__ __forceinline__ void tile_sources(
-    int* src, const int* trow, int r, int j, int lim, int ps, int num_pages,
-    int n_out) {
+    int* src, const int* trow, int r, int j, int lo, int lim, int ps,
+    int num_pages, int n_out) {
   for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
     const int pos = j * kTile + i;
+    const bool in = pos >= lo && pos < lim;
     int row = -1;
     if constexpr (CONTIG) {
-      if (pos < lim) row = r * n_out + pos;
+      if (in) row = r * n_out + pos;
     } else if (pos < n_out) {
       // the table read does not wait for the length
       const int phys = trow[pos / ps];
-      if (pos < lim && phys >= 0 && phys < num_pages) row = phys * ps + pos % ps;
+      if (in && phys >= 0 && phys < num_pages) row = phys * ps + pos % ps;
     }
     src[i] = row;
   }
@@ -296,7 +308,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) indexer_scores_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ keys,
     const float* __restrict__ w, int w_stride, const int* __restrict__ table,
     const int* __restrict__ lengths, int h, int d, int ps, int mp,
-    int num_pages, int n_out, int qrows, int stages, float* __restrict__ scores) {
+    int num_pages, int n_out, int qrows, int window, int stages,
+    float* __restrict__ scores) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nw = blockDim.x / 32, hp = nw * 16;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -317,19 +330,24 @@ __global__ void __launch_bounds__(kMaxWarps * 32) indexer_scores_mma_kernel(
     const int hh = c / chunks, e = (c - hh * chunks) * 8;
     cp_async16(qs + hh * ld + e, hh < h ? qb + (size_t)hh * d + e : qb, hh < h);
   }
-  const int lim = min(lengths[r], n_out);
+  const int len = lengths[r];
+  const int lim = min(len, n_out);
+  const int lo = window > 0 ? max(0, len - window) : 0;   // the window's start
   // this CTA's i-th tile is blockIdx.x + i * gridDim.x; tile i goes to
-  // buffer i % stages, in copy group i (the query joins group 0)
+  // buffer i % stages, in copy group i (the query joins group 0); a tile
+  // with no position in [lo, lim) is neither translated nor loaded
   auto tile_of = [&](int i) { return (int)blockIdx.x + i * (int)gridDim.x; };
+  auto live_tile = [&](int jj) {
+    return jj < tiles && jj * kTile < lim && (jj + 1) * kTile > lo;
+  };
   for (int i = 0; i < stages - 1; ++i) {
     const int jj = tile_of(i);
-    if (jj < tiles && jj * kTile < lim)
-      tile_sources<CONTIG>(src + i * kTile, trow, r, jj, lim, ps, num_pages, n_out);
+    if (live_tile(jj))
+      tile_sources<CONTIG>(src + i * kTile, trow, r, jj, lo, lim, ps, num_pages, n_out);
   }
   __syncthreads();
   for (int i = 0; i < stages - 1; ++i) {
-    const int jj = tile_of(i);
-    if (jj < tiles && jj * kTile < lim)
+    if (live_tile(tile_of(i)))
       copy_tile(ks + i * kTile * ld, src + i * kTile, keys, d, ld);
     cp_async_commit();
   }
@@ -348,9 +366,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32) indexer_scores_mma_kernel(
   for (int i = 0; tile_of(i) < tiles; ++i) {
     const int j = tile_of(i), s = i % stages;
     const int jn = tile_of(i + stages - 1), sn = (i + stages - 1) % stages;
-    const bool next = jn < tiles && jn * kTile < lim;   // uniform over the CTA
+    const bool next = live_tile(jn);                   // uniform over the CTA
     if (next) {
-      tile_sources<CONTIG>(src + sn * kTile, trow, r, jn, lim, ps, num_pages, n_out);
+      tile_sources<CONTIG>(src + sn * kTile, trow, r, jn, lo, lim, ps, num_pages, n_out);
       __syncthreads();
       copy_tile(ks + sn * kTile * ld, src + sn * kTile, keys, d, ld);
     }
@@ -358,7 +376,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) indexer_scores_mma_kernel(
     cp_async_wait(stages - 1);      // the query and tile i have landed
     __syncthreads();
     const int base = j * kTile;
-    const bool live = base < lim;   // uniform over the CTA
+    const bool live = live_tile(j);   // uniform over the CTA
     if (live) {
       float acc[8][4];
 #pragma unroll
@@ -409,7 +427,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) indexer_scores_mma_kernel(
 template <bool CONTIG>
 int launch_mma(const void* q, const void* keys, const float* w, int w_stride,
                const int* table, const int* lengths, int rows, int h, int d,
-               int ps, int mp, int num_pages, int n_out, int qrows,
+               int ps, int mp, int num_pages, int n_out, int qrows, int window,
                int ctas_per_row, int stages, float* scores,
                cudaStream_t stream) {
   const int nw = (h + 15) / 16;
@@ -430,7 +448,7 @@ int launch_mma(const void* q, const void* keys, const float* w, int w_stride,
   kern<<<grid, 32 * nw, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(keys),
       w, w_stride, table, lengths, h, d, ps, mp, num_pages, n_out, qrows,
-      stages, scores);
+      window, stages, scores);
   return (int)cudaGetLastError();
 }
 
@@ -440,24 +458,26 @@ int launch_mma(const void* q, const void* keys, const float* w, int w_stride,
 // through table (rows / qrows, mp), n_out = mp * ps (B2; B9 with qrows = Q
 // > 1 folded query rows, row r on table row r / Q); contig = 1: keys are
 // (rows, n_out, d), table unused, qrows 1 (B5). w is (h,) with w_stride 0
-// or (rows, h) with w_stride h; lengths (rows,). A launch the body cannot
-// take returns cudaErrorInvalidValue.
+// or (rows, h) with w_stride h; lengths (rows,); window > 0 keeps only
+// [length - window, length) of a row, 0 the whole [0, length). A launch
+// the body cannot take returns cudaErrorInvalidValue.
 
 // float32 q and keys: the CUDA-core body, `tile` positions per CTA (the
 // page size when paged), hg heads per thread.
 extern "C" int indexer_scores_fma_launch(
     int contig, int hg, const void* q, const void* keys, const float* w,
     int w_stride, const int* table, const int* lengths, int rows, int h,
-    int d, int tile, int mp, int num_pages, int n_out, int qrows,
+    int d, int tile, int mp, int num_pages, int n_out, int qrows, int window,
     float* scores, void* stream) {
-  if (qrows < 1 || rows % qrows != 0 || (contig && qrows != 1) || rows > 65535)
+  if (qrows < 1 || rows % qrows != 0 || (contig && qrows != 1) || rows > 65535
+      || window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(keys);
   if (contig)
-    return fma_by_heads<true>(hg, qf, kf, w, w_stride, table, lengths, rows, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
-  return fma_by_heads<false>(hg, qf, kf, w, w_stride, table, lengths, rows, h, d, tile, mp, num_pages, n_out, qrows, scores, st);
+    return fma_by_heads<true>(hg, qf, kf, w, w_stride, table, lengths, rows, h, d, tile, mp, num_pages, n_out, qrows, window, scores, st);
+  return fma_by_heads<false>(hg, qf, kf, w, w_stride, table, lengths, rows, h, d, tile, mp, num_pages, n_out, qrows, window, scores, st);
 }
 
 // bf16 q and keys (16-byte aligned, d a multiple of 16): the tensor-core
@@ -466,13 +486,13 @@ extern "C" int indexer_scores_fma_launch(
 extern "C" int indexer_scores_mma_launch(
     int contig, const void* q, const void* keys, const float* w, int w_stride,
     const int* table, const int* lengths, int rows, int h, int d, int ps,
-    int mp, int num_pages, int n_out, int qrows, int ctas_per_row, int stages,
-    float* scores, void* stream) {
+    int mp, int num_pages, int n_out, int qrows, int window, int ctas_per_row,
+    int stages, float* scores, void* stream) {
   if (qrows < 1 || rows % qrows != 0 || (contig && qrows != 1) || rows > 65535
-      || ((uintptr_t)q | (uintptr_t)keys) % 16 != 0)
+      || window < 0 || ((uintptr_t)q | (uintptr_t)keys) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (contig)
-    return launch_mma<true>(q, keys, w, w_stride, table, lengths, rows, h, d, ps, mp, num_pages, n_out, qrows, ctas_per_row, stages, scores, st);
-  return launch_mma<false>(q, keys, w, w_stride, table, lengths, rows, h, d, ps, mp, num_pages, n_out, qrows, ctas_per_row, stages, scores, st);
+    return launch_mma<true>(q, keys, w, w_stride, table, lengths, rows, h, d, ps, mp, num_pages, n_out, qrows, window, ctas_per_row, stages, scores, st);
+  return launch_mma<false>(q, keys, w, w_stride, table, lengths, rows, h, d, ps, mp, num_pages, n_out, qrows, window, ctas_per_row, stages, scores, st);
 }

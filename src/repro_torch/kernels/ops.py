@@ -325,11 +325,19 @@ def score_schedule(dtype: torch.dtype, rows: int, n: int, h: int, d: int,
     return dict(route=route, tile=tile, heads=h, heads_per_thread=hg)
 
 
+def _window(window: Optional[int], name: str) -> int:
+    """A sliding window as the kernels take it: > 0, or 0 for none."""
+    _check(window is None or window > 0, f"{name}: window must be > 0")
+    return window or 0
+
+
 def _scores(contig: bool, q, keys, w, table, lengths, ps: int, n: int,
-            name: str, qrows: int = 1) -> torch.Tensor:
+            name: str, qrows: int = 1,
+            window: Optional[int] = None) -> torch.Tensor:
     """Launch the scoring body of the keys' dtype over q (R, H, D) and
     lengths (R,): R = B slots, or (B9) R = B * qrows folded query rows
-    over a (B, MP) table; ps the page size, 0 for a contiguous cache."""
+    over a (B, MP) table; ps the page size, 0 for a contiguous cache;
+    `window` the sliding window (row r scores [length - window, length))."""
     _contig(q, keys.dtype, f"{name} q")
     _contig(keys, keys.dtype, f"{name} keys")
     _contig(w, torch.float32, f"{name} w")
@@ -340,6 +348,7 @@ def _scores(contig: bool, q, keys, w, table, lengths, ps: int, n: int,
     mp = table.shape[1] if table is not None else 0
     _check(table is None or table.shape[0] * qrows == b,
            f"{name}: table rows x {qrows} query rows != {b} score rows")
+    win = _window(window, name)
     sched = score_schedule(keys.dtype, b, n, h, d, ps)
     scores = torch.empty((b, n), dtype=torch.float32, device=q.device)
     lib = LIBRARIES.get("indexer_scores")
@@ -351,31 +360,36 @@ def _scores(contig: bool, q, keys, w, table, lengths, ps: int, n: int,
         _check(q.data_ptr() % 16 == 0 and keys.data_ptr() % 16 == 0,
                f"{name}: q and keys must be 16-byte aligned (16-byte copies)")
         rc = lib.indexer_scores_mma_launch(
-            int(contig), *args, ps, mp, keys.shape[0], n, qrows,
+            int(contig), *args, ps, mp, keys.shape[0], n, qrows, win,
             sched["ctas_per_row"], sched["stages"], scores.data_ptr(),
             _stream(q))
     else:
         rc = lib.indexer_scores_fma_launch(
             int(contig), sched["heads_per_thread"], *args, sched["tile"], mp,
-            keys.shape[0], n, qrows, scores.data_ptr(), _stream(q))
+            keys.shape[0], n, qrows, win, scores.data_ptr(), _stream(q))
     _raise_on(rc, name)
     return scores
 
 
 def paged_indexer_scores(q: torch.Tensor, k_pages: torch.Tensor,
                          w: torch.Tensor, table: torch.Tensor,
-                         lengths: torch.Tensor) -> torch.Tensor:
+                         lengths: torch.Tensor,
+                         window: Optional[int] = None) -> torch.Tensor:
     """B2 scoring — Eq. 1 over page-addressed indexer keys. q (B, H, D) in
     the cache dtype; k_pages (P, ps, D); w (H,) or (B, H) f32; table
-    (B, MP) int32; lengths (B,) int32. Returns the (B, MP*ps) f32 score
-    row, NEG beyond length and on unmapped pages."""
+    (B, MP) int32; lengths (B,) int32; `window` an optional sliding window.
+    Returns the (B, MP*ps) f32 score row, NEG at or beyond length, below
+    length - window and on unmapped pages (the kernel reads no key of a
+    64-position tile wholly outside [length - window, length))."""
     if _on_cpu(q, k_pages, w, table, lengths):
-        return ref.paged_indexer_scores_ref(q, k_pages, w, table, lengths)
+        return ref.paged_indexer_scores_ref(q, k_pages, w, table, lengths,
+                                            window)
     _contig(table, torch.int32, "paged_indexer_scores table")
     _check(table.dim() == 2, "paged_indexer_scores: table (B, MP)")
     ps = k_pages.shape[1]
     scores = _scores(False, q, k_pages, w, table, lengths, ps,
-                     table.shape[1] * ps, "paged_indexer_scores")
+                     table.shape[1] * ps, "paged_indexer_scores",
+                     window=window)
     paged_indexer_scores.launches += 1
     return scores
 
@@ -384,23 +398,27 @@ def paged_indexer_topk(q: torch.Tensor, k_pages: torch.Tensor,
                        w: torch.Tensor, table: torch.Tensor,
                        prev_idx: torch.Tensor, k: int, *,
                        lengths: torch.Tensor,
-                       max_candidates: Optional[int] = None):
-    """B2 — paged indexer scoring, then the GVR Top-K (B1) on the score row
-    (two launches on the card). Returns (values, indices, stats) as
-    `gvr_topk`, indices logical."""
-    scores = paged_indexer_scores(q, k_pages, w, table, lengths)
+                       max_candidates: Optional[int] = None,
+                       window: Optional[int] = None):
+    """B2 — paged indexer scoring (inside the optional sliding window),
+    then the GVR Top-K (B1) on the score row (two launches on the card).
+    Returns (values, indices, stats) as `gvr_topk`, indices logical."""
+    scores = paged_indexer_scores(q, k_pages, w, table, lengths, window)
     return gvr_topk(scores, prev_idx, k, max_candidates=max_candidates)
 
 
 def paged_indexer_scores_mq(q: torch.Tensor, k_pages: torch.Tensor,
                             w: torch.Tensor, table: torch.Tensor,
-                            lengths: torch.Tensor) -> torch.Tensor:
+                            lengths: torch.Tensor,
+                            window: Optional[int] = None) -> torch.Tensor:
     """B9 scoring — B2 over the Q query rows of each slot: q (B, Q, H, D)
     in the cache dtype, table (B, MP) shared by a slot's rows, lengths
-    (B, Q) each row's causal extent. Returns (B, Q, MP*ps) f32; each row
-    equals B2's for the same slot and length bit for bit."""
+    (B, Q) each row's causal extent (and its window's end). Returns
+    (B, Q, MP*ps) f32; each row equals B2's for the same slot, length and
+    window bit for bit."""
     if _on_cpu(q, k_pages, w, table, lengths):
-        return ref.paged_indexer_scores_mq_ref(q, k_pages, w, table, lengths)
+        return ref.paged_indexer_scores_mq_ref(q, k_pages, w, table, lengths,
+                                               window)
     _contig(table, torch.int32, "paged_indexer_scores_mq table")
     _check(q.dim() == 4 and w.dim() == 1 and lengths.shape == q.shape[:2]
            and table.shape[0] == q.shape[0],
@@ -410,7 +428,7 @@ def paged_indexer_scores_mq(q: torch.Tensor, k_pages: torch.Tensor,
     ps = k_pages.shape[1]
     scores = _scores(False, q.reshape((b * qn,) + q.shape[2:]), k_pages, w,
                      table, lengths.reshape(b * qn), ps, table.shape[1] * ps,
-                     "paged_indexer_scores_mq", qrows=qn)
+                     "paged_indexer_scores_mq", qrows=qn, window=window)
     paged_indexer_scores_mq.launches += 1
     return scores.reshape(b, qn, -1)
 
@@ -419,43 +437,48 @@ def paged_indexer_topk_mq(q: torch.Tensor, k_pages: torch.Tensor,
                           w: torch.Tensor, table: torch.Tensor,
                           prev_idx: torch.Tensor, k: int, *,
                           lengths: torch.Tensor,
-                          max_candidates: Optional[int] = None):
+                          max_candidates: Optional[int] = None,
+                          window: Optional[int] = None):
     """B9 — the verify tick's selection: score the Q rows of each slot
     (`paged_indexer_scores_mq`), then the chained GVR (`gvr_topk_chain`):
     row 0 warm from prev_idx (B, K), row q from row q-1 (two launches on
-    the card). Returns (values (B,Q,K), indices (B,Q,K) logical, stats
-    (B,Q,8))."""
+    the card); `window` masks each row at its own length. Returns (values
+    (B,Q,K), indices (B,Q,K) logical, stats (B,Q,8))."""
     _check_chain_prev(prev_idx, k, "paged_indexer_topk_mq")
-    scores = paged_indexer_scores_mq(q, k_pages, w, table, lengths)
+    scores = paged_indexer_scores_mq(q, k_pages, w, table, lengths, window)
     return gvr_topk_chain(scores, prev_idx, k, max_candidates=max_candidates)
 
 
 def indexer_scores(q: torch.Tensor, kcache: torch.Tensor, w: torch.Tensor,
-                   lengths: torch.Tensor) -> torch.Tensor:
+                   lengths: torch.Tensor,
+                   window: Optional[int] = None) -> torch.Tensor:
     """B5 scoring — Eq. 1 over a contiguous indexer cache. q (B, H, D) in
     the cache dtype; kcache (B, N, D); w (H,) or (B, H) f32; lengths (B,)
-    int32. Returns the (B, N) f32 score row, NEG beyond length; bit-equal on
-    the card to `paged_indexer_scores` over pages holding the same keys."""
+    int32; `window` an optional sliding window. Returns the (B, N) f32
+    score row, NEG at or beyond length and below length - window; bit-equal
+    on the card to `paged_indexer_scores` over pages holding the same
+    keys."""
     if _on_cpu(q, kcache, w, lengths):
-        return ref.indexer_scores_ref(q, kcache, w, lengths)
+        return ref.indexer_scores_ref(q, kcache, w, lengths, window)
     _check(kcache.dim() == 3 and kcache.shape[0] == q.shape[0],
            "indexer_scores: kcache (B, N, D)")
     n = kcache.shape[1]
     _check(0 < n and q.shape[0] * n < 2 ** 31,
            "indexer_scores: B*N beyond int32 indexing")
     scores = _scores(True, q, kcache, w, None, lengths, 0, n,
-                     "indexer_scores")
+                     "indexer_scores", window=window)
     indexer_scores.launches += 1
     return scores
 
 
 def indexer_topk(q: torch.Tensor, kcache: torch.Tensor, w: torch.Tensor,
                  prev_idx: torch.Tensor, k: int, *, lengths: torch.Tensor,
-                 max_candidates: Optional[int] = None):
-    """B5 — contiguous indexer scoring, then the GVR Top-K (B1) on the score
-    row (two launches on the card). Returns (values, indices, stats) as
-    `gvr_topk`."""
-    scores = indexer_scores(q, kcache, w, lengths)
+                 max_candidates: Optional[int] = None,
+                 window: Optional[int] = None):
+    """B5 — contiguous indexer scoring (inside the optional sliding
+    window), then the GVR Top-K (B1) on the score row (two launches on the
+    card). Returns (values, indices, stats) as `gvr_topk`."""
+    scores = indexer_scores(q, kcache, w, lengths, window)
     return gvr_topk(scores, prev_idx, k, max_candidates=max_candidates)
 
 
@@ -503,8 +526,8 @@ ROWS_PER_SPLIT = 128
 PG_MIN_ROWS = 256
 PG_MAX_SPLITS = 64
 # combine tickets per (device, stream): int32 counters, one per (query row,
-# KV head) pair, zero when created and left zero by every launch; launches
-# on two streams may overlap in time, so they never share an array
+# KV head, head chunk), zero when created and left zero by every launch;
+# launches on two streams may overlap in time, so they never share an array
 _TICKETS: Dict[tuple, torch.Tensor] = {}
 
 
@@ -535,6 +558,23 @@ def decode_attn_splits(mode: str, kcols: int, n: int, ps: int):
     return ROWS_PER_SPLIT, max(1, -(-kcols // ROWS_PER_SPLIT))
 
 
+ATTN_HEAD_DIMS = (32, 64, 120, 128)   # 120 runs on the 128-lane instance
+_ATTN_MAX_CHUNK = 8
+
+
+def attn_head_chunk(grp: int) -> Tuple[int, int]:
+    """(heads per CTA G, chunks) of the decode-attention body for grp query
+    heads per KV head: G is the least power of two >= grp, capped at 8 (the
+    body keeps q, scores and PV sums of its G heads in registers), and the
+    grp heads are laid over ceil(grp / G) chunks on the grid's y axis, the
+    last chunk's heads past grp masked (grp 7: one chunk of 8; 16: two; 48:
+    six)."""
+    gc = 1
+    while gc < min(grp, _ATTN_MAX_CHUNK):
+        gc *= 2
+    return gc, -(-grp // gc)
+
+
 def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """At least n zeroed combine tickets owned by (device, stream)."""
     t = _TICKETS.get((device, stream))
@@ -553,9 +593,11 @@ def _attn(mode: str, q, kc, vc, table, idx, lengths, scale, window,
     lengths with B * qrows rows — over a (B, MP) table. The grid is
     (splits, KVH, rows); a multi-split launch merges its partials in the
     same launch, through a workspace allocated here and the tickets of the
-    current stream. The tensors' shapes are checked here; the limits of
-    the kernel's schedule (grid, shared memory, int32 and 16-bit indexing)
-    only by `decode_attn_launch`, which refuses a launch beyond them."""
+    current stream. The grid is (splits, KVH x head chunks, rows): any
+    H/KVH (`attn_head_chunk`), head dims ATTN_HEAD_DIMS. The tensors'
+    shapes are checked here; the limits of the kernel's schedule (grid,
+    shared memory, int32 and 16-bit indexing) only by
+    `decode_attn_launch`, which refuses a launch beyond them."""
     _check(kc.dtype in _DTYPE_CODE,
            f"{name}: caches must be f32 or bf16, got {kc.dtype}")
     dt = kc.dtype
@@ -568,9 +610,9 @@ def _attn(mode: str, q, kc, vc, table, idx, lengths, scale, window,
     p, ps, kvh, hd2 = kc.shape
     _check(vc.shape == kc.shape and hd2 == hd,
            f"{name}: caches (.., .., KVH, hd) matching q")
-    _check(h % kvh == 0 and h // kvh in (1, 2, 4, 8),
-           f"{name}: H/KVH must be 1, 2, 4 or 8, got {h}/{kvh}")
-    _check(hd in (32, 64, 128), f"{name}: head_dim must be 32, 64 or 128")
+    _check(h % kvh == 0, f"{name}: H={h} is no multiple of KVH={kvh}")
+    _check(hd in ATTN_HEAD_DIMS,
+           f"{name}: head_dim must be one of {ATTN_HEAD_DIMS}, got {hd}")
     _check(lengths.shape == (b,), f"{name}: lengths (B,)")
     if mode == "contig_sparse":
         _check(p == b, f"{name}: caches (B, N, KVH, hd)")
@@ -585,17 +627,18 @@ def _attn(mode: str, q, kc, vc, table, idx, lengths, scale, window,
         _contig(idx, torch.int32, f"{name} idx")
         _check(idx.dim() == 2 and idx.shape[0] == b, f"{name}: idx (B, K)")
         kcols = idx.shape[1]
-    g = h // kvh
+    grp = h // kvh
+    gc, chunks = attn_head_chunk(grp)
     rps, splits = decode_attn_splits(mode, kcols, mp * ps, ps)
     out = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
     stream = _stream(q)
     ws = tickets = None
     if splits > 1:
-        ws = torch.empty(b * kvh * splits * g * (hd + 2), dtype=torch.float32,
-                         device=q.device)
-        tickets = _tickets(q.device, stream, b * kvh)
+        ws = torch.empty(b * kvh * chunks * splits * gc * (hd + 2),
+                         dtype=torch.float32, device=q.device)
+        tickets = _tickets(q.device, stream, b * kvh * chunks)
     rc = LIBRARIES.get("decode_attn").decode_attn_launch(
-        _DTYPE_CODE[dt], _MODE[mode], g, hd, q.data_ptr(), kc.data_ptr(),
+        _DTYPE_CODE[dt], _MODE[mode], grp, gc, hd, q.data_ptr(), kc.data_ptr(),
         vc.data_ptr(), table.data_ptr() if table is not None else None,
         idx.data_ptr() if idx is not None else None, lengths.data_ptr(), b,
         qrows, kvh, ps, mp, p, kcols, window, rps, splits, float(scale),
@@ -664,9 +707,9 @@ def paged_dense_decode_attn(q: torch.Tensor, k_pages: torch.Tensor,
     if _on_cpu(q, k_pages, v_pages, table, lengths):
         return ref.paged_dense_attn_ref(q, k_pages, v_pages, table, lengths,
                                         scale=scale, window=window)
-    _check(window is None or window > 0, "paged_dense_decode_attn: window > 0")
     out = _attn("paged_dense", q, k_pages, v_pages, table, None, lengths,
-                scale, window or 0, "paged_dense_decode_attn")
+                scale, _window(window, "paged_dense_decode_attn"),
+                "paged_dense_decode_attn")
     paged_dense_decode_attn.launches += 1
     return out
 

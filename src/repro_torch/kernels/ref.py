@@ -64,12 +64,26 @@ def gvr_topk_chain_ref(scores: torch.Tensor, prev_idx: torch.Tensor, k: int,
     return tuple(torch.stack(parts, dim=1) for parts in zip(*outs))
 
 
+def _in_extent(n: int, lengths: torch.Tensor,
+               window: Optional[int]) -> torch.Tensor:
+    """(B, n) mask of the positions a score row keeps: below the length
+    and, with a sliding window, at or above length - window (the
+    reference's `pos > length - 1 - window`)."""
+    pos = torch.arange(n, device=lengths.device)[None, :]
+    keep = pos < lengths[:, None]
+    if window is not None:
+        keep &= pos > lengths[:, None] - 1 - window
+    return keep
+
+
 def paged_indexer_scores_ref(q: torch.Tensor, k_pages: torch.Tensor,
                              w: torch.Tensor, table: torch.Tensor,
-                             lengths: torch.Tensor) -> torch.Tensor:
+                             lengths: torch.Tensor,
+                             window: Optional[int] = None) -> torch.Tensor:
     """B2 scoring stage, paper Eq. 1 over page-addressed indexer keys:
     score[b, n] = sum_h w_h ReLU(q[b,h] . k[n]) in f32, NEG at positions
-    >= length and on unmapped (-1) pages.
+    >= length, below length - window (a sliding window) and on unmapped
+    (-1) pages.
 
     q: (B, H, D) in the cache dtype; k_pages: (P, ps, D); w: (H,) or
     (B, H) f32; table: (B, MP) int32; lengths: (B,). Returns (B, MP*ps)
@@ -83,29 +97,31 @@ def paged_indexer_scores_ref(q: torch.Tensor, k_pages: torch.Tensor,
         scores = torch.einsum("h,bhn->bn", w.float(), s)
     else:
         scores = torch.einsum("bh,bhn->bn", w.float(), s)
-    pos = torch.arange(mp * ps, device=q.device)
     mapped = (table >= 0).repeat_interleave(ps, dim=1)
-    keep = (pos[None, :] < lengths[:, None]) & mapped
+    keep = _in_extent(mp * ps, lengths, window) & mapped
     return torch.where(keep, scores, torch.full_like(scores, NEG))
 
 
 def paged_indexer_scores_mq_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                 w: torch.Tensor, table: torch.Tensor,
-                                lengths: torch.Tensor) -> torch.Tensor:
+                                lengths: torch.Tensor,
+                                window: Optional[int] = None) -> torch.Tensor:
     """B9 scoring stage: B2 over the Q query rows of each slot, q (B, Q, H,
     D), lengths (B, Q), the slot's table row shared by its rows. Row q is
-    `paged_indexer_scores_ref` of the B slots at lengths[:, q], as the
-    kernel's rows equal B2's. Returns (B, Q, MP*ps) f32."""
+    `paged_indexer_scores_ref` of the B slots at lengths[:, q] (its window
+    too begins at its own length), as the kernel's rows equal B2's.
+    Returns (B, Q, MP*ps) f32."""
     return torch.stack([paged_indexer_scores_ref(q[:, j], k_pages, w, table,
-                                                 lengths[:, j])
+                                                 lengths[:, j], window)
                         for j in range(q.shape[1])], dim=1)
 
 
 def indexer_scores_ref(q: torch.Tensor, kcache: torch.Tensor, w: torch.Tensor,
-                       lengths: torch.Tensor) -> torch.Tensor:
+                       lengths: torch.Tensor,
+                       window: Optional[int] = None) -> torch.Tensor:
     """B5 scoring stage, paper Eq. 1 over a contiguous indexer cache:
     score[b, n] = sum_h w_h ReLU(q[b,h] . k[b,n]) in f32, NEG at positions
-    >= length.
+    >= length and below length - window.
 
     q: (B, H, D) in the cache dtype; kcache: (B, N, D); w: (H,) or (B, H)
     f32; lengths: (B,). Returns (B, N) f32.
@@ -115,8 +131,7 @@ def indexer_scores_ref(q: torch.Tensor, kcache: torch.Tensor, w: torch.Tensor,
         scores = torch.einsum("h,bhn->bn", w.float(), s)
     else:
         scores = torch.einsum("bh,bhn->bn", w.float(), s)
-    pos = torch.arange(kcache.shape[1], device=q.device)
-    return torch.where(pos[None, :] < lengths[:, None], scores,
+    return torch.where(_in_extent(kcache.shape[1], lengths, window), scores,
                        torch.full_like(scores, NEG))
 
 

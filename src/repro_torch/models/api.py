@@ -15,9 +15,8 @@ import torch
 from . import transformer
 from .config import ModelConfig
 
-_FAMILIES = {"dense": transformer, "moe": transformer}
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer}
 _PENDING = {
-    "vlm": "ROADMAP Queue A item 5 (other model families: vlm)",
     "hybrid": "ROADMAP Queue A item 5 (other model families: hybrid)",
     "ssm": "ROADMAP Queue A item 5 (other model families: ssm)",
     "audio": "ROADMAP Queue A item 5 (other model families: enc-dec)",

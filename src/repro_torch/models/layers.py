@@ -30,18 +30,29 @@ def _rope_freqs(dim: int, base: float, device) -> torch.Tensor:
 
 
 def apply_rotary(x: torch.Tensor, positions: torch.Tensor, *, kind: str = "rope",
-                 base: float = 10000.0, fraction: float = 1.0) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) int. Interleaved-pair RoPE over
-    the first `fraction` of the head dims (the rest pass through)."""
-    if kind != "rope":
-        raise NotImplementedError(
-            f"rotary kind {kind!r} is not ported yet (ROADMAP Queue A item "
-            f"5: the vlm and chatglm rope kinds)")
+                 base: float = 10000.0, fraction: float = 1.0,
+                 mrope_sections=(16, 24, 24)) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int, or (B, S, 3) for "mrope".
+    Interleaved-pair RoPE over the first `fraction` of the head dims (the
+    rest pass through). "mrope" (qwen2-vl) splits the frequency pairs into
+    (temporal, height, width) sections, each rotated by its own position
+    stream; 2-D positions become three identical streams, which is plain
+    RoPE. Every other kind ("rope", "rope2d") is plain RoPE, as in the
+    reference."""
     d = x.shape[-1]
     rot_d = int(d * fraction) // 2 * 2
     xr, xp = x[..., :rot_d], x[..., rot_d:]
     freqs = _rope_freqs(rot_d, base, x.device)
-    ang = positions.float()[..., None] * freqs[None, None, :]
+    if kind == "mrope":
+        if positions.dim() == 2:
+            positions = positions[..., None].expand(positions.shape + (3,))
+        sec = torch.cumsum(torch.tensor(mrope_sections, device=x.device), 0)
+        sec_id = torch.searchsorted(sec, torch.arange(rot_d // 2, device=x.device),
+                                    right=True) % 3
+        pos = positions.float()[..., sec_id]               # (B, S, rot_d/2)
+        ang = pos * freqs[None, None, :]
+    else:
+        ang = positions.float()[..., None] * freqs[None, None, :]
     cos = torch.cos(ang)[..., None, :].to(x.dtype)        # (B, S, 1, rot_d/2)
     sin = torch.sin(ang)[..., None, :].to(x.dtype)
     x1, x2 = xr[..., ::2], xr[..., 1::2]

@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM, decode side of the dense and MoE families,
-PyTorch port.
+"""Decoder-only transformer LM, decode side of the dense, vlm and MoE
+families, PyTorch port.
 
 Parameters are a plain dict of tensors stacked over layers (L, ...) in the
 JAX package's layout (weights (in, out), used as `x @ W`), so the JAX
@@ -30,6 +30,12 @@ is what JAX's functional update costs and what this port avoids; a row
 whose write is masked keeps its old contents (dense) or writes the sink
 page (paged). The small per-slot leaves (length, prev_topk, topk_valid,
 sel_gvr) come back as new tensors, so the engine can merge them row by row.
+
+The vlm family (qwen2-vl) serves its text path: M-RoPE over 2-D
+positions (three identical streams) and a `patch_proj` parameter that only
+the reference's training forward reads. A sliding window (`swa_window`,
+h2o-danube) limits the dense fallback's extent and, under DSA, the
+positions the indexer may select (`sparse/dsa.py`).
 
 The MoE family (`cfg.moe.num_experts > 0`) differs only in the
 feed-forward: `layers.moe_mlp_dense_fallback`, what the reference serves
@@ -65,7 +71,8 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.family not in ("dense", "moe") or cfg.num_patches
+    if (cfg.family not in ("dense", "moe", "vlm")
+            or (cfg.num_patches and cfg.family != "vlm")
             or (cfg.family == "moe") != bool(cfg.moe.num_experts)):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue A item "
@@ -130,6 +137,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense((d, cfg.vocab), d ** -0.5)
+    if cfg.num_patches:
+        # the vlm's stubbed patch-embedding projection: the reference's
+        # training forward reads it, no serve step does
+        params["patch_proj"] = dense((d, d), d ** -0.5)
     return params
 
 

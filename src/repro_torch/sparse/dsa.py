@@ -97,13 +97,6 @@ class DSAOutput(NamedTuple):
     gvr_rows: Optional[torch.Tensor] = None  # (B,) bool — selector path
 
 
-def _no_swa(swa_window: Optional[int]) -> None:
-    if swa_window is not None:
-        raise NotImplementedError(
-            "DSA selection under a sliding window is not ported yet (ROADMAP "
-            "Queue A item 5: the SWA families)")
-
-
 def _select(scoring, topk, q, w, prev_topk, lengths, n: int, *, k: int,
             selector: str, prev_valid, max_candidates, gate_max_n: int,
             min_n: int) -> SelectorOutput:
@@ -111,7 +104,8 @@ def _select(scoring, topk, q, w, prev_topk, lengths, n: int, *, k: int,
     row goes through the scoring + GVR kernels (`topk`: exact for warm and
     cold rows alike, so `gvr_rows` stays the `prev_valid` warm mask the
     selector's per-row dispatch reports); the other methods score with
-    `scoring` and select with the plain `select_topk`."""
+    `scoring` and select with the plain `select_topk`. Both branches score
+    inside the caller's sliding window, which `scoring` and `topk` carry."""
     method = resolve_method(selector, n, has_prev=prev_topk is not None,
                             has_valid=prev_valid is not None,
                             gate_max_n=gate_max_n, min_n_for_selection=min_n)
@@ -135,16 +129,18 @@ def dsa_select(indexer_params, x: torch.Tensor, idx_kcache: torch.Tensor,
                gate_max_n: int = 200_000, min_n: int = 4096,
                swa_window: Optional[int] = None) -> SelectorOutput:
     """Indexer scoring + exact Top-K over a contiguous indexer view
-    (B, N, dim): kernels B5 (scoring) + B1 (GVR) on the card."""
-    _no_swa(swa_window)
+    (B, N, dim): kernels B5 (scoring) + B1 (GVR) on the card. Under a
+    sliding window only [length - swa_window, length) may be selected:
+    the positions below score NEG, as the reference masks them."""
     kc = idx_kcache.contiguous()
     lengths = lengths.int().contiguous()
     q = indexer_q(indexer_params, x, lengths - 1, heads=heads, dim=dim,
                   rope_base=rope_base, dtype=kc.dtype)
     w = indexer_params["w"].float().contiguous()
     return _select(
-        lambda q_, w_, ln: ops.indexer_scores(q_, kc, w_, ln),
-        lambda q_, w_, prev, kk, **kw: ops.indexer_topk(q_, kc, w_, prev, kk, **kw),
+        lambda q_, w_, ln: ops.indexer_scores(q_, kc, w_, ln, swa_window),
+        lambda q_, w_, prev, kk, **kw: ops.indexer_topk(
+            q_, kc, w_, prev, kk, window=swa_window, **kw),
         q, w, prev_topk, lengths, kc.shape[1], k=k, selector=selector,
         prev_valid=prev_valid, max_candidates=max_candidates,
         gate_max_n=gate_max_n, min_n=min_n)
@@ -159,16 +155,17 @@ def dsa_select_paged(indexer_params, x: torch.Tensor, idx_k_pages: torch.Tensor,
                      gate_max_n: int = 200_000, min_n: int = 4096,
                      swa_window: Optional[int] = None) -> SelectorOutput:
     """Indexer scoring + exact Top-K over the paged indexer-K pool: kernels
-    B2 (scoring through the block table) + B1 (GVR) on the card."""
-    _no_swa(swa_window)
+    B2 (scoring through the block table) + B1 (GVR) on the card; the
+    sliding window as in `dsa_select`."""
     lengths = lengths.int().contiguous()
     q = indexer_q(indexer_params, x, lengths - 1, heads=heads, dim=dim,
                   rope_base=rope_base, dtype=idx_k_pages.dtype)
     w = indexer_params["w"].float().contiguous()
     return _select(
-        lambda q_, w_, ln: ops.paged_indexer_scores(q_, idx_k_pages, w_, table, ln),
+        lambda q_, w_, ln: ops.paged_indexer_scores(q_, idx_k_pages, w_, table,
+                                                    ln, swa_window),
         lambda q_, w_, prev, kk, **kw: ops.paged_indexer_topk(
-            q_, idx_k_pages, w_, table, prev, kk, **kw),
+            q_, idx_k_pages, w_, table, prev, kk, window=swa_window, **kw),
         q, w, prev_topk, lengths, table.shape[1] * idx_k_pages.shape[1], k=k,
         selector=selector, prev_valid=prev_valid,
         max_candidates=max_candidates, gate_max_n=gate_max_n, min_n=min_n)
@@ -194,8 +191,9 @@ def dsa_select_paged_mq(indexer_params, x: torch.Tensor,
     `prev_valid` for row 0 under "mixed" and true elsewhere, as the
     per-row selector reports it. Under radix or exact, B9's scoring half
     scores the rows and the plain `select_topk` selects them one by one.
-    Returns a `SelectorOutput` whose fields carry a Q axis after B."""
-    _no_swa(swa_window)
+    A sliding window masks each row at its own length, as the reference's
+    row-by-row selection does. Returns a `SelectorOutput` whose fields
+    carry a Q axis after B."""
     b, qn = lengths.shape
     lengths = lengths.int().contiguous()
     q = indexer_q(indexer_params, x.reshape(b * qn, -1),
@@ -210,12 +208,13 @@ def dsa_select_paged_mq(indexer_params, x: torch.Tensor,
     if method in ("gvr", "mixed"):
         vals, idx, stats = ops.paged_indexer_topk_mq(
             q, idx_k_pages, w, table, prev_topk.int().contiguous(), k,
-            lengths=lengths, max_candidates=max_candidates)
+            lengths=lengths, max_candidates=max_candidates, window=swa_window)
         rows = torch.ones((b, qn), dtype=torch.bool, device=lengths.device)
         if method == "mixed":
             rows[:, 0] = prev_valid.bool()
         return SelectorOutput(idx, vals, method, stats[..., 0].int(), rows)
-    scores = ops.paged_indexer_scores_mq(q, idx_k_pages, w, table, lengths)
+    scores = ops.paged_indexer_scores_mq(q, idx_k_pages, w, table, lengths,
+                                         swa_window)
     sels, prev, valid = [], prev_topk, prev_valid
     for j in range(qn):
         sel = select_topk(scores[:, j], k, prev_idx=prev, prev_valid=valid,

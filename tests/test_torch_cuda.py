@@ -34,7 +34,10 @@ enough that a CTA walks two tiles; B5 == B2, B9's rows == B2's, two calls
 and each slot alone (another schedule) bit-identical. moonshot-v1-16b-a3b's
 widths (G = 1, hd 128, KVH 16, bf16) run through the B3/B4, B6/B10 and
 split cases, and its MoE feed-forward (one layer, 64 experts) is held on
-the card against the CPU.
+the card against the CPU. The rest of the dense family's widths (G 48,
+16 and 7 as head chunks of 8, hd 120 on 128 lanes) run through the same
+split cases, and h2o-danube's sliding window through the scoring body
+and B1.
 """
 
 import pytest
@@ -314,12 +317,21 @@ def test_wrappers_count_launches_and_raise_on_bad_input(dev):
     assert ops.launch_counts()["gvr_topk"] == 1
 
 
-# (dtype, KVH, H, hd, ps): G in {1, 2, 4, 8}, hd in {32, 64, 128}
+# the rest of the dense family at full width: granite-34b (G 48, six head
+# chunks of 8), chatglm3-6b (G 16, two), qwen2-vl-7b (G 7, one chunk of 8
+# with a masked head), h2o-danube-3-4b (G 4, hd 120 on 128 lanes)
+_FAMILY_WIDTHS = [
+    (torch.bfloat16, 1, 48, 128, 64), (torch.bfloat16, 2, 32, 128, 64),
+    (torch.bfloat16, 4, 28, 128, 64), (torch.bfloat16, 8, 32, 120, 64),
+    (torch.float32, 8, 32, 120, 16), (torch.float32, 2, 6, 64, 8)]
+
+# (dtype, KVH, H, hd, ps): G in {1, 2, 4, 8} and the family's, hd in
+# {32, 64, 120, 128}
 _SPLIT_WIDTHS = [
     (torch.bfloat16, 8, 32, 64, 64), (torch.float32, 2, 4, 32, 8),
     (torch.bfloat16, 1, 8, 128, 16), (torch.float32, 4, 4, 64, 4),
     (torch.bfloat16, 2, 16, 32, 64), (torch.float32, 1, 8, 128, 16),
-    _MOE_WIDTH]
+    _MOE_WIDTH] + _FAMILY_WIDTHS
 
 
 def _split_pools(g, dev, dtype, b, n, ps, kvh, h, hd):
@@ -622,6 +634,56 @@ def test_scoring_schedules_agree_on_card(dev, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 100, 4096])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_windowed_scoring_on_card(dev, dtype, window):
+    """h2o-danube's sliding window in B2/B5/B9 (64 heads of 128, pages of
+    64, rows of 8192): allclose to the plain versions, every position
+    below length - window (and at or past the length) exactly NEG, B5 ==
+    B2, B9's rows == B2's at their own lengths, two calls and each slot
+    alone bit-identical; B1 exact on the windowed rows (a NEG prefix, and
+    for the short slot a NEG suffix too)."""
+    g = torch.Generator(device=dev).manual_seed(window + 7)
+    n, ps, h, d, k = 8192, 64, 64, 128, 2048
+    lengths = [8192, 5000, 1000, 4097]
+    table, pages, q, ln = _score_pools(g, dev, dtype, h, d, ps, n, lengths,
+                                       hole_at=6000)
+    b = len(lengths)
+    w = torch.full((h,), 1.0 / h, device=dev)
+    s2 = ops.paged_indexer_scores(q, pages, w, table, ln, window)
+    s0 = ref.paged_indexer_scores_ref(q, pages, w, table, ln, window)
+    pos = torch.arange(n, device=dev)[None]
+    inside = (pos < ln[:, None]) & (pos >= ln[:, None] - window)
+    assert torch.equal(s2 > -1e38, s0 > -1e38)
+    assert (s2[~inside] == NEG).all()
+    torch.testing.assert_close(s2, s0, rtol=1e-5, atol=1e-5)
+    kc = pages[table.clamp(min=0).long()].reshape(b, n, d).contiguous()
+    mapped = (table >= 0).repeat_interleave(ps, dim=1)
+    s5 = ops.indexer_scores(q, kc, w, ln, window)
+    assert torch.equal(s5[mapped], s2[mapped])                     # B5 == B2
+    assert torch.equal(ops.paged_indexer_scores(q, pages, w, table, ln, window), s2)
+    for s in range(b):
+        one = slice(s, s + 1)
+        assert torch.equal(ops.paged_indexer_scores(
+            q[one], pages, w, table[one], ln[one], window), s2[one])
+    qn = 3
+    q9 = torch.randn((b, qn, h, d), generator=g, device=dev).to(dtype)
+    l9 = (ln[:, None] - qn + 1 + torch.arange(qn, device=dev)).int().contiguous()
+    s9 = ops.paged_indexer_scores_mq(q9, pages, w, table, l9, window)
+    for j in range(qn):
+        assert torch.equal(s9[:, j], ops.paged_indexer_scores(
+            q9[:, j].contiguous(), pages, w, table, l9[:, j].contiguous(), window))
+    prev = torch.randint(0, 8192, (b, k), generator=g, device=dev).int()
+    v1, i1, st1 = ops.gvr_topk(s2, prev, k, max_candidates=6144)
+    v0, i0, st0 = ref.gvr_topk_ref(s2, prev, k, max_candidates=6144)
+    assert torch.equal(i1, i0) and torch.equal(v1, v0)
+    assert torch.equal(st1[:, 4:], st0[:, 4:])
+    v1, i1, _ = ops.paged_indexer_topk(q, pages, w, table, prev, k, lengths=ln,
+                                       max_candidates=6144, window=window)
+    assert torch.equal(i1, i0)
+
+
+@pytest.mark.cuda
 def test_scoring_route_follows_dtype_on_card(dev):
     """bf16 runs the tensor-core kernel and float32 the CUDA-core one (by
     the kernels' names in the profiler); a bf16 head dim that is no
@@ -873,3 +935,113 @@ def test_moe_mlp_dense_fallback_card_equals_cpu_at_moonshot_widths(dev):
     assert out.dtype == torch.bfloat16 and out.shape == x.shape
     err = float((out.cpu().float() - out_c.float()).abs().max())
     assert err <= 2e-2 * float(out_c.float().abs().max()), err
+
+
+# bytes of 0xA5 on each side of every buffer in the write checks below
+_GUARD = 1 << 20
+
+
+def _writes_only_outputs(monkeypatch, fn, *args, **kw):
+    """Call fn (a kernel wrapper) once as it is, then once on copies of
+    its tensor arguments that lie inside guard bands, with every buffer
+    the wrapper allocates on the card (its output, the split workspace,
+    the combine tickets) inside guard bands too. The bands and the inputs
+    must come back unchanged, the tickets zero and the output bit-equal to
+    the first call's: the kernel wrote only inside its outputs."""
+    want = fn(*args, **kw)
+    bufs, tickets = [], []
+    real_empty = torch.empty
+
+    def guarded(t):
+        nbytes = t.numel() * t.element_size()
+        buf = torch.full((nbytes + 2 * _GUARD,), 0xA5, dtype=torch.uint8,
+                         device=t.device)
+        view = buf[_GUARD:_GUARD + nbytes].view(t.dtype).view(t.shape)
+        view.copy_(t)
+        bufs.append(buf)
+        return view
+
+    def make_tickets(device, stream, n):
+        tickets.append(guarded(torch.zeros(n, dtype=torch.int32, device=device)))
+        return tickets[-1]
+
+    ins = [guarded(a) if isinstance(a, torch.Tensor) else a for a in args]
+    before = [a.clone() for a in ins if isinstance(a, torch.Tensor)]
+    with monkeypatch.context() as m:
+        m.setattr(torch, "empty", lambda *s, **k: guarded(real_empty(*s, **k)))
+        m.setattr(ops, "_tickets", make_tickets)
+        got = fn(*ins, **kw)
+    torch.cuda.synchronize()
+    for buf in bufs:
+        assert (buf[:_GUARD] == 0xA5).all() and (buf[-_GUARD:] == 0xA5).all()
+    after = [a for a in ins if isinstance(a, torch.Tensor)]
+    assert all(torch.equal(a, c) for a, c in zip(after, before))
+    assert all(int(t.abs().sum()) == 0 for t in tickets)
+    assert torch.equal(got, want)
+    return len(tickets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kvh,h,hd", [
+    (torch.bfloat16, 8, 32, 64),                 # llama3.2-1b
+    (torch.bfloat16, 1, 48, 128), (torch.bfloat16, 2, 32, 128),
+    (torch.bfloat16, 4, 28, 128), (torch.bfloat16, 8, 32, 120)])
+def test_attention_writes_only_its_outputs(dev, monkeypatch, dtype, kvh, h, hd):
+    """B3, B4 (with and without window 4096), B6, B8 and B10 at llama's
+    and the dense family's widths, at the kernel phase's shapes (B=4,
+    N=8192, K=2048, pages of 64, lengths 8192/5000/1000/3001, slot 2's
+    pages past its extent unmapped): every launch splits, so each writes
+    its output, a workspace and tickets; none writes outside them."""
+    g = torch.Generator(device=dev).manual_seed(kvh * 1000 + h + hd)
+    b, n, ps, k = 4, 8192, 64, 2048
+    mp = n // ps
+    lengths = torch.tensor([8192, 5000, 1000, 3001], dtype=torch.int32,
+                           device=dev)
+    table = torch.randperm(b * mp + 1, generator=g, device=dev)[:b * mp]
+    table = table.int().reshape(b, mp)
+    table[2, -(-1000 // ps):] = -1
+    table = table.contiguous()
+    kp = torch.randn((b * mp + 1, ps, kvh, hd), generator=g, device=dev).to(dtype)
+    vp = torch.randn((b * mp + 1, ps, kvh, hd), generator=g, device=dev).to(dtype)
+    q = torch.randn((b, h, hd), generator=g, device=dev).to(dtype)
+    idx = torch.stack([torch.randint(0, int(L), (k,), generator=g, device=dev)
+                       for L in lengths]).int()
+    idx[1, :100] = -1
+    idx = idx.contiguous()
+    kc = kp[table.clamp(min=0).long()].reshape(b, n, kvh, hd).contiguous()
+    vc = vp[table.clamp(min=0).long()].reshape(b, n, kvh, hd).contiguous()
+    t8 = table[0::2].contiguous()
+    calls = [
+        (ops.paged_sparse_decode_attn, (q, kp, vp, table, idx, lengths), {}),
+        (ops.paged_dense_decode_attn, (q, kp, vp, table, lengths), {}),
+        (ops.paged_dense_decode_attn, (q, kp, vp, table, lengths),
+         dict(window=4096)),
+        (ops.sparse_decode_attn, (q, kc, vc, idx, lengths), {}),
+        (ops.paged_sparse_decode_attn_mq,
+         (q.reshape(2, 2, h, hd), kp, vp, t8, idx.reshape(2, 2, k),
+          lengths.reshape(2, 2)), {}),
+        (ops.paged_sparse_decode_attn_pg, (q, kp, vp, table, idx, lengths), {})]
+    for fn, args, kw in calls:
+        assert _writes_only_outputs(monkeypatch, fn, *args, **kw) == 1, fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 4096])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_scoring_writes_only_its_outputs(dev, monkeypatch, dtype, window):
+    """B2, B5 and B9's scoring body (64 heads of 128, pages of 64, rows of
+    8192, an unmapped page inside a row), with and without h2o-danube's
+    window of 4096: none writes outside its score rows."""
+    g = torch.Generator(device=dev).manual_seed(4096 + (window or 0))
+    n, ps, h, d = 8192, 64, 64, 128
+    table, pages, q, ln = _score_pools(g, dev, dtype, h, d, ps, n,
+                                       [8192, 5000, 1000, 3001], hole_at=2000)
+    b = ln.shape[0]
+    w = torch.full((h,), 1.0 / h, device=dev)
+    kc = pages[table.clamp(min=0).long()].reshape(b, n, d).contiguous()
+    q9 = torch.randn((b, 3, h, d), generator=g, device=dev).to(dtype)
+    l9 = (ln[:, None] - 2 + torch.arange(3, device=dev)).int().contiguous()
+    for fn, args in ((ops.paged_indexer_scores, (q, pages, w, table, ln)),
+                     (ops.indexer_scores, (q, kc, w, ln)),
+                     (ops.paged_indexer_scores_mq, (q9, pages, w, table, l9))):
+        _writes_only_outputs(monkeypatch, fn, *args, window=window)

@@ -116,9 +116,11 @@ def test_bridge_carries_bf16_exactly():
 
 def test_init_params_layout_matches_jax(jax_model_params):
     """Leaf by leaf, the port's init has the JAX init's tree, shapes and
-    dtypes: llama3.2-1b's smoke config and the two MoE smoke configs."""
+    dtypes: llama3.2-1b's smoke config, the two MoE smoke configs and the
+    rest of the dense family's (qwen2-vl's patch_proj included)."""
     _, llama_params = jax_model_params
-    for arch in ("llama3.2-1b", "granite-moe-1b-a400m", "moonshot-v1-16b-a3b"):
+    for arch in ("llama3.2-1b", "granite-moe-1b-a400m", "moonshot-v1-16b-a3b",
+                 "h2o-danube-3-4b", "chatglm3-6b", "granite-34b", "qwen2-vl-7b"):
         jparams = (llama_params if arch == "llama3.2-1b" else
                    jax_build(jax_config(arch, smoke=True)).init_params(
                        jax.random.PRNGKey(0)))
@@ -136,10 +138,12 @@ def test_init_params_layout_matches_jax(jax_model_params):
 
 def test_unported_families_and_options_raise():
     cfg = get_config("llama3.2-1b", smoke=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        build_model(dataclasses.replace(cfg, family="vlm"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        get_config("qwen2-vl-7b")
+    for family in ("hybrid", "ssm"):
+        with pytest.raises(NotImplementedError, match="Queue A item 5"):
+            build_model(dataclasses.replace(cfg, family=family), device="cpu")
+    for arch in ("jamba-1.5-large-398b", "rwkv6-3b"):
+        with pytest.raises(NotImplementedError, match="Queue A item 5"):
+            get_config(arch)
     for arch in ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b"):
         moe = get_config(arch)
         assert moe.family == "moe" and moe.moe.num_experts > 0

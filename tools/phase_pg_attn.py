@@ -42,8 +42,8 @@ VARIANTS = {
     "prologue": ("  // scoring: lane lc of each row group holds q's chunk lc for all G heads\n",
                  "  if constexpr (PG) { if (e1 < 0) out[0] = 0.f; return; }\n"),
     "no-merge": ("  const int ns = PG ? live_pg : (int)gridDim.x;",
-                 "  if constexpr (PG) { if (t < HD) { for (int g = 0; g < G; ++g)"
-                 " ob[g * HD + d] = acc[g]; } return; }\n"),
+                 "  if constexpr (PG) { if (t < hd) { for (int g = 0; g < G; ++g)"
+                 " if (g < gv) ob[g * hd + d] = acc[g]; } return; }\n"),
 }
 
 
