@@ -29,7 +29,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     rest of the dense family's widths (G 16, 48 and 7 as
                     head chunks of 8; G 4 at hd 120), B6 == B3 and B8 ==
                     B3 bit for bit there; B2/B5/B9 scoring and B1 under
-                    h2o-danube's window of 4096;
+                    h2o-danube's window of 4096; B6 at whisper-medium's
+                    width (G 1, hd 64, KVH 16); [b7-ab]: B7 against
+                    `index_select` on one gather, in turns A B B A;
   3. main         — serve requests through `DecodeEngine` (paged, fused,
                     greedy) at the full width of llama3.2-1b and MAIN_DEPTH
                     of its 16 layers, max_len=8192, 4 slots; every path
@@ -84,7 +86,20 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     cut to FAMILY_CUT_DEPTH layers (granite-34b's 88
                     layers do not fit one card), each through both
                     layouts and its 2-layer cut against the CPU;
- 14. summary      — each kernel's device time lost against its bound
+ 14. audio        — whisper-medium (enc-dec: 24 encoder and 24 decoder
+                    layers, d_model 1024) at full width and depth, bf16,
+                    through `serve_step`, the only serve path the reference
+                    gives the family: four requests, one per slot, fed
+                    token by token, then 16 greedy tokens each, at
+                    max_len 8192 (DSA every step: B5, B1, B6), the cross
+                    K/V random; `encode` timed at 1500 frames;
+                    [audio-step]: one profiled B=4 step and a 2-layer cut
+                    against the CPU (logits, Top-K);
+ 15. ssm          — rwkv6-3b (the WKV6 recurrence, no kernel: the
+                    reference has none) at full width and depth, bf16: the
+                    same loop, a profiled step, and a 2-layer cut stepping
+                    8 times against the CPU (logits, `s`, `x_att`);
+ 16. summary      — each kernel's device time lost against its bound
                     over its path at llama's 16 layers (launches x (ms -
                     bound_ms), the launches of phases 3 and 4 scaled from
                     MAIN_DEPTH layers; B2, B5 and B9 by their scoring
@@ -1149,6 +1164,105 @@ def phase_kernels_window(dcfg, flush):
     return out
 
 
+def phase_kernels_whisper_width(flush):
+    """B6 at whisper-medium's decoder width (G 1, hd 64, KVH 16, bf16) at
+    the kernel phase's shapes (B=4, N=8192, K=2048, lengths
+    8192/5000/1000/3001; entries as `phase_kernels_moe_width` draws them):
+    allclose to its plain version, == B3 over pages holding the same rows
+    bit for bit, two calls and each slot alone bit-identical; timed and
+    bounded as in `phase_kernels`. Returns {"B6": ...}."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1024)
+    b, n, k, ps, kvh, h, hd = 4, 8192, 2048, 64, 16, 16, 64
+    lengths = [8192, 5000, 1000, 3001]
+    inp = _paged_inputs(g, dev, b=b, mp=n // ps, ps=ps, lengths=lengths,
+                        kvh=kvh, hd=hd, h=h, di=8, hi=1)
+    table, ln = inp["table"], inp["lengths"]
+    idx = torch.stack([
+        torch.randperm(L, generator=g, device=dev)[:k].sort().values
+        if L >= k else torch.arange(k, device=dev) for L in lengths]).int()
+    idx[1, :16] = -1
+    idx[0, 16:32] = lengths[0] - 1
+    idx = idx.contiguous()
+    flat = table.clamp(min=0).long()
+    kc = inp["k_pages"][flat].reshape(b, n, kvh, hd).contiguous()
+    vc = inp["v_pages"][flat].reshape(b, n, kvh, hd).contiguous()
+    args6 = (inp["q"], kc, vc, idx, ln)
+    o6 = ops.sparse_decode_attn(*args6)
+    o3 = ops.paged_sparse_decode_attn(inp["q"], inp["k_pages"], inp["v_pages"],
+                                      table, idx, ln)
+    o6r = ref.sparse_attn_ref(*args6)
+    torch.cuda.synchronize()
+    if not torch.equal(o6, o3):
+        fail("B6 at whisper width: output differs from B3's on the same rows")
+    # tolerance: B3's at llama's widths (f32 softmax and PV sums over the
+    # same rows in another order)
+    e6 = float((o6 - o6r).abs().max())
+    if not torch.allclose(o6, o6r, atol=1e-4, rtol=1e-4):
+        fail(f"B6 at whisper width: max |err| {e6} beyond atol=rtol=1e-4")
+    _, splits = ops.decode_attn_splits("paged_sparse", k, n, ps)
+    ctas = _check_split("B6 whisper width", ops.sparse_decode_attn, args6, o6,
+                        splits * kvh * b, per_slot=(0, 1, 2, 3, 4))
+    rows = int(((idx >= 0) & (idx < ln[:, None])).sum())
+    bnd = bound_ms(inp["q"].numel() * 2 + rows * kvh * hd * 2 * 2
+                   + idx.numel() * 4 + b * 4 + b * h * hd * 4,
+                   4 * h * hd * rows)
+    ker = time_ms(lambda: ops.sparse_decode_attn(*args6), flush)
+    pl = time_ms(lambda: ref.sparse_attn_ref(*args6), flush, iters=6)
+    log(f"[kernels] whisper-medium width (G {h // kvh}, hd {hd}, KVH {kvh}, "
+        f"bf16): B6 allclose, max|err| {e6:.3e}, == B3 bit for bit, {ctas}; "
+        f"device [least-most] / wall: kernel {ker['ms']:.5f} [{ker['lo']:.5f}-"
+        f"{ker['hi']:.5f}] / {ker['wall_ms']:.5f} ms, plain {pl['ms']:.5f} / "
+        f"{pl['wall_ms']:.5f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}; {rows} "
+        f"valid rows), {ker['ms'] / bnd[0]:.2f}x")
+    return {"B6": dict(err=e6, ms=ker["ms"], wall_ms=ker["wall_ms"],
+                       plain_ms=pl["ms"], bound=bnd)}
+
+
+B7_AB_ROUNDS = 3
+
+
+def phase_b7_ab(cfg, flush):
+    """B7 against `torch.index_select` on one logical-view gather at
+    llama's widths (B=4, N=8192, pages of 64, KVH 8, hd 64, bf16) through
+    a fully mapped shuffled table, where the two compute the same
+    function (checked bit for bit), timed in turns A B B A, B7_AB_ROUNDS
+    times, in this one call (`time_ms`, L2 flushed). Returns (median,
+    least, most) device ms of each."""
+    import torch
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(77)
+    b, n, ps = 4, 8192, 64
+    inp = _paged_inputs(g, dev, b=b, mp=n // ps, ps=ps, lengths=[n] * b,
+                        kvh=cfg.n_kv_heads, hd=cfg.hd, h=cfg.n_heads, di=8, hi=1)
+    pool, table = inp["k_pages"], inp["table"]
+    flat = table.long().flatten()
+    view = ops.paged_gather(pool, table)
+    if not torch.equal(view.reshape(-1), pool.index_select(0, flat).reshape(-1)):
+        fail("[b7-ab] B7 and index_select differ on a fully mapped table")
+    fns = {"B7": lambda: ops.paged_gather(pool, table),
+           "index_select": lambda: pool.index_select(0, flat)}
+    ms = {key: [] for key in fns}
+    for _ in range(B7_AB_ROUNDS):
+        for key in ("B7", "index_select", "index_select", "B7"):
+            ms[key].append(time_ms(fns[key], flush, iters=10)["ms"])
+    out = {key: (statistics.median(v), min(v), max(v)) for key, v in ms.items()}
+    (a, a_lo, a_hi), (c, c_lo, c_hi) = out["B7"], out["index_select"]
+    spread = max(a_hi - a_lo, c_hi - c_lo)
+    verdict = ("B7 loses by more than the spread" if a - c > spread else
+               "B7 does not lose by more than the spread")
+    log(f"[b7-ab] B7 == index_select bit for bit on a fully mapped table; "
+        f"{B7_AB_ROUNDS} rounds A B B A, device ms median [least-most]: B7 "
+        f"{a:.5f} [{a_lo:.5f}-{a_hi:.5f}], index_select {c:.5f} [{c_lo:.5f}-"
+        f"{c_hi:.5f}]; B7 - index_select {a - c:+.5f} ms, spread {spread:.5f} "
+        f"ms: {verdict}; every run B7 {ms['B7']}, index_select "
+        f"{ms['index_select']}")
+    return out
+
+
 def _engine_run(model, params, *, max_len, specs, hook=None, **layout):
     """Serve `specs` [(prompt, max_new, arrival)] through a fresh 4-slot
     engine of the given layout, with the launch counts zeroed just before
@@ -1312,32 +1426,35 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
-def _profile_step(params, st, tokens, cfg, flush, tag="[step]"):
-    """Host wall time of one B=4 DSA decode step and, from torch.profiler,
+def _profile_step(params, st, tokens, cfg, flush, tag="[step]", step=None):
+    """Host wall time of one B=4 decode step and, from torch.profiler,
     the device time of its kernels (the L2 flushed before each profiled
-    step): the device's busy and idle share. The step rewrites the same
-    cache rows each call (its new state is dropped), so repeated calls see
-    the same inputs. Returns {"wall_ms", "device_ms"}, device_ms None when
-    no profiled step was complete; `tools/ab_decode_attn.py` calls it on
-    two checkouts."""
+    step): the device's busy and idle share. `step(params, state,
+    tokens, cfg)` is the family's step, `transformer.serve_step_paged` by
+    default. The step rewrites the same cache rows each call (its new
+    state is dropped), so repeated calls see the same inputs. Returns
+    {"wall_ms", "device_ms"}, device_ms None when no profiled step was
+    complete; `tools/ab_decode_attn.py` calls it on two checkouts."""
     import torch
     from repro_torch.models import transformer
+    step = step or transformer.serve_step_paged
     for _ in range(2):
-        transformer.serve_step_paged(params, st, tokens, cfg)
+        step(params, st, tokens, cfg)
     torch.cuda.synchronize()
     reps = 5
     t0 = time.perf_counter()
     for _ in range(reps):
-        transformer.serve_step_paged(params, st, tokens, cfg)
+        step(params, st, tokens, cfg)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / reps * 1e3
     # device-side events only (kernels, copies): the operator entries of
     # key_averages() carry their kernels' time too and would count it twice
-    calls, seen = _profiled_calls(
-        lambda: transformer.serve_step_paged(params, st, tokens, cfg), flush, reps)
+    calls, seen = _profiled_calls(lambda: step(params, st, tokens, cfg),
+                                  flush, reps)
+    what = f"{tag} B={tokens.shape[0]} decode step"
     if not calls:
-        log(f"{tag} B=4 DSA decode step: {step_ms:.3f} ms host wall; device "
-            f"time not measured (the profiler saw no complete step)")
+        log(f"{what}: {step_ms:.3f} ms host wall; device time not measured "
+            f"(the profiler saw no complete step)")
         return dict(wall_ms=step_ms, device_ms=None)
     dev = {}
     for call in calls:
@@ -1345,9 +1462,9 @@ def _profile_step(params, st, tokens, cfg, flush, tag="[step]"):
             dev[name] = dev.get(name, 0.0) + us / len(calls) / 1e3
     busy = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
-    log(f"{tag} B=4 DSA decode step: {step_ms:.3f} ms host wall, {busy:.3f} ms "
-        f"device busy ({busy / step_ms:.3f} busy share; {len(calls)} of {reps} "
-        f"profiled steps complete); top device time per step (ms): "
+    log(f"{what}: {step_ms:.3f} ms host wall, {busy:.3f} ms device busy "
+        f"({busy / step_ms:.3f} busy share; {len(calls)} of {reps} profiled "
+        f"steps complete); top device time per step (ms): "
         + ", ".join(f"{k[:48]}={v:.4f}" for k, v in top))
     return dict(wall_ms=step_ms, device_ms=busy)
 
@@ -1852,14 +1969,20 @@ def _first_layers(tree, n):
     return tree[:n]
 
 
+def _cut(model, params, key):
+    """The first 2 layers of a model's stacked `key` tree (views, full
+    width) and a model of that depth."""
+    from repro_torch.models.api import build_model
+    cut = build_model(dataclasses.replace(model.cfg, n_layers=2),
+                      device=model.device)
+    return cut, {**params, key: _first_layers(params[key], 2)}
+
+
 def _cut_vs_cpu(model, params, rng, flush, tag):
     """The first 2 layers of a model's weights (views, full width) through
     one step on the card and through the plain path on the CPU
     (`phase_step`, unprofiled); the whole model has no CPU copy."""
-    from repro_torch.models.api import build_model
-    cut = build_model(dataclasses.replace(model.cfg, n_layers=2),
-                      device=model.device)
-    cut_params = {**params, "layers": _first_layers(params["layers"], 2)}
+    cut, cut_params = _cut(model, params, "layers")
     phase_step(cut, cut_params, _to_cpu(cut_params), rng, flush,
                tag=f"{tag} 2-layer cut", profile=False)
 
@@ -2063,6 +2186,223 @@ def phase_family_cut(arch, depth, rng, flush):
     return counts
 
 
+# the [audio] and [ssm] loops: four requests, one per slot from step 0,
+# each fed its prompt token by token and then its own greedy tokens. The
+# longest prompt sets the loop's length: 100 tokens, not 300, since a
+# run with 300 took 1106 s of the 1200 s limit on a slow host (PERF.md)
+STEP_PROMPTS = [100, 64, 40, 24]
+STEP_NEW_TOKENS = 16
+AUDIO_STEP_LENGTHS = [8000, 5000, 1000, 3001]     # [audio-step]
+SSM_CUT_STEPS = 8
+
+
+def _greedy_loop(model, params, state, prompts, tag):
+    """Answer len(prompts) requests through `model.serve_step`, one per
+    slot from step 0: each slot is fed its prompt a token a step, then its
+    own greedy tokens, STEP_NEW_TOKENS each (a slot done early goes on
+    stepping until the last is done; its extra tokens are dropped). The
+    tokens are chosen on the card, so the loop never waits for the host;
+    the launch counts are zeroed just before and read just after. Returns
+    (tokens per request, steps, host ms a step, counts, state)."""
+    import torch
+    from repro_torch.kernels import ops
+    dev = model.device
+    b, vocab = len(prompts), model.cfg.vocab
+    plen = [len(pr) for pr in prompts]
+    steps = max(plen) + STEP_NEW_TOKENS - 1
+    feed = torch.zeros((b, steps + 1), dtype=torch.int32)
+    for i, pr in enumerate(prompts):
+        feed[i, :len(pr)] = torch.as_tensor(pr)
+    feed = feed.to(dev)
+    plen_d = torch.tensor(plen, device=dev)
+    out = torch.empty((steps, b), dtype=torch.int32, device=dev)
+    tok = feed[:, 0]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        logits, state = model.serve_step(params, state, tok)
+        out[t] = logits.argmax(-1).int()
+        tok = torch.where(plen_d > t + 1, feed[:, t + 1], out[t])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    counts = ops.launch_counts()
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{tag} the last step's logits are not finite")
+    gen = [out[p - 1:p - 1 + STEP_NEW_TOKENS, i].tolist()
+           for i, p in enumerate(plen)]
+    if any(min(g) < 0 or max(g) >= vocab for g in gen):
+        fail(f"{tag} a token outside the vocabulary: {gen}")
+    return gen, steps, step_ms, counts, state
+
+
+def _loop_report(model, params, state, tag, flush):
+    """`_greedy_loop` over STEP_PROMPTS (random prompts from seed 21) with
+    the peak device memory, then the device time of one more B=4 step
+    (`_profile_step`) as the loop's busy share. Returns the loop's
+    launch counts."""
+    import torch
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, model.cfg.vocab, (n,)) for n in STEP_PROMPTS]
+    torch.cuda.reset_peak_memory_stats()
+    gen, steps, step_ms, counts, state = _greedy_loop(model, params, state,
+                                                      prompts, tag)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{tag} {model.cfg.name}, {model.cfg.n_layers} layers, B={len(prompts)}, "
+        f"prompts {STEP_PROMPTS}, {STEP_NEW_TOKENS} new tokens each: {steps} "
+        f"serve_steps, {step_ms:.3f} ms host wall a step, {steps * step_ms / 1e3:.3f} "
+        f"s, peak device memory {peak:.3f} GiB")
+    log(f"{tag} tokens: {gen}")
+    log(f"{tag} launches: {counts}")
+    tokens = torch.tensor([g[-1] for g in gen], dtype=torch.int32,
+                          device=model.device)
+    prof = _profile_step(params, state, tokens, model.cfg, flush,
+                         f"{tag} after the loop,", model.mod.serve_step)
+    if prof["device_ms"] is not None:
+        log(f"{tag} device busy share of the loop's step: "
+            f"{prof['device_ms'] / step_ms:.3f} ({prof['device_ms']:.3f} ms "
+            f"device of {step_ms:.3f} ms host wall)")
+    return counts
+
+
+def _random_encdec_state(model, g, lengths, max_len=8192):
+    """A dense enc-dec decode state with random caches and cross K/V
+    (drawn one layer at a time), the given lengths and random Top-K
+    predictions below each length."""
+    import torch
+    st = model.init_decode_state(len(lengths), max_len)
+    for key in ("k", "v", "idx_k", "ck", "cv"):
+        for layer in st[key]:
+            layer.copy_(torch.randn(layer.shape, generator=g, device=g.device))
+    st["length"] = torch.tensor(lengths, dtype=torch.int32, device=g.device)
+    kk = st["prev_topk"].shape[-1]
+    st["prev_topk"] = torch.stack([
+        torch.randint(0, L, (model.cfg.n_layers, kk), generator=g, device=g.device)
+        for L in lengths], dim=1).int()
+    return st
+
+
+def _build_family(arch, tag):
+    """A model at full width and depth with bf16 random weights from seed
+    0, its parameter count and its bytes on the card logged."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(seed=0)
+    torch.cuda.synchronize()
+    log(f"{tag} {cfg.name}: full width and depth, {cfg.param_count() / 1e9:.3f} "
+        f"B params (approx), {cfg.dtype}, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB on the card, random "
+        f"init in {time.perf_counter() - t0:.3f} s")
+    return model, params
+
+
+def phase_audio(flush):
+    """[audio]: whisper-medium at full width and depth (24 + 24 layers):
+    the greedy loop at max_len 8192 (> dsa.min_n: DSA every step, B5, B1
+    and B6 launched), cross K/V random (the reference never fills them
+    from `encode`); `encode` timed alone at 1500 frames (B=1 and 4).
+    [audio-step]: one profiled B=4 step at AUDIO_STEP_LENGTHS, then a
+    2-layer cut of the same weights on the card against the CPU plain
+    path: logits and Top-K. Returns the loop's launch counts."""
+    import torch
+    from repro_torch.models import encdec
+    model, params = _build_family("whisper-medium", "[audio]")
+    cfg, dev = model.cfg, model.device
+    g = torch.Generator(device=dev).manual_seed(1500)
+    st = model.init_decode_state(len(STEP_PROMPTS), 8192)
+    for key in ("ck", "cv"):
+        st[key].copy_(torch.randn(st[key].shape, generator=g, device=dev))
+    log(f"[audio] decode state (B={len(STEP_PROMPTS)}, max_len 8192, "
+        f"{cfg.encoder_frames} cross rows): "
+        f"{sum(v.numel() * v.element_size() for v in st.values()) / 2 ** 30:.3f} GiB")
+    counts = _loop_report(model, params, st, "[audio]", flush)
+    _need("[audio]", counts, ("indexer_scores", "gvr_topk", "sparse_decode_attn"))
+    del st
+    torch.cuda.empty_cache()
+    for b in (1, 4):
+        frames = torch.randn((b, cfg.encoder_frames, cfg.d_model), generator=g,
+                             device=dev).to(torch.bfloat16)
+        enc = encdec.encode(params, frames, cfg)
+        if not (enc.shape == frames.shape and bool(torch.isfinite(enc).all())):
+            fail(f"[audio] encode at B={b}: not finite or of the wrong shape")
+        t = time_ms(lambda: encdec.encode(params, frames, cfg), flush, iters=6,
+                    warmup=1)
+        log(f"[audio] encode, {cfg.encoder_layers} layers over "
+            f"{cfg.encoder_frames} frames, B={b}: device {t['ms']:.3f} ms "
+            f"[{t['lo']:.3f}-{t['hi']:.3f}], wall {t['wall_ms']:.3f} ms")
+    # [audio-step]
+    st = _random_encdec_state(model, g, AUDIO_STEP_LENGTHS)
+    tokens = torch.randint(0, cfg.vocab, (4,), generator=g, device=dev).int()
+    _profile_step(params, st, tokens, cfg, flush, "[audio-step]",
+                  encdec.serve_step)
+    del st
+    torch.cuda.empty_cache()
+    cut, cut_params = _cut(model, params, "decoder")
+    st = _random_encdec_state(cut, g, AUDIO_STEP_LENGTHS)
+    cpu_st = {k: v.cpu().clone() for k, v in st.items()}
+    lg, new = encdec.serve_step(cut_params, st, tokens, cut.cfg)
+    t0 = time.perf_counter()
+    lc, new_c = encdec.serve_step(_to_cpu(cut_params), cpu_st, tokens.cpu(), cut.cfg)
+    cpu_s = time.perf_counter() - t0
+    rel, arg = _logits_vs("[audio-step] 2-layer cut", lg.cpu(), lc)
+    agree = _topk_agreement(new["prev_topk"], new_c["prev_topk"])
+    log(f"[audio-step] 2-layer cut (full width) card vs CPU plain path, lengths "
+        f"{AUDIO_STEP_LENGTHS}: logits rel L2 {rel:.3e} (argmax agreement "
+        f"{arg:.2f}), per-layer Top-K agreement {agree}; the CPU copy and "
+        f"step {cpu_s:.3f} s")
+    if agree[0] < 0.99:
+        fail(f"[audio-step] layer-0 Top-K agreement {agree[0]} < 0.99")
+    del model, params, cut_params, st, cpu_st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_ssm(flush):
+    """[ssm]: rwkv6-3b at full width and depth (32 layers, bf16): the
+    greedy loop (the state is O(1) in context: f32 WKV state and token
+    shifts), a profiled B=4 step, then a 2-layer cut of the same weights
+    stepping SSM_CUT_STEPS times on the card and through the CPU plain
+    path from one random state: logits, `s` and `x_att`."""
+    import torch
+    from repro_torch.models import ssm
+    model, params = _build_family("rwkv6-3b", "[ssm]")
+    dev = model.device
+    st = model.init_decode_state(len(STEP_PROMPTS), 8192)
+    _loop_report(model, params, st, "[ssm]", flush)
+    cut, cut_params = _cut(model, params, "layers")
+    cpu_params = _to_cpu(cut_params)
+    g = torch.Generator(device=dev).manual_seed(2560)
+    st = cut.init_decode_state(4, 8192)
+    for key in ("s", "x_att", "x_ffn"):
+        st[key].copy_(torch.randn(st[key].shape, generator=g, device=dev))
+    cpu_st = {k: v.cpu().clone() for k, v in st.items()}
+    rels = []
+    t0 = time.perf_counter()
+    for _ in range(SSM_CUT_STEPS):
+        tokens = torch.randint(0, cut.cfg.vocab, (4,), generator=g, device=dev).int()
+        lg, st = ssm.serve_step(cut_params, st, tokens, cut.cfg)
+        lc, cpu_st = ssm.serve_step(cpu_params, cpu_st, tokens.cpu(), cut.cfg)
+        rels.append(_logits_vs("[ssm] 2-layer cut", lg.cpu(), lc)[0])
+    state_rel = {key: float((st[key].cpu() - cpu_st[key]).norm() / cpu_st[key].norm())
+                 for key in ("s", "x_att", "x_ffn")}
+    # tolerance: _logits_vs's (the same bf16 model run two ways)
+    if max(state_rel.values()) > 5e-2:
+        fail(f"[ssm] 2-layer cut: state relative L2 error {state_rel} > 5e-2")
+    log(f"[ssm] 2-layer cut (full width) card vs CPU plain path, "
+        f"{SSM_CUT_STEPS} steps in {time.perf_counter() - t0:.3f} s: logits "
+        f"rel L2 per step "
+        f"{[f'{r:.2e}' for r in rels]}; after the last, rel L2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in state_rel.items()))
+    del model, params, cut_params, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def run_llama_phases(model, params, cpu_params, rng, specs, timed):
     """The llama3.2-1b engine phases, [main] through [dense], which run
     beside h2o-danube's child processes (their host walls with them);
@@ -2124,6 +2464,8 @@ def main() -> int:
     kres_family = phase_kernels_family_widths(flush)
     dcfg = get_config("h2o-danube-3-4b")
     kres_window = phase_kernels_window(dcfg, flush)
+    kres_family["whisper"] = phase_kernels_whisper_width(flush)
+    b7_ab = phase_b7_ab(cfg, flush)
 
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -2201,6 +2543,9 @@ def main() -> int:
     for arch in ("chatglm3-6b", "qwen2-vl-7b", "granite-34b"):
         timed(f"dense-family {arch}", phase_family_cut, arch, FAMILY_CUT_DEPTH,
               rng, flush)
+    # the enc-dec and ssm families at full width and depth, step by step
+    audio_counts = timed("audio", phase_audio, flush)
+    timed("ssm", phase_ssm, flush)
 
     rows = [("B1 gvr_topk", "gvr_topk.cu", "src/repro/kernels/gvr_topk.py:334",
              main_counts["gvr_topk"]),
@@ -2289,6 +2634,14 @@ def main() -> int:
                      window_scoring_free_ms=m["free_ms"],
                      window_scoring_plain_ms=m["plain_ms"],
                      window_scoring_bound_ms=m["bound"][0])
+    # launches on the [audio] loop (whisper-medium: B5, B1, B6); B7
+    # against index_select in turns (median, least, most)
+    for r, key in ((kernels[0], "gvr_topk"), (kernels[4], "indexer_scores"),
+                   (kernels[5], "sparse_decode_attn")):
+        r["audio_launches"] = int(audio_counts[key])
+    (a, a_lo, a_hi), (c, c_lo, c_hi) = b7_ab["B7"], b7_ab["index_select"]
+    kernels[6].update(ab_ms=a, ab_lo_ms=a_lo, ab_hi_ms=a_hi, ab_library_ms=c,
+                      ab_library_lo_ms=c_lo, ab_library_hi_ms=c_hi)
     # B10 also on rows of 131,072 positions (B = 4, K = 2048)
     long10 = kres["B10 N=131072"]
     next(r for r in kernels if r["name"].startswith("B10 ")).update(long_row_ms=long10["ms"], long_row_plain_ms=long10["plain_ms"],

@@ -3,23 +3,28 @@
 `build_model(cfg)` runs on the card: with no `device` it takes "cuda" and
 raises when there is none — pass `device="cpu"` to run the plain PyTorch
 path on the CPU, as the tests do. It never falls back silently.
+
+The slot-wise and paged hooks are looked up in the family's module, as
+the JAX package's facade looks them up: the enc-dec and ssm families
+define none (the reference serves them step by step only), so their
+axis maps are None and the other hooks raise NotImplementedError — and
+`DecodeEngine` refuses them with the reference's ValueError.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-from . import transformer
+from . import encdec, ssm, transformer
 from .config import ModelConfig
 
-_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer}
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+             "audio": encdec, "ssm": ssm}
 _PENDING = {
     "hybrid": "ROADMAP Queue A item 5 (other model families: hybrid)",
-    "ssm": "ROADMAP Queue A item 5 (other model families: ssm)",
-    "audio": "ROADMAP Queue A item 5 (other model families: enc-dec)",
 }
 
 
@@ -51,40 +56,58 @@ class Model:
         return self.mod.init_decode_state(self.cfg, batch, max_len,
                                           device=self.device, dtype=dtype)
 
-    def state_batch_axes(self) -> Dict[str, int]:
-        return self.mod.state_batch_axes(self.cfg)
+    def _hook(self, name: str, what: str):
+        """The family module's `name`, or NotImplementedError saying the
+        family has no `what`."""
+        fn = getattr(self.mod, name, None)
+        if fn is None:
+            raise NotImplementedError(
+                f"family {self.cfg.family!r} has no {what}")
+        return fn
 
-    def state_merge_axes(self) -> Dict[str, int]:
-        return self.mod.state_merge_axes(self.cfg)
+    def _axes(self, name: str) -> Optional[Dict[str, int]]:
+        fn = getattr(self.mod, name, None)
+        return fn(self.cfg) if fn is not None else None
+
+    def state_batch_axes(self) -> Optional[Dict[str, int]]:
+        """Slot axis of every dense-state leaf, or None when the family
+        has no slot-wise state (the engine refuses it)."""
+        return self._axes("state_batch_axes")
+
+    def state_merge_axes(self) -> Optional[Dict[str, int]]:
+        return self._axes("state_merge_axes")
 
     def init_paged_decode_state(self, batch, max_len, *, num_pages, page_size,
                                 dtype=None):
-        return self.mod.init_paged_decode_state(
+        return self._hook("init_paged_decode_state", "paged decode state")(
             self.cfg, batch, max_len, num_pages=num_pages,
             page_size=page_size, device=self.device, dtype=dtype)
 
-    def paged_state_batch_axes(self) -> Dict[str, int]:
-        return self.mod.paged_state_batch_axes(self.cfg)
+    def paged_state_batch_axes(self) -> Optional[Dict[str, int]]:
+        """Slot axis of each per-slot paged-state leaf, or None when the
+        family has no paged decode path."""
+        return self._axes("paged_state_batch_axes")
 
     def reset_slot_state(self, state, slot, *, seq_len_hint=None):
-        return self.mod.reset_slot_state(self.cfg, state, slot,
-                                         seq_len_hint=seq_len_hint)
+        return self._hook("reset_slot_state", "slot-wise state reset")(
+            self.cfg, state, slot, seq_len_hint=seq_len_hint)
 
     def recycle_slot_state(self, state, slot):
-        return self.mod.recycle_slot_state(self.cfg, state, slot)
+        return self._hook("recycle_slot_state", "slot-wise state recycle")(
+            self.cfg, state, slot)
 
     def serve_step(self, params, state, tokens, *, min_write_pos=None):
-        """One dense-layout decode step (see transformer.serve_step)."""
-        return self.mod.serve_step(params, state, tokens, self.cfg,
-                                   min_write_pos=min_write_pos)
+        """One dense-layout decode step (see transformer.serve_step; the
+        enc-dec and ssm steps take no `min_write_pos`, as the reference's)."""
+        kw = {} if min_write_pos is None else {"min_write_pos": min_write_pos}
+        return self.mod.serve_step(params, state, tokens, self.cfg, **kw)
 
     def serve_step_paged(self, params, state, tokens, *, min_write_pos=None,
                          paged_attn="fused", gather_granularity="token"):
         """One paged decode step (see transformer.serve_step_paged)."""
-        return self.mod.serve_step_paged(params, state, tokens, self.cfg,
-                                         min_write_pos=min_write_pos,
-                                         paged_attn=paged_attn,
-                                         gather_granularity=gather_granularity)
+        return self._hook("serve_step_paged", "paged serve_step")(
+            params, state, tokens, self.cfg, min_write_pos=min_write_pos,
+            paged_attn=paged_attn, gather_granularity=gather_granularity)
 
     def serve_step_spec_paged(self, params, state, tokens, *, draft_len,
                               max_accept, eos_id=-1, min_write_pos=None,
@@ -92,7 +115,8 @@ class Model:
                               gather_granularity="token"):
         """One speculative verify tick over the paged layout (see
         transformer.serve_step_spec_paged)."""
-        return self.mod.serve_step_spec_paged(
+        return self._hook("serve_step_spec_paged",
+                          "speculative paged serve_step")(
             params, state, tokens, self.cfg, draft_len=draft_len,
             max_accept=max_accept, eos_id=eos_id,
             min_write_pos=min_write_pos, paged_attn=paged_attn,

@@ -1,0 +1,193 @@
+"""Whisper-style encoder-decoder backbone (audio family), PyTorch port of
+the JAX package's `models/encdec.py`: parameters, the encoder, the decode
+state and the one-token decode step.
+
+The conv/mel frontend is a stub, as in the reference: the encoder takes
+precomputed frame embeddings (B, encoder_frames, d_model), adds the
+learned `enc_pos` and runs bidirectional self-attention layers with the
+GELU MLP. The decoder's self-attention is DSA-eligible: once the cache
+length N exceeds `dsa.min_n`, every step scores, selects and attends
+through `sparse/dsa.py:dsa_decode` (kernels B5 → B1 → B6 on the card),
+with no validity mask (`prev_valid=None`: every row takes GVR) and no
+window, as the reference passes neither. Cross-attention over the
+`encoder_frames` precomputed rows stays exact (`layers.decode_attention`,
+plain PyTorch, as the reference leaves it to XLA).
+
+The reference serves this family step by step only: it defines no
+slot-wise or paged hooks, so `DecodeEngine` refuses it. Its
+`init_decode_state` makes the cross K/V (`ck`, `cv`) zeros and no serve
+path fills them from `encode`; the port keeps that as it is. The state
+has the reference's leaves and no other. The K/V and indexer-K caches
+are written in place (the `transformer.serve_step` convention); the
+step returns `length` and, under DSA, `prev_topk` anew.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.core.temporal import seed_slot_idx
+from repro_torch.sparse import dsa as dsa_mod
+from .config import ModelConfig
+from .layers import apply_rotary, decode_attention, gelu_mlp, rms_norm
+from .transformer import layer_params, torch_dtype
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device) -> Dict[str, Any]:
+    """Random-init parameters from `generator`, the reference's tree
+    stacked over layers: N(0, 1/fan_in) weights (`enc_pos` at 0.02, the
+    embedding at 1), unit norms, zero f32 MLP biases."""
+    dtype = torch_dtype(cfg.dtype)
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+
+    def dense(shape, scale):
+        return (torch.randn(shape, generator=generator, device=device)
+                * scale).to(dtype)
+
+    def f32(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=device)
+
+    def attn(l):
+        return {"wq": dense((l, d, cfg.n_heads * hd), d ** -0.5),
+                "wk": dense((l, d, cfg.n_kv_heads * hd), d ** -0.5),
+                "wv": dense((l, d, cfg.n_kv_heads * hd), d ** -0.5),
+                "wo": dense((l, cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5)}
+
+    def mlp(l):
+        return {"w_up": dense((l, d, f), d ** -0.5), "b_up": f32((l, f), 0.0),
+                "w_down": dense((l, f, d), f ** -0.5), "b_down": f32((l, d), 0.0)}
+
+    enc_l, dec_l = cfg.encoder_layers or cfg.n_layers, cfg.n_layers
+    decoder = {"ln1": f32((dec_l, d), 1.0), "ln2": f32((dec_l, d), 1.0),
+               "ln3": f32((dec_l, d), 1.0), "self_attn": attn(dec_l),
+               "cross_attn": attn(dec_l), "mlp": mlp(dec_l)}
+    if cfg.dsa.enabled:
+        decoder["indexer"] = dsa_mod.indexer_init(
+            generator, d, cfg.dsa.indexer_heads, cfg.dsa.indexer_dim, dtype,
+            device, layers=dec_l)
+    return {
+        "embed": dense((cfg.vocab, d), 1.0),
+        "enc_pos": dense((cfg.encoder_frames, d), 0.02),
+        "encoder": {"ln1": f32((enc_l, d), 1.0), "ln2": f32((enc_l, d), 1.0),
+                    "attn": attn(enc_l), "mlp": mlp(enc_l)},
+        "decoder": decoder,
+        "enc_norm": f32((d,), 1.0),
+        "final_norm": f32((d,), 1.0),
+        "lm_head": dense((d, cfg.vocab), d ** -0.5),
+    }
+
+
+def _self_attn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Bidirectional self-attention of the encoder, f32 softmax. x:
+    (B, S, D) normed input; returns (B, S, D) in x's dtype."""
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1),
+                       v.float())
+    return out.reshape(b, s, -1).to(x.dtype) @ p["wo"]
+
+
+def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """frames: (B, encoder_frames, D) precomputed frame embeddings (the
+    stubbed frontend). Returns the normed encoder output (B, F, D)."""
+    x = frames.to(torch_dtype(cfg.dtype)) + params["enc_pos"][None]
+    for i in range(cfg.encoder_layers or cfg.n_layers):
+        p = layer_params(params["encoder"], i)
+        x = x + _self_attn(p["attn"], rms_norm(x, p["ln1"]), cfg)
+        x = x + gelu_mlp(rms_norm(x, p["ln2"]), **p["mlp"])
+    return rms_norm(x, params["enc_norm"])
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *, device,
+                      dtype=None) -> Dict[str, torch.Tensor]:
+    """The reference's decode state: self-attention K/V caches
+    (L, B, max_len, KVH, hd), zero cross K/V (L, B, encoder_frames, KVH,
+    hd), `length`, and under DSA the indexer-K cache and `prev_topk`
+    seeded with the even spacing over [0, max(max_len - 1, 1)]."""
+    dtype = dtype or torch_dtype(cfg.dtype)
+    l, hd, kvh = cfg.n_layers, cfg.hd, cfg.n_kv_heads
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    state = {
+        "k": zeros(l, batch, max_len, kvh, hd),
+        "v": zeros(l, batch, max_len, kvh, hd),
+        "ck": zeros(l, batch, cfg.encoder_frames, kvh, hd),
+        "cv": zeros(l, batch, cfg.encoder_frames, kvh, hd),
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+    if cfg.dsa.enabled:
+        kk = min(cfg.dsa.k, max_len)
+        state["idx_k"] = zeros(l, batch, max_len, cfg.dsa.indexer_dim)
+        base = seed_slot_idx(kk, max(max_len, 2), device)
+        state["prev_topk"] = base[None, None].expand(l, batch, kk).clone()
+    return state
+
+
+def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig):
+    """One decode step. tokens: (B,) int. Returns (logits (B, V) f32,
+    new_state). The new K/V (and indexer-K) rows are written in place at
+    `length`, clamped to N-1 as the reference's `dynamic_update_slice`
+    clamps it; DSA runs when N > `dsa.min_n`, decided from the shape."""
+    b = tokens.shape[0]
+    hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    positions = state["length"]
+    new_len = positions + 1
+    n = state["k"].shape[2]
+    use_dsa = cfg.dsa.enabled and n > cfg.dsa.min_n
+    rows = torch.arange(b, device=positions.device)
+    wpos = positions.clamp(max=n - 1).long()
+    enc_len = torch.full((b,), state["ck"].shape[2], dtype=torch.int32,
+                         device=positions.device)
+    pos = positions[:, None]
+    x = params["embed"][tokens.long()]                    # (B, D)
+    topk_out = []
+    for i in range(cfg.n_layers):
+        p = layer_params(params["decoder"], i)
+        pa = p["self_attn"]
+        hs = rms_norm(x, p["ln1"])
+        q = apply_rotary((hs @ pa["wq"]).reshape(b, 1, h, hd), pos,
+                         base=cfg.rope_base)[:, 0]
+        kn = apply_rotary((hs @ pa["wk"]).reshape(b, 1, kvh, hd), pos,
+                          base=cfg.rope_base)[:, 0]
+        kc, vc = state["k"][i], state["v"][i]
+        kc[rows, wpos] = kn.to(kc.dtype)
+        vc[rows, wpos] = (hs @ pa["wv"]).reshape(b, kvh, hd).to(vc.dtype)
+        if cfg.dsa.enabled:
+            idx_kc = state["idx_k"][i]
+            idx_kc[rows, wpos] = dsa_mod.indexer_k(
+                p["indexer"], hs, positions, dim=cfg.dsa.indexer_dim,
+                rope_base=cfg.rope_base).to(idx_kc.dtype)
+        if use_dsa:
+            res = dsa_mod.dsa_decode(
+                q, kc, vc, p["indexer"], hs, idx_kc, state["prev_topk"][i],
+                new_len, k=state["prev_topk"].shape[-1], scale=hd ** -0.5,
+                heads=cfg.dsa.indexer_heads, dim=cfg.dsa.indexer_dim,
+                rope_base=cfg.rope_base, selector=cfg.dsa.selector,
+                max_candidates=cfg.dsa.max_candidates,
+                gate_max_n=cfg.dsa.gate_max_n, min_n=cfg.dsa.min_n)
+            att = res.attn_out
+            topk_out.append(res.topk_idx.int())
+        else:
+            att = decode_attention(q, kc, vc, new_len, scale=hd ** -0.5)
+        x = x + att.reshape(b, -1).to(x.dtype) @ pa["wo"]
+        # cross-attention over the precomputed encoder K/V (exact)
+        pc = p["cross_attn"]
+        qc = (rms_norm(x, p["ln2"]) @ pc["wq"]).reshape(b, h, hd)
+        attc = decode_attention(qc, state["ck"][i], state["cv"][i], enc_len,
+                                scale=hd ** -0.5)
+        x = x + attc.reshape(b, -1).to(x.dtype) @ pc["wo"]
+        x = x + gelu_mlp(rms_norm(x, p["ln3"]), **p["mlp"])
+    new_state = dict(state, length=new_len)
+    if topk_out:
+        new_state["prev_topk"] = torch.stack(topk_out)
+    x = rms_norm(x, params["final_norm"])
+    return (x @ params["lm_head"]).float(), new_state

@@ -1,5 +1,5 @@
 """Shared model layers of the PyTorch port: norm, rotary embedding, decode
-attention, SwiGLU MLP, the MoE feed-forward on one device.
+attention, SwiGLU and GELU MLPs, the MoE feed-forward on one device.
 
 Dtype handling follows the JAX package's `models/layers.py` step for step
 (which ops run in f32, where results are cast back), so a float32 smoke
@@ -101,6 +101,15 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
 def swiglu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                w_down: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
+             w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+    """The enc-dec family's MLP with f32 biases cast to x's dtype.
+    `jax.nn.gelu` defaults to the tanh approximation, so this takes it
+    too, not PyTorch's erf default."""
+    h = F.gelu(x @ w_up + b_up.to(x.dtype), approximate="tanh")
+    return h @ w_down + b_down.to(x.dtype)
 
 
 def moe_route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):

@@ -235,6 +235,9 @@ class DecodeEngine:
         if kv_layout == "paged":
             # the page pools are pool-global: every per-slot leaf is merged
             self._axes = self._merge_axes = model.paged_state_batch_axes()
+            if self._axes is None:
+                raise ValueError(f"model family {model.cfg.family!r} does "
+                                 f"not expose a paged decode state")
             if self.max_len % int(page_size) != 0:
                 raise ValueError(f"max_len ({self.max_len}) must be a "
                                  f"multiple of page_size ({page_size})")
@@ -251,6 +254,9 @@ class DecodeEngine:
                 page_size=int(page_size))
         else:
             self._axes = model.state_batch_axes()
+            if self._axes is None:
+                raise ValueError(f"model family {model.cfg.family!r} does not "
+                                 f"expose slot-wise decode state")
             # the caches are written in place by the step (inactive rows
             # kept): only the leaves it returns anew are merged
             self._merge_axes = model.state_merge_axes()

@@ -37,7 +37,9 @@ split cases, and its MoE feed-forward (one layer, 64 experts) is held on
 the card against the CPU. The rest of the dense family's widths (G 48,
 16 and 7 as head chunks of 8, hd 120 on 128 lanes) run through the same
 split cases, and h2o-danube's sliding window through the scoring body
-and B1.
+and B1. whisper-medium's width (G = 1, hd 64, KVH 16, bf16) runs through
+B6/B10, and the smoke configs of whisper-medium (DSA: B5, B1, B6) and
+rwkv6-3b (plain PyTorch) step on the card against the CPU.
 """
 
 import pytest
@@ -101,6 +103,8 @@ def test_b2_paged_indexer_scores_on_card(dev, dtype, ps, hi, di):
 
 # moonshot-v1-16b-a3b's decode attention: G = 1, hd 128, KVH 16, bf16
 _MOE_WIDTH = (torch.bfloat16, 16, 16, 128, 64)
+# whisper-medium's decoder self-attention: G = 1, hd 64, KVH 16, bf16
+_WHISPER_WIDTH = (torch.bfloat16, 16, 16, 64, 64)
 
 
 @pytest.mark.cuda
@@ -164,7 +168,7 @@ def test_b5_indexer_scores_on_card_equal_b2(dev, dtype, ps, hi, di):
     (torch.bfloat16, 8, 32, 64, 64), (torch.float32, 2, 4, 32, 8),
     (torch.bfloat16, 1, 8, 128, 16),
     (torch.bfloat16, 2, 16, 32, 128),      # B10: 20 splits of 256 positions
-    _MOE_WIDTH])
+    _MOE_WIDTH, _WHISPER_WIDTH])
 def test_b6_b10_sparse_attention_on_card(dev, dtype, kvh, h, hd, ps):
     g = torch.Generator(device=dev).manual_seed(hd + ps)
     b, mp, k = 3, 40, 300
@@ -1045,3 +1049,48 @@ def test_scoring_writes_only_its_outputs(dev, monkeypatch, dtype, window):
                      (ops.indexer_scores, (q, kc, w, ln)),
                      (ops.paged_indexer_scores_mq, (q9, pages, w, table, l9))):
         _writes_only_outputs(monkeypatch, fn, *args, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-medium", "rwkv6-3b"])
+def test_family_serve_step_on_card_matches_cpu(dev, arch):
+    """The enc-dec and ssm smoke configs (float32): six `serve_step`s on
+    the card and through the plain path on the CPU from one random state
+    (whisper: random caches and cross K/V, lengths 0, 5 and 20 in a cache
+    of 48 > min_n 8, so every step runs B5 -> B1 -> B6). Logits within
+    rtol = 1e-4, atol = 1e-3 (float32 GEMMs and softmax sums in other
+    orders), the Top-K equal, every state leaf within 1e-4."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config(arch, smoke=True)
+    gm, cm = build_model(cfg, device=dev), build_model(cfg, device="cpu")
+    params = gm.init_params(seed=0)
+
+    def cpu(tree):
+        return ({k: cpu(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.cpu())
+
+    cparams = cpu(params)
+    b = 3
+    st = gm.init_decode_state(b, 48)
+    g = torch.Generator(device=dev).manual_seed(48)
+    for key in ("k", "v", "ck", "cv", "idx_k", "s", "x_att", "x_ffn"):
+        if key in st:
+            st[key].copy_(torch.randn(st[key].shape, generator=g, device=dev))
+    if "k" in st:
+        st["length"] = torch.tensor([0, 5, 20], dtype=torch.int32, device=dev)
+    cst = {k: v.cpu().clone() for k, v in st.items()}
+    ops.reset_launch_counts()
+    for _ in range(6):
+        tok = torch.randint(0, cfg.vocab, (b,), generator=g, device=dev).int()
+        lg, st = gm.serve_step(params, st, tok)
+        lc, cst = cm.serve_step(cparams, cst, tok.cpu())
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-3)
+        if "prev_topk" in st:
+            assert torch.equal(st["prev_topk"].cpu(), cst["prev_topk"])
+    for key, v in st.items():
+        torch.testing.assert_close(v.cpu(), cst[key], rtol=1e-4, atol=1e-4)
+    counts = ops.launch_counts()
+    want = (("indexer_scores", "gvr_topk", "sparse_decode_attn")
+            if arch == "whisper-medium" else ())
+    assert all(counts[name] == 6 * cfg.n_layers for name in want), counts

@@ -138,12 +138,18 @@ def test_init_params_layout_matches_jax(jax_model_params):
 
 def test_unported_families_and_options_raise():
     cfg = get_config("llama3.2-1b", smoke=True)
-    for family in ("hybrid", "ssm"):
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
-            build_model(dataclasses.replace(cfg, family=family), device="cpu")
-    for arch in ("jamba-1.5-large-398b", "rwkv6-3b"):
-        with pytest.raises(NotImplementedError, match="Queue A item 5"):
-            get_config(arch)
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+        build_model(dataclasses.replace(cfg, family="hybrid"), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
+        get_config("jamba-1.5-large-398b")
+    # the enc-dec and ssm families: the JAX registry's configs field for
+    # field, and both build on the CPU
+    for arch, family in (("whisper-medium", "audio"), ("rwkv6-3b", "ssm")):
+        for smoke in (False, True):
+            assert (dataclasses.asdict(get_config(arch, smoke=smoke))
+                    == dataclasses.asdict(jax_config(arch, smoke=smoke)))
+        assert get_config(arch).family == family
+        assert build_model(get_config(arch, smoke=True), device="cpu").cfg.family == family
     for arch in ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b"):
         moe = get_config(arch)
         assert moe.family == "moe" and moe.moe.num_experts > 0
