@@ -99,7 +99,17 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     reference has none) at full width and depth, bf16: the
                     same loop, a profiled step, and a 2-layer cut stepping
                     8 times against the CPU (logits, `s`, `x_att`);
- 16. summary      — each kernel's device time lost against its bound
+ 16. hybrid       — jamba-1.5-large-398b (Mamba + attention 1:7, MoE on
+                    odd layers) at full width, one superblock (JAMBA_DEPTH
+                    of its 72 layers) and JAMBA_EXPERTS of its 16 experts,
+                    bf16, through `serve_step`: the same loop (DSA every
+                    step: B5, B1, B6); [hybrid-step]: a profiled B=4 step;
+                    [hybrid-cut]: its attention layer, one Mamba layer
+                    stepping 8 times and one dense FFN against the CPU;
+ 17. temporal     — B1 on the paper's synthetic RoPE rows (n 8192 and
+                    131072) from the static and the uniform prior, equal
+                    to the exact Top-K; hit ratios and global passes;
+ 18. summary      — each kernel's device time lost against its bound
                     over its path at llama's 16 layers (launches x (ms -
                     bound_ms), the launches of phases 3 and 4 scaled from
                     MAIN_DEPTH layers; B2, B5 and B9 by their scoring
@@ -1576,6 +1586,12 @@ def _topk_agreement(a, c):
             for i in range(a.shape[0])]
 
 
+def _rel(a, b) -> float:
+    """Relative L2 error of a (the card's) against b (the CPU's)."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).norm() / b.norm())
+
+
 def phase_layouts(model, params, cpu_params, rng):
     """One B=4 DSA step from one state in four forms: paged fused, paged
     gather (B7 views, then B5/B1/B6), paged page-granular (B10) and the
@@ -2265,21 +2281,26 @@ def _loop_report(model, params, state, tag, flush):
     return counts
 
 
-def _random_encdec_state(model, g, lengths, max_len=8192):
-    """A dense enc-dec decode state with random caches and cross K/V
-    (drawn one layer at a time), the given lengths and random Top-K
-    predictions below each length."""
+def _random_family_state(model, g, lengths, keys, max_len=8192):
+    """A family's dense decode state with the leaves `keys` random (drawn
+    one layer, or superblock, at a time), the given lengths and random
+    Top-K predictions below each length."""
     import torch
     st = model.init_decode_state(len(lengths), max_len)
-    for key in ("k", "v", "idx_k", "ck", "cv"):
+    for key in keys:
         for layer in st[key]:
             layer.copy_(torch.randn(layer.shape, generator=g, device=g.device))
     st["length"] = torch.tensor(lengths, dtype=torch.int32, device=g.device)
     kk = st["prev_topk"].shape[-1]
     st["prev_topk"] = torch.stack([
-        torch.randint(0, L, (model.cfg.n_layers, kk), generator=g, device=g.device)
+        torch.randint(0, L, (st["prev_topk"].shape[0], kk), generator=g,
+                      device=g.device)
         for L in lengths], dim=1).int()
     return st
+
+
+_ENCDEC_RANDOM = ("k", "v", "idx_k", "ck", "cv")
+_HYBRID_RANDOM = ("k", "v", "idx_k", "h", "conv")
 
 
 def _build_family(arch, tag):
@@ -2335,14 +2356,14 @@ def phase_audio(flush):
             f"{cfg.encoder_frames} frames, B={b}: device {t['ms']:.3f} ms "
             f"[{t['lo']:.3f}-{t['hi']:.3f}], wall {t['wall_ms']:.3f} ms")
     # [audio-step]
-    st = _random_encdec_state(model, g, AUDIO_STEP_LENGTHS)
+    st = _random_family_state(model, g, AUDIO_STEP_LENGTHS, _ENCDEC_RANDOM)
     tokens = torch.randint(0, cfg.vocab, (4,), generator=g, device=dev).int()
     _profile_step(params, st, tokens, cfg, flush, "[audio-step]",
                   encdec.serve_step)
     del st
     torch.cuda.empty_cache()
     cut, cut_params = _cut(model, params, "decoder")
-    st = _random_encdec_state(cut, g, AUDIO_STEP_LENGTHS)
+    st = _random_family_state(cut, g, AUDIO_STEP_LENGTHS, _ENCDEC_RANDOM)
     cpu_st = {k: v.cpu().clone() for k, v in st.items()}
     lg, new = encdec.serve_step(cut_params, st, tokens, cut.cfg)
     t0 = time.perf_counter()
@@ -2388,8 +2409,7 @@ def phase_ssm(flush):
         lg, st = ssm.serve_step(cut_params, st, tokens, cut.cfg)
         lc, cpu_st = ssm.serve_step(cpu_params, cpu_st, tokens.cpu(), cut.cfg)
         rels.append(_logits_vs("[ssm] 2-layer cut", lg.cpu(), lc)[0])
-    state_rel = {key: float((st[key].cpu() - cpu_st[key]).norm() / cpu_st[key].norm())
-                 for key in ("s", "x_att", "x_ffn")}
+    state_rel = {key: _rel(st[key], cpu_st[key]) for key in ("s", "x_att", "x_ffn")}
     # tolerance: _logits_vs's (the same bf16 model run two ways)
     if max(state_rel.values()) > 5e-2:
         fail(f"[ssm] 2-layer cut: state relative L2 error {state_rel} > 5e-2")
@@ -2401,6 +2421,171 @@ def phase_ssm(flush):
     del model, params, cut_params, st
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# jamba-1.5-large-398b on one card: one superblock (8 of 72 layers) and 8
+# of the 16 experts at every width (26.45 B parameters, 49.3 GiB in bf16;
+# 1 x 16 would be 85.3 GiB)
+JAMBA_DEPTH = 8
+JAMBA_EXPERTS = 8
+HYBRID_CUT_STEPS = 8
+
+
+def phase_hybrid(flush):
+    """[hybrid]: jamba-1.5-large-398b at full width, JAMBA_DEPTH layers
+    (one superblock: attention with DSA, 7 Mamba layers, MoE on odd
+    layers and SwiGLU on even ones) and JAMBA_EXPERTS of its experts,
+    bf16: the greedy loop at max_len 8192 (> dsa.min_n: B5, B1 and B6 on
+    every step). [hybrid-step]: one profiled B=4 step from a random state
+    at AUDIO_STEP_LENGTHS. [hybrid-cut]: one layer of each kind but the
+    MoE, card against the CPU plain path (a superblock is indivisible and
+    one does not fit the CPU path): the attention layer from that state
+    (output, Top-K agreement per row), one Mamba layer stepping
+    HYBRID_CUT_STEPS times (output, `h`, `conv`) and one dense FFN.
+    Returns the loop's launch counts."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import hybrid
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import layer_params
+    full = get_config("jamba-1.5-large-398b")
+    cfg = dataclasses.replace(full, n_layers=JAMBA_DEPTH, moe=dataclasses.replace(
+        full.moe, num_experts=JAMBA_EXPERTS))
+    model = build_model(cfg)
+    dev = model.device
+    t0 = time.perf_counter()
+    params = model.init_params(seed=0)
+    torch.cuda.synchronize()
+    log(f"[hybrid] {full.name}: full width, {JAMBA_DEPTH} of {full.n_layers} layers "
+        f"(one superblock), {JAMBA_EXPERTS} of {full.moe.num_experts} experts "
+        f"(top-{cfg.moe.top_k}); params {cfg.param_count() / 1e9:.3f} B (approx; "
+        f"{full.param_count() / 1e9:.3f} B published), "
+        f"{cfg.active_param_count() / 1e9:.3f} B active per token, bf16, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB on the card, random "
+        f"init in {time.perf_counter() - t0:.3f} s")
+    st = model.init_decode_state(len(STEP_PROMPTS), 8192)
+    counts = _loop_report(model, params, st, "[hybrid]", flush)
+    steps = max(STEP_PROMPTS) + STEP_NEW_TOKENS - 1
+    names = ("indexer_scores", "gvr_topk", "sparse_decode_attn")
+    if any(counts[name] != steps * (JAMBA_DEPTH // hybrid.SB) for name in names):
+        fail(f"[hybrid] B5/B1/B6 not launched once a step and superblock: "
+             f"{counts} over {steps} steps")
+    del st
+    torch.cuda.empty_cache()
+    # [hybrid-step]
+    g = torch.Generator(device=dev).manual_seed(8192)
+    st = _random_family_state(model, g, AUDIO_STEP_LENGTHS, _HYBRID_RANDOM)
+    tokens = torch.randint(0, cfg.vocab, (4,), generator=g, device=dev).int()
+    _profile_step(params, st, tokens, cfg, flush, "[hybrid-step]", hybrid.serve_step)
+    # [hybrid-cut]: the attention layer of superblock 0 from that state
+    blocks = layer_params(params["blocks"], 0)
+    wdt = params["embed"].dtype
+    x = torch.randn((4, cfg.d_model), generator=g, device=dev).to(wdt)
+    cpu_st = {k: v.cpu().clone() for k, v in st.items()}
+    att, topk = hybrid.attention_layer(blocks["attn"], x, st, 0, cfg)
+    t0 = time.perf_counter()
+    att_c, topk_c = hybrid.attention_layer(_to_cpu(blocks["attn"]), x.cpu(), cpu_st,
+                                           0, cfg)
+    cpu_s = time.perf_counter() - t0
+    rel_att = _rel(att, att_c)
+    agree = _topk_agreement(topk[:, None], topk_c[:, None])     # per row
+    if rel_att > 1e-2 or min(agree) < 0.99:
+        fail(f"[hybrid-cut] attention layer: rel L2 {rel_att} > 1e-2 or Top-K "
+             f"agreement per row {agree} < 0.99")
+    log(f"[hybrid-cut] attention layer (full width, lengths {AUDIO_STEP_LENGTHS}) "
+        f"card vs CPU plain path: output rel L2 {rel_att:.3e}, Top-K agreement "
+        f"per row {agree}; CPU {cpu_s:.3f} s")
+    del st, cpu_st
+    torch.cuda.empty_cache()
+    # one Mamba layer (superblock 0's first), stepping HYBRID_CUT_STEPS times
+    pm = layer_params(blocks["mamba"], 0)
+    pm_c = _to_cpu(pm)
+    di = cfg.d_model * cfg.mamba_expand
+    h = torch.randn((4, di, cfg.mamba_d_state), generator=g, device=dev)
+    conv = torch.randn((4, cfg.mamba_d_conv - 1, di), generator=g,
+                       device=dev).to(wdt)
+    h_c, conv_c = h.cpu(), conv.cpu()
+    rels = []
+    t0 = time.perf_counter()
+    for _ in range(HYBRID_CUT_STEPS):
+        xm = torch.randn((4, cfg.d_model), generator=g, device=dev).to(wdt)
+        y, h, conv = hybrid._mamba_step(pm, rms_norm(xm, pm["ln"]), h, conv, cfg)
+        y_c, h_c, conv_c = hybrid._mamba_step(pm_c, rms_norm(xm.cpu(), pm_c["ln"]),
+                                              h_c, conv_c, cfg)
+        rels.append(_rel(y, y_c))
+    state_rel = {"h": _rel(h, h_c), "conv": _rel(conv, conv_c)}
+    # tolerances: the outputs as the 2-layer cuts' (bf16 GEMMs that round
+    # differently), the f32 state as [ssm]'s
+    if max(rels) > 1e-2 or max(state_rel.values()) > 5e-2:
+        fail(f"[hybrid-cut] Mamba layer: output rel L2 {rels} > 1e-2 or state "
+             f"{state_rel} > 5e-2")
+    # one dense FFN (superblock 0's layer 0)
+    pd = layer_params(blocks["dense"], 0)
+    pd_c = _to_cpu(pd)
+    f_out = hybrid._ffn(pd, rms_norm(x, pd["ln"]), cfg, False)
+    rel_ffn = _rel(f_out, hybrid._ffn(pd_c, rms_norm(x.cpu(), pd_c["ln"]), cfg, False))
+    if rel_ffn > 1e-2:
+        fail(f"[hybrid-cut] dense FFN: rel L2 {rel_ffn} > 1e-2")
+    log(f"[hybrid-cut] Mamba layer (d_inner {di}, d_state {cfg.mamba_d_state}) "
+        f"card vs CPU, {HYBRID_CUT_STEPS} steps in {time.perf_counter() - t0:.3f} "
+        f"s: output rel L2 per step {[f'{r:.2e}' for r in rels]}; after the "
+        f"last, h {state_rel['h']:.3e}, conv {state_rel['conv']:.3e}; dense "
+        f"FFN (d_ff {cfg.d_ff}) rel L2 {rel_ffn:.3e}; the MoE layer is left "
+        f"out ({cfg.moe.num_experts * 3 * cfg.d_model * cfg.moe.expert_d_ff / 1e9:.3f} "
+        f"B parameters; the fallback is held card against CPU at moonshot's "
+        f"widths by tests/test_torch_cuda.py)")
+    del model, params, blocks, pm, pm_c, pd, pd_c, h, conv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+TEMPORAL_ROWS = [8192, 131072]
+
+
+def phase_temporal(flush):
+    """[temporal]: B1 on the paper's synthetic indexer rows (random Q/K +
+    YaRN-RoPE, `core.rope.generate_indexer_scores`; B=4, K=2048, n =
+    TEMPORAL_ROWS), warm-started from the static RoPE prior and from the
+    uniform one: each run equal to the plain exact Top-K bit for bit
+    (values, indices and B1's own plain version), with the prior's hit
+    ratio against the true Top-K, the mean global passes (B1's and the
+    plain GVR's) and B1's device time."""
+    import torch
+    from repro_torch.core import (exact_topk, global_passes, gvr_topk, hit_ratio,
+                                  uniform_pre_idx)
+    from repro_torch.core.rope import generate_indexer_scores
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    b, k = 4, 2048
+    g = torch.Generator(device=dev).manual_seed(2048)
+    for n in TEMPORAL_ROWS:
+        rows = [generate_indexer_scores(g, n, k) for _ in range(b)]
+        scores = torch.stack([r[0] for r in rows]).contiguous()
+        priors = {"static": rows[0][1][None].expand(b, k).contiguous(),
+                  "uniform": uniform_pre_idx(n, k, batch=b, device=dev)}
+        ev, ei = exact_topk(scores, k)
+        ei, order = ei.sort(-1)
+        ev = ev.gather(-1, order)
+        parts = []
+        for name, prior in priors.items():
+            v1, i1, st1 = ops.gvr_topk(scores, prior, k)
+            v0, i0, st0 = ref.gvr_topk_ref(scores, prior, k)
+            if not (torch.equal(i1, ei) and torch.equal(v1, ev)
+                    and torch.equal(i1, i0) and torch.equal(v1, v0)
+                    and torch.equal(st1[:, 4:], st0[:, 4:])):
+                fail(f"[temporal] B1 from the {name} prior at n={n} differs from "
+                     f"the exact Top-K")
+            hit = float(hit_ratio(prior, ei, n).mean())
+            plain = float(global_passes(gvr_topk(scores, prior, k).stats).float().mean())
+            t = time_ms(lambda: ops.gvr_topk(scores, prior, k), flush)
+            parts.append(f"{name} prior: hit ratio {hit:.4f}, global passes "
+                         f"{float(st1[:, 0].mean()) + 1:.2f} (B1) / {plain:.2f} "
+                         f"(plain GVR), B1 device {t['ms']:.5f} ms "
+                         f"[{t['lo']:.5f}-{t['hi']:.5f}]")
+        log(f"[temporal] n={n}, B={b}, K={k}: B1 == exact Top-K bit for bit from "
+            f"both priors; " + "; ".join(parts))
 
 
 def run_llama_phases(model, params, cpu_params, rng, specs, timed):
@@ -2546,6 +2731,10 @@ def main() -> int:
     # the enc-dec and ssm families at full width and depth, step by step
     audio_counts = timed("audio", phase_audio, flush)
     timed("ssm", phase_ssm, flush)
+    # the hybrid family at full width, one superblock, step by step; then
+    # B1 on the paper's RoPE rows
+    hybrid_counts = timed("hybrid", phase_hybrid, flush)
+    timed("temporal", phase_temporal, flush)
 
     rows = [("B1 gvr_topk", "gvr_topk.cu", "src/repro/kernels/gvr_topk.py:334",
              main_counts["gvr_topk"]),
@@ -2634,11 +2823,13 @@ def main() -> int:
                      window_scoring_free_ms=m["free_ms"],
                      window_scoring_plain_ms=m["plain_ms"],
                      window_scoring_bound_ms=m["bound"][0])
-    # launches on the [audio] loop (whisper-medium: B5, B1, B6); B7
+    # launches on the [audio] and [hybrid] loops (whisper-medium,
+    # jamba-1.5-large-398b: B5, B1, B6); B7
     # against index_select in turns (median, least, most)
     for r, key in ((kernels[0], "gvr_topk"), (kernels[4], "indexer_scores"),
                    (kernels[5], "sparse_decode_attn")):
         r["audio_launches"] = int(audio_counts[key])
+        r["hybrid_launches"] = int(hybrid_counts[key])
     (a, a_lo, a_hi), (c, c_lo, c_hi) = b7_ab["B7"], b7_ab["index_select"]
     kernels[6].update(ab_ms=a, ab_lo_ms=a_lo, ab_hi_ms=a_hi, ab_library_ms=c,
                       ab_library_lo_ms=c_lo, ab_library_hi_ms=c_hi)

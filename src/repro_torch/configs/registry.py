@@ -2,10 +2,7 @@
 
 Each module under repro_torch.configs defines CONFIG (the full published
 width) and SMOKE (a reduced same-family config for CPU tests). The port
-carries its own copies of the JAX package's configs; only the configs of
-the models the port already serves are present so far (the dense, vlm,
-MoE, ssm and enc-dec families) — the hybrid arch arrives with its model
-family (ROADMAP Queue A item 5).
+carries its own copies of the JAX package's configs, all ten of them.
 """
 
 from __future__ import annotations
@@ -13,8 +10,8 @@ from __future__ import annotations
 import importlib
 
 ARCHS = ["h2o_danube3_4b", "granite_34b", "chatglm3_6b", "llama32_1b",
-         "qwen2_vl_7b", "rwkv6_3b", "granite_moe_1b", "moonshot_v1_16b",
-         "whisper_medium"]
+         "qwen2_vl_7b", "jamba_15_large", "rwkv6_3b", "granite_moe_1b",
+         "moonshot_v1_16b", "whisper_medium"]
 
 _ALIASES = {
     "h2o-danube-3-4b": "h2o_danube3_4b",
@@ -22,21 +19,15 @@ _ALIASES = {
     "chatglm3-6b": "chatglm3_6b",
     "llama3.2-1b": "llama32_1b",
     "qwen2-vl-7b": "qwen2_vl_7b",
+    "jamba-1.5-large-398b": "jamba_15_large",
     "rwkv6-3b": "rwkv6_3b",
     "granite-moe-1b-a400m": "granite_moe_1b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b",
     "whisper-medium": "whisper_medium",
 }
 
-# archs of the JAX package that the port does not serve yet
-_PENDING = {"jamba_15_large", "jamba-1.5-large-398b"}
-
 
 def get_config(name: str, smoke: bool = False):
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to PyTorch yet (ROADMAP Queue A "
-            f"item 5); ported archs: {ARCHS}")
     key = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
     mod = importlib.import_module(f"repro_torch.configs.{key}")
     return mod.SMOKE if smoke else mod.CONFIG

@@ -27,6 +27,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .temporal import linspace_i32
+
 # Finite sentinel for masked-out (beyond-length) elements: -FLT_MAX keeps
 # the secant/bisection arithmetic finite.
 NEG_SENTINEL = -3.4028234663852886e38
@@ -329,3 +331,18 @@ def gvr_topk(scores: torch.Tensor, prev_idx: torch.Tensor, k: int = DEFAULT_K,
     if squeeze:
         return GVRResult(vals[0], idx[0], GVRStats(*[s[0] for s in stats]))
     return GVRResult(vals, idx, stats)
+
+
+def uniform_pre_idx(n: int, m: int = DEFAULT_K, batch: Optional[int] = None,
+                    device=None) -> torch.Tensor:
+    """Evenly spaced predictions, `jnp.linspace(0, n - 1, m)` to the bit:
+    the 'no temporal signal' warm start (paper Table 9 row (b)). (M,)
+    int32, or (batch, M)."""
+    idx = linspace_i32(n - 1, m, device)
+    return idx if batch is None else idx[None].expand(batch, m).clone()
+
+
+def global_passes(stats: GVRStats) -> torch.Tensor:
+    """Modeled full-row global-memory passes: I + 1 (paper Table 1; the +1
+    is the collect pass). Snap passes touch only the candidate buffer."""
+    return stats.secant_iters + 1

@@ -5,10 +5,10 @@ raises when there is none — pass `device="cpu"` to run the plain PyTorch
 path on the CPU, as the tests do. It never falls back silently.
 
 The slot-wise and paged hooks are looked up in the family's module, as
-the JAX package's facade looks them up: the enc-dec and ssm families
-define none (the reference serves them step by step only), so their
-axis maps are None and the other hooks raise NotImplementedError — and
-`DecodeEngine` refuses them with the reference's ValueError.
+the JAX package's facade looks them up: the enc-dec, ssm and hybrid
+families define none (the reference serves them step by step only), so
+their axis maps are None and the other hooks raise NotImplementedError —
+and `DecodeEngine` refuses them with the reference's ValueError.
 """
 
 from __future__ import annotations
@@ -18,14 +18,11 @@ from typing import Dict, Optional
 
 import torch
 
-from . import encdec, ssm, transformer
+from . import encdec, hybrid, ssm, transformer
 from .config import ModelConfig
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
-             "audio": encdec, "ssm": ssm}
-_PENDING = {
-    "hybrid": "ROADMAP Queue A item 5 (other model families: hybrid)",
-}
+             "audio": encdec, "ssm": ssm, "hybrid": hybrid}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -96,10 +93,15 @@ class Model:
         return self._hook("recycle_slot_state", "slot-wise state recycle")(
             self.cfg, state, slot)
 
-    def serve_step(self, params, state, tokens, *, min_write_pos=None):
+    def serve_step(self, params, state, tokens, *, min_write_pos=None,
+                   seq_sharded: bool = False):
         """One dense-layout decode step (see transformer.serve_step; the
-        enc-dec and ssm steps take no `min_write_pos`, as the reference's)."""
+        enc-dec, ssm and hybrid steps take no `min_write_pos`, as the
+        reference's). `seq_sharded` reaches the hybrid step alone, as in
+        the reference's facade."""
         kw = {} if min_write_pos is None else {"min_write_pos": min_write_pos}
+        if self.cfg.family == "hybrid":
+            kw["seq_sharded"] = seq_sharded
         return self.mod.serve_step(params, state, tokens, self.cfg, **kw)
 
     def serve_step_paged(self, params, state, tokens, *, min_write_pos=None,
@@ -126,9 +128,6 @@ class Model:
 
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """The model for `cfg` on `device` ("cuda" by default)."""
-    if cfg.family in _PENDING:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: {_PENDING[cfg.family]}")
     mod = _FAMILIES.get(cfg.family)
     if mod is None:
         raise ValueError(f"unknown model family {cfg.family!r}")

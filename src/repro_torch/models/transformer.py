@@ -75,8 +75,7 @@ def _check_family(cfg: ModelConfig) -> None:
             or (cfg.num_patches and cfg.family != "vlm")
             or (cfg.family == "moe") != bool(cfg.moe.num_experts)):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue A item "
-            f"5: other model families)")
+            f"family {cfg.family!r} is not a transformer-family config")
 
 
 # --------------------------------------------------------------------------

@@ -1052,13 +1052,16 @@ def test_scoring_writes_only_its_outputs(dev, monkeypatch, dtype, window):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["whisper-medium", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "rwkv6-3b",
+                                  "jamba-1.5-large-398b"])
 def test_family_serve_step_on_card_matches_cpu(dev, arch):
-    """The enc-dec and ssm smoke configs (float32): six `serve_step`s on
-    the card and through the plain path on the CPU from one random state
-    (whisper: random caches and cross K/V, lengths 0, 5 and 20 in a cache
-    of 48 > min_n 8, so every step runs B5 -> B1 -> B6). Logits within
-    rtol = 1e-4, atol = 1e-3 (float32 GEMMs and softmax sums in other
+    """The enc-dec, ssm and hybrid smoke configs (float32): six
+    `serve_step`s on the card and through the plain path on the CPU from
+    one random state (whisper and jamba: random caches, whisper's cross
+    K/V, jamba's `h` and `conv`, lengths 0, 5 and 20 in a cache of 48 >
+    min_n 8, so every step runs B5 -> B1 -> B6 in each attention layer:
+    every decoder layer of whisper's, jamba's one in its superblock of
+    8). Logits within rtol = 1e-4, atol = 1e-3 (float32 GEMMs and softmax sums in other
     orders), the Top-K equal, every state leaf within 1e-4."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.api import build_model
@@ -1074,7 +1077,7 @@ def test_family_serve_step_on_card_matches_cpu(dev, arch):
     b = 3
     st = gm.init_decode_state(b, 48)
     g = torch.Generator(device=dev).manual_seed(48)
-    for key in ("k", "v", "ck", "cv", "idx_k", "s", "x_att", "x_ffn"):
+    for key in ("k", "v", "ck", "cv", "idx_k", "s", "x_att", "x_ffn", "h", "conv"):
         if key in st:
             st[key].copy_(torch.randn(st[key].shape, generator=g, device=dev))
     if "k" in st:
@@ -1091,6 +1094,7 @@ def test_family_serve_step_on_card_matches_cpu(dev, arch):
     for key, v in st.items():
         torch.testing.assert_close(v.cpu(), cst[key], rtol=1e-4, atol=1e-4)
     counts = ops.launch_counts()
-    want = (("indexer_scores", "gvr_topk", "sparse_decode_attn")
-            if arch == "whisper-medium" else ())
-    assert all(counts[name] == 6 * cfg.n_layers for name in want), counts
+    want = (() if arch == "rwkv6-3b" else
+            ("indexer_scores", "gvr_topk", "sparse_decode_attn"))
+    attn_layers = cfg.n_layers // 8 if cfg.family == "hybrid" else cfg.n_layers
+    assert all(counts[name] == 6 * attn_layers for name in want), counts

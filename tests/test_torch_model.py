@@ -23,6 +23,7 @@ from repro.configs.registry import get_config as jax_config
 from repro.models.api import build_model as jax_build
 from repro_torch import bridge
 from repro_torch.configs.registry import get_config
+from repro_torch.models import transformer
 from repro_torch.models.api import build_model
 
 
@@ -137,19 +138,35 @@ def test_init_params_layout_matches_jax(jax_model_params):
 
 
 def test_unported_families_and_options_raise():
+    """No family is pending: the hybrid, enc-dec and ssm configs are the
+    JAX registry's field for field and build on the CPU, and the engine
+    refuses the three step-only families (audio, ssm, hybrid) with the
+    reference's ValueError; a config of another family is no
+    transformer-family config."""
+    from repro.serve import DecodeEngine as JaxEngine
+    from repro_torch.serve import DecodeEngine
     cfg = get_config("llama3.2-1b", smoke=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        build_model(dataclasses.replace(cfg, family="hybrid"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        get_config("jamba-1.5-large-398b")
-    # the enc-dec and ssm families: the JAX registry's configs field for
-    # field, and both build on the CPU
-    for arch, family in (("whisper-medium", "audio"), ("rwkv6-3b", "ssm")):
+    with pytest.raises(NotImplementedError, match="not a transformer-family"):
+        transformer.init_decode_state(dataclasses.replace(cfg, family="hybrid"),
+                                      2, 16, device="cpu")
+    for arch, family in (("jamba-1.5-large-398b", "hybrid"),
+                         ("whisper-medium", "audio"), ("rwkv6-3b", "ssm")):
         for smoke in (False, True):
             assert (dataclasses.asdict(get_config(arch, smoke=smoke))
                     == dataclasses.asdict(jax_config(arch, smoke=smoke)))
         assert get_config(arch).family == family
-        assert build_model(get_config(arch, smoke=True), device="cpu").cfg.family == family
+        tm = build_model(get_config(arch, smoke=True), device="cpu")
+        assert tm.cfg.family == family
+        jm = jax_build(jax_config(arch, smoke=True))
+        msgs = []
+        for engine, model, params in (
+                (JaxEngine, jm, jm.init_params(jax.random.PRNGKey(0))),
+                (DecodeEngine, tm, tm.init_params(seed=0))):
+            with pytest.raises(ValueError) as err:
+                engine(model, params, num_slots=2, max_len=64)
+            msgs.append(str(err.value))
+        assert msgs[0] == msgs[1], arch
+    assert get_config("jamba-1.5-large-398b", smoke=True).name == "jamba-smoke"
     for arch in ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b"):
         moe = get_config(arch)
         assert moe.family == "moe" and moe.moe.num_experts > 0
