@@ -109,7 +109,25 @@ Phases (any failure exits non-zero; no exception is swallowed):
  17. temporal     — B1 on the paper's synthetic RoPE rows (n 8192 and
                     131072) from the static and the uniform prior, equal
                     to the exact Top-K; hit ratios and global passes;
- 18. summary      — each kernel's device time lost against its bound
+ 18. sp           — sequence-sharded serving on two ranks, two child
+                    processes of a gloo group on the one card (NCCL runs
+                    one rank per device), run after phase 9 while this
+                    process runs the single-device references:
+                    llama3.2-1b at full width and depth, B = 2, max_len
+                    131072, 8 greedy ticks of `serve_step_sp_paged`
+                    (SP-GVR, B2's scoring half per rank, the O(K) row
+                    assembly, B6) bit-identical to the fused step in
+                    logits, tokens, prev_topk and sel_gvr; the collective
+                    bill a tick at N = 131072 and 16384 (bytes a call of
+                    every site equal, O(1) in N); B2 scoring and B6 at
+                    the sharded shapes against their plain versions; the
+                    bit-pattern assembly alone, -0.0 kept;
+                    [sp-engine]: `DecodeEngine(kv_layout="paged",
+                    seq_shards=2)` at full width, SP_ENGINE_DEPTH layers,
+                    max_len 8192, equal to the fused engine in tokens,
+                    method log, hit rate and prefix hits, and at
+                    spec_depth 3 (mq verify) giving the same tokens;
+ 19. summary      — each kernel's device time lost against its bound
                     over its path at llama's 16 layers (launches x (ms -
                     bound_ms), the launches of phases 3 and 4 scaled from
                     MAIN_DEPTH layers; B2, B5 and B9 by their scoring
@@ -2588,6 +2606,485 @@ def phase_temporal(flush):
             f"both priors; " + "; ".join(parts))
 
 
+# ------------------------------------------------------ sequence sharding ---
+# [sp] and [sp-engine] run the sequence-sharded path (SP-GVR, the O(K) row
+# assembly, `DecodeEngine(seq_shards=2)`) in two child processes, the two
+# ranks of a gloo group (`python3 chip_smoke.py --sp-rank R ...`), both on
+# the one card: NCCL runs one rank per device, so two ranks sharing an
+# H100 take gloo, which stages each collective through host memory. This
+# is a functional run of the sharded path's bits and collective schedule,
+# not a measure of its speed. The parent runs the single-device fused
+# references meanwhile and holds the ranks' outputs against them.
+SP_SHARDS = 2
+SP_N = 131072                       # [sp]: max_len, B = 2, 8 greedy ticks
+SP_LENGTHS = [SP_N - 9, SP_N // 2 - 6]   # slot 1's writes cross the boundary
+SP_BILL_N = 16384                   # the collective bill again at this N
+SP_TICKS = 8
+SP_PAGE = 64
+SP_ENGINE_LEN = 8192                # [sp-engine]: above dsa.min_n = 4096
+SP_CHILD_TIMEOUT_S = 600
+SP_SEED = 23
+# collective tags inside SP-GVR's data-dependent loops: their calls per
+# tick follow the iteration counts; every other tag is called a fixed
+# number of times per layer
+SP_LOOP_TAGS = ("secant", "hist", "snap", "fallback")
+SP_ENGINE_DEPTH = 2                 # [sp-engine]'s layers (full width)
+SP_BILL_TICKS = 3
+
+
+def sp_engine_specs(rng, vocab):
+    """[sp-engine]'s trace: prompts of 72, 70 and 20 tokens, the first two
+    sharing a 66-token prefix (one full 64-token page reused), 8 new
+    tokens each; the second arrives once the first has committed."""
+    shared = rng.integers(0, vocab, (66,))
+    return [(np.concatenate([shared, rng.integers(0, vocab, (6,))]), 8, 0),
+            (np.concatenate([shared, rng.integers(0, vocab, (4,))]), 8, 3),
+            (rng.integers(0, vocab, (20,)), 8, 1)]
+
+
+def sp_state(model, *, n, lengths, seed, rank=None, shards=SP_SHARDS,
+             ps=SP_PAGE):
+    """One seeded logical cache (K, V and indexer-K rows of every layer,
+    slot and position) in the single-device paged layout (rank None: one
+    pool, a shuffled table) or in rank `rank`'s part of the sharded layout
+    (its span's pages in its own pool, a table of shard-local ids shuffled
+    per shard). The rows are drawn on the card layer by layer from the
+    same seeds in both, so both layouts hold the same content."""
+    import torch
+    cfg, dev = model.cfg, model.device
+    b, mp = len(lengths), n // ps
+    span = mp // shards
+    perm = torch.randperm(b * mp, generator=torch.Generator().manual_seed(seed))
+    local = torch.cat([torch.randperm(b * span, generator=torch.Generator(
+        ).manual_seed(seed + 1 + s)).reshape(b, span) for s in range(shards)], 1)
+    if rank is None:
+        st = model.init_paged_decode_state(b, n, num_pages=b * mp, page_size=ps)
+        table = perm.reshape(b, mp)
+        dest, cols = perm, slice(None)
+    else:
+        st = model.init_sp_paged_decode_state(
+            b, n, num_pages_per_shard=b * span, page_size=ps, seq_shards=shards)
+        table = local
+        cols = slice(rank * span, (rank + 1) * span)
+        dest = local[:, cols].reshape(-1)
+    dest = dest.to(dev)
+    for i in range(cfg.n_layers):
+        for j, key in enumerate(("k_pages", "v_pages", "idx_k_pages")):
+            pool = st[key][i] if rank is None else st[key][i, 0]
+            feat = tuple(pool.shape[2:])
+            g = torch.Generator(device=dev).manual_seed(seed * 1000 + 3 * i + j)
+            rows = torch.randn((b, mp, ps) + feat, generator=g, device=dev)
+            pool[dest] = rows[:, cols].reshape((-1, ps) + feat).to(pool.dtype)
+            del rows
+    st["page_table"] = table.int().contiguous().to(dev)
+    st["length"] = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return st
+
+
+def _sp_ticks(model, params, st, step, ticks, mesh=None):
+    """`ticks` greedy steps from [1, 2]; per tick the logits, feedback,
+    host wall and (sharded) the collective bill, on the CPU."""
+    import torch
+    tok = torch.tensor([1, 2], dtype=torch.int32, device=model.device)
+    out = []
+    for _ in range(ticks):
+        if mesh is not None:
+            mesh.reset_bill()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, st = step(st, tok)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        rec = {"logits": logits.cpu(), "wall_ms": wall,
+               **{k: st[k].cpu() for k in ("prev_topk", "sel_gvr",
+                                           "topk_valid", "length")}}
+        if mesh is not None:
+            rec["bill"] = mesh.bill()
+        out.append(rec)
+        tok = logits.argmax(-1).int()
+    return out, st
+
+
+def _capture(ops, names):
+    """Wrap kernel wrappers so that their first call's inputs are kept
+    (cloned). A wrapper counts its launches on the module's name, here the
+    stand-in, so `restore()` puts the originals back and adds the
+    stand-ins' counts to theirs."""
+    import torch
+    seen, originals = {}, {n: getattr(ops, n) for n in names}
+
+    def wrap(name, fn):
+        def inner(*args, **kw):
+            if name not in seen:
+                seen[name] = ([a.clone() if torch.is_tensor(a) else a
+                               for a in args], dict(kw))
+            return fn(*args, **kw)
+        inner.launches = 0
+        return inner
+
+    stand_ins = {n: wrap(n, fn) for n, fn in originals.items()}
+    for n, fn in stand_ins.items():
+        setattr(ops, n, fn)
+
+    def restore():
+        for n, fn in originals.items():
+            fn.launches += stand_ins[n].launches
+            setattr(ops, n, fn)
+
+    return seen, restore
+
+
+def _sp_kernels_vs_plain(seen):
+    """B2's scoring half and B6 on the inputs the sharded step gave them,
+    each against its plain version (the [kernels] tolerances)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    args, kw = seen["paged_indexer_scores"]
+    b2_shape = [args[3].shape[0], args[3].shape[1] * args[1].shape[1]]
+    s_ker = ops.paged_indexer_scores(*args, **kw)
+    s_ref = ref.paged_indexer_scores_ref(*args, **kw)
+    live = s_ref > -1e38
+    if not torch.equal(live, s_ker > -1e38):
+        fail("[sp] B2 scoring at the sharded shapes: NEG mask differs")
+    s_err = float((s_ker - s_ref)[live].abs().max()) if live.any() else 0.0
+    s_scale = float(s_ref[live].abs().max()) if live.any() else 0.0
+    if s_err > 1e-4 * s_scale:
+        fail(f"[sp] B2 scoring at the sharded shapes: max |err| {s_err} > "
+             f"1e-4 * {s_scale}")
+    args, kw = seen["sparse_decode_attn"]
+    o = ops.sparse_decode_attn(*args, **kw)
+    o_ref = ref.sparse_attn_ref(*args, **kw)
+    e6 = float((o - o_ref).abs().max())
+    if not torch.allclose(o, o_ref, atol=1e-4, rtol=1e-4):
+        fail(f"[sp] B6 on the assembled rows: max |err| {e6} beyond 1e-4")
+    return {"B2 scoring": {"err": s_err, "shape": b2_shape},
+            "B6": {"err": e6, "shape": list(args[1].shape)}}
+
+
+def _assembly_check(mesh):
+    """The step-4 assembly alone: bf16 rows with -0.0 entries, each row
+    owned by one rank (zeros on the other), summed as int32 bit patterns,
+    equal to the whole buffer bit for bit."""
+    import torch
+    from repro_torch.sparse.sp_dsa import _assemble
+    g = torch.Generator(device=mesh.device).manual_seed(5)
+    full = torch.randn((2, 2, 2048, 8, 64), generator=g,
+                       device=mesh.device).to(torch.bfloat16)
+    full[..., ::7] = -0.0
+    owner = torch.arange(2048, device=mesh.device) % mesh.size == mesh.rank
+    part = torch.where(owner[None, None, :, None, None], full, 0)
+    got, owners = _assemble(part, owner[None].expand(2, -1), mesh)
+    if not bool((owners == 1).all()):
+        fail(f"[sp] the assembly's owner flags sum to {owners.unique()}, not 1")
+    same = torch.equal(got.view(torch.int16), full.view(torch.int16))
+    negz = int((got.view(torch.int16) == -32768).sum())
+    return {"bit_equal": bool(same), "neg_zeros": negz}
+
+
+def _gloo_cuda_probe(mesh):
+    """Which collectives gloo takes on CUDA tensors directly (the port
+    stages them through the host either way)."""
+    import torch
+    import torch.distributed as dist
+    res = {}
+    for name, call in (
+            ("all_reduce_sum", lambda t: dist.all_reduce(t)),
+            ("all_reduce_max", lambda t: dist.all_reduce(t, dist.ReduceOp.MAX)),
+            ("all_gather", lambda t: dist.all_gather(
+                [torch.empty_like(t) for _ in range(mesh.size)], t))):
+        t = torch.ones(4, device=mesh.device)
+        try:
+            call(t)
+            torch.cuda.synchronize()
+            res[name] = "yes"
+        except RuntimeError as exc:          # the answer, not a failure
+            res[name] = f"no ({str(exc).splitlines()[0][:80]})"
+    return res
+
+
+def sp_child(argv) -> int:
+    """One rank of [sp] / [sp-engine]: RANK WORLD INIT OUT DEPTH N TICKS
+    BILL_N ENGINE. Runs the sharded step at llama3.2-1b's full width and
+    DEPTH layers over N positions, then (BILL_N > 0) again at BILL_N for
+    the collective bill, the assembly check and (ENGINE 1) the sharded
+    engine at SP_ENGINE_DEPTH layers, without and with speculation; saves its
+    results to OUT/rank{RANK}.pt."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import init_seq_group, make_seq_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.serve import ScriptedDrafter
+    rank, world, init, out_dir, depth, n, ticks, bill_n, engine = argv
+    rank, world, depth, n, ticks, bill_n, engine = (
+        int(rank), int(world), int(depth), int(n), int(ticks), int(bill_n),
+        int(engine))
+    init_seq_group(rank, world, init_method=init, backend="gloo",
+                   timeout_s=300)
+    mesh = make_seq_mesh(world, backend="gloo")
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=depth)
+    model = build_model(cfg, device=mesh.device)
+    params = model.init_params(seed=0)
+    res = {"device": str(mesh.device), "backend": mesh.backend,
+           "probe": _gloo_cuda_probe(mesh)}
+
+    def step(st, tok):
+        return model.serve_step_sp_paged(params, st, tok, mesh=mesh)
+
+    lengths = [n - 9, n // 2 - 6]
+    st = sp_state(model, n=n, lengths=lengths, seed=SP_SEED, rank=rank,
+                  shards=world)
+    seen, restore = _capture(ops, ("paged_indexer_scores", "sparse_decode_attn"))
+    ops.reset_launch_counts()
+    res["ticks"], st = _sp_ticks(model, params, st, step, ticks, mesh)
+    restore()
+    res["counts"] = ops.launch_counts()
+    res["kernels"] = _sp_kernels_vs_plain(seen)
+    res["pool_gib"] = sum(st[k].numel() * st[k].element_size() for k in
+                          ("k_pages", "v_pages", "idx_k_pages")) / 2 ** 30
+    del st
+    torch.cuda.empty_cache()
+    if bill_n:
+        st = sp_state(model, n=bill_n, lengths=[bill_n - 9, bill_n // 2 - 6],
+                      seed=SP_SEED + 1, rank=rank, shards=world)
+        res["bill_ticks"], st = _sp_ticks(model, params, st, step,
+                                          min(ticks, SP_BILL_TICKS), mesh)
+        del st
+        torch.cuda.empty_cache()
+    res["assembly"] = _assembly_check(mesh)
+    if engine:
+        cut = build_model(dataclasses.replace(cfg, n_layers=SP_ENGINE_DEPTH),
+                          device=model.device)
+        cut_params = {**params, "layers": _first_layers(params["layers"],
+                                                        SP_ENGINE_DEPTH)}
+        specs = sp_engine_specs(np.random.default_rng(SP_SEED), cfg.vocab)
+        eng, reqs, rep, counts = _engine_run(
+            cut, cut_params, max_len=SP_ENGINE_LEN, specs=specs,
+            kv_layout="paged", seq_shards=world, mesh=mesh)
+        res["engine"] = _engine_summary(eng, reqs, rep, counts)
+        cont = {i: t for i, t in enumerate(res["engine"]["tokens"])}
+
+        def wrong_third(req, d):
+            draft = list(cont[req.uid][len(req.generated):len(req.generated) + d])
+            if len(draft) >= 3:
+                draft[2] = (draft[2] + 1) % cfg.vocab
+            return draft
+
+        eng, reqs, rep, counts = _engine_run(
+            cut, cut_params, max_len=SP_ENGINE_LEN, specs=specs,
+            kv_layout="paged", seq_shards=world, mesh=mesh, spec_depth=3,
+            verify_kernel="mq", drafter=ScriptedDrafter(wrong_third))
+        res["spec"] = _engine_summary(eng, reqs, rep, counts)
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    mesh.barrier()
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
+def _paths_of(summary):
+    return {u: "".join(m[0].upper() for _, _, m in log)
+            for u, log in summary["log"].items()}
+
+
+def _engine_summary(eng, reqs, rep, counts):
+    return {"tokens": [[int(t) for t in r.generated] for r in reqs],
+            "log": {u: [tuple(e) for e in v] for u, v in eng.method_log.items()},
+            "hit": rep.gvr_hit_rate, "prefix": rep.prefix_hit_tokens,
+            "accept": rep.spec_acceptance_rate, "wall_s": rep.wall_s,
+            "ticks": rep.ticks, "counts": counts}
+
+
+def start_sp_children(out_dir: Path, *, depth, n, ticks, bill_n, engine):
+    """The two ranks of a fresh gloo group (a file rendezvous in out_dir);
+    their output goes to out_dir/rank{r}.log."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rdv = out_dir / "rendezvous"
+    if rdv.exists():
+        rdv.unlink()
+    procs = []
+    for r in range(SP_SHARDS):
+        f = open(out_dir / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--sp-rank",
+             str(r), str(SP_SHARDS), f"file://{rdv}", str(out_dir),
+             str(depth), str(n), str(ticks), str(bill_n), str(engine)],
+            stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT)), f))
+    return procs
+
+
+def join_sp_children(procs, out_dir: Path, tag: str):
+    """Wait for both ranks (SP_CHILD_TIMEOUT_S); a rank that fails or
+    hangs fails the phase. Returns the ranks' results."""
+    import torch
+    try:
+        for r, (proc, f) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=SP_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"{tag} rank {r} ran past {SP_CHILD_TIMEOUT_S} s")
+            f.close()
+            if rc != 0:
+                text = (out_dir / f"rank{r}.log").read_text()
+                fail(f"{tag} rank {r} exited {rc}: {text[-3000:]}")
+    finally:
+        stop_family_children({r: p for r, p in enumerate(procs)})
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+            for r in range(SP_SHARDS)]
+
+
+def _bill_split(bill):
+    """(calls, bytes) of a tick's bill in all, and the bytes of its fixed
+    part (the tags outside SP-GVR's loops)."""
+    calls = sum(v["calls"] for v in bill.values())
+    nbytes = sum(v["bytes"] for v in bill.values())
+    fixed = sum(v["bytes"] for k, v in bill.items() if k not in SP_LOOP_TAGS)
+    return calls, nbytes, fixed
+
+
+def _per_call(bills):
+    """Bytes per call of each tag over a run's ticks."""
+    tot = {}
+    for bill in bills:
+        for k, v in bill.items():
+            c, b = tot.get(k, (0, 0))
+            tot[k] = (c + v["calls"], b + v["bytes"])
+    return {k: b / c for k, (c, b) in tot.items()}
+
+
+def _same_ticks(tag, got, want, who):
+    import torch
+    for i, (a, b) in enumerate(zip(got, want)):
+        for key in ("logits", "prev_topk", "sel_gvr", "topk_valid", "length"):
+            if not torch.equal(a[key], b[key]):
+                fail(f"{tag} {who}: tick {i} {key} differs from the fused "
+                     f"step's")
+
+
+def phase_sp(model, params):
+    """[sp] and [sp-engine]: start the two ranks, run the single-device
+    references here meanwhile, join and compare. Returns the ranks' launch
+    counts ([sp], [sp-engine] and its spec run, summed over the ranks)."""
+    import torch
+    from repro_torch.kernels import ops
+    out_dir = ROOT / "build" / "chip_smoke" / "sp"
+    t0 = time.perf_counter()
+    procs = start_sp_children(out_dir, depth=model.cfg.n_layers, n=SP_N,
+                              ticks=SP_TICKS, bill_n=SP_BILL_N, engine=1)
+    try:
+        # the fused single-device step over the same logical cache
+        st = sp_state(model, n=SP_N, lengths=SP_LENGTHS, seed=SP_SEED)
+        gib = sum(st[k].numel() * st[k].element_size() for k in
+                  ("k_pages", "v_pages", "idx_k_pages")) / 2 ** 30
+        fused, st = _sp_ticks(model, params, st, lambda s, t: model.serve_step_paged(
+            params, s, t), SP_TICKS)
+        del st
+        torch.cuda.empty_cache()
+        cut_cfg = dataclasses.replace(model.cfg, n_layers=SP_ENGINE_DEPTH)
+        from repro_torch.models.api import build_model
+        cut = build_model(cut_cfg, device=model.device)
+        cut_params = {**params, "layers": _first_layers(params["layers"],
+                                                        SP_ENGINE_DEPTH)}
+        specs = sp_engine_specs(np.random.default_rng(SP_SEED), model.cfg.vocab)
+        eng, reqs, rep, fcounts = _engine_run(
+            cut, cut_params, max_len=SP_ENGINE_LEN, specs=specs,
+            kv_layout="paged")
+        fused_engine = _engine_summary(eng, reqs, rep, fcounts)
+    finally:
+        ranks = join_sp_children(procs, out_dir, "[sp]")
+    r0 = ranks[0]
+    log(f"[sp] backend {r0['backend']}: {SP_SHARDS} ranks (processes) on one "
+        f"card, {ranks[0]['device']} and {ranks[1]['device']}; NCCL runs one "
+        f"rank per device, so the ranks share the H100 over gloo, which "
+        f"stages every collective through host memory; gloo on CUDA tensors "
+        f"directly: {r0['probe']}")
+    # bit-identity with the fused step, every rank, every tick
+    for r, res in enumerate(ranks):
+        _same_ticks("[sp]", res["ticks"], fused, f"rank {r}")
+    counts = [res["counts"] for res in ranks]
+    for r, c in enumerate(counts):
+        _need(f"[sp] rank {r}", c, ("paged_indexer_scores", "sparse_decode_attn"))
+        if c["gvr_topk"] or c["paged_sparse_decode_attn"]:
+            fail(f"[sp] rank {r} launched B1 or B3 on the sharded path: {c}")
+    gvr_rows = [int(t["sel_gvr"][0].sum()) for t in fused]
+    log(f"[sp] llama3.2-1b full width, {model.cfg.n_layers} layers, B = 2, "
+        f"max_len {SP_N}, lengths {SP_LENGTHS} (slot 1's writes cross the "
+        f"shard boundary at {SP_N // 2}), {SP_TICKS} greedy ticks: logits, "
+        f"tokens, prev_topk, topk_valid, sel_gvr and length bit-identical to "
+        f"serve_step_paged(paged_attn='fused') on every tick and rank; "
+        f"tokens {[t['logits'].argmax(-1).tolist() for t in fused]}; layer-0 "
+        f"GVR rows per tick {gvr_rows}; pools {gib:.3f} GiB single-device, "
+        f"{r0['pool_gib']:.3f} GiB a rank; launches a rank: "
+        f"{ {k: v for k, v in counts[0].items() if v} }")
+    for name, chk in r0["kernels"].items():
+        log(f"[sp] {name} at the sharded shapes {chk['shape']} vs its plain "
+            f"version: max|err| {chk['err']:.3e}")
+    # the collective bill: O(1) in the context length
+    for who, res in enumerate(ranks):
+        a = res["assembly"]
+        if not a["bit_equal"]:
+            fail(f"[sp] rank {who}: the bit-pattern assembly differs from the "
+                 f"single-device buffer")
+    log(f"[sp] assembly (int32 bit patterns, one owner a row): bit-equal to "
+        f"the single-device buffer, {r0['assembly']['neg_zeros']} -0.0 "
+        f"entries kept")
+    hi = [_bill_split(t["bill"]) for t in r0["ticks"]]
+    lo = [_bill_split(t["bill"]) for t in r0["bill_ticks"]]
+    log(f"[sp] collective bill a tick and rank at N = {SP_N} (calls, bytes): "
+        f"{[(c, b) for c, b, _ in hi]}; at N = {SP_BILL_N}: "
+        f"{[(c, b) for c, b, _ in lo]}")
+    if len({f for _, _, f in hi + lo}) != 1:
+        fail(f"[sp] the fixed part of the bill differs across ticks or N: "
+             f"{[f for _, _, f in hi]} vs {[f for _, _, f in lo]}")
+    pc_hi = _per_call([t["bill"] for t in r0["ticks"]])
+    pc_lo = _per_call([t["bill"] for t in r0["bill_ticks"]])
+    for k in set(pc_hi) & set(pc_lo):
+        if pc_hi[k] != pc_lo[k]:
+            fail(f"[sp] {k}: {pc_hi[k]} bytes a call at N = {SP_N}, "
+                 f"{pc_lo[k]} at N = {SP_BILL_N}")
+    log(f"[sp] bytes per call by site, equal at N = {SP_N} and {SP_BILL_N}: "
+        f"{ {k: pc_hi[k] for k in sorted(pc_hi)} }; the fixed part "
+        f"{hi[0][2]} bytes a tick at both N; the loop sites' calls follow "
+        f"SP-GVR's iteration counts (data-aware), their bytes a call do not "
+        f"grow with N")
+    sp_wall = [t["wall_ms"] for t in r0["ticks"]]
+    fu_wall = [t["wall_ms"] for t in fused]
+    log(f"[sp] host wall a tick (a functional run: two ranks share one card "
+        f"and gloo stages through the host): sharded median "
+        f"{statistics.median(sp_wall):.3f} ms {sp_wall}, single-device fused "
+        f"median {statistics.median(fu_wall):.3f} ms")
+    # [sp-engine]
+    for r, res in enumerate(ranks):
+        got = res["engine"]
+        for key in ("tokens", "log", "hit", "prefix"):
+            if got[key] != fused_engine[key]:
+                fail(f"[sp-engine] rank {r}: {key} differs from the fused "
+                     f"engine's: {got[key]} vs {fused_engine[key]}")
+        if res["spec"]["tokens"] != got["tokens"]:
+            fail(f"[sp-engine] rank {r}: spec_depth 3 tokens differ from "
+                 f"non-spec: {res['spec']['tokens']} vs {got['tokens']}")
+        _need(f"[sp-engine] rank {r}", got["counts"],
+              ("paged_indexer_scores", "sparse_decode_attn"))
+    e0, s0 = r0["engine"], r0["spec"]
+    log(f"[sp-engine] DecodeEngine(kv_layout='paged', seq_shards=2) at full "
+        f"width, {SP_ENGINE_DEPTH} of 16 layers, max_len {SP_ENGINE_LEN}, "
+        f"prompts 72/70/20 (66-token shared prefix): tokens, method log, "
+        f"paths {_paths_of(e0)}, GVR hit rate "
+        f"{e0['hit']:.4f} and prefix hits {e0['prefix']} == the fused "
+        f"single-device engine's on both ranks; {e0['ticks']} ticks, "
+        f"{e0['wall_s']:.3f} s wall (fused {fused_engine['wall_s']:.3f} s); "
+        f"spec_depth 3 (mq verify, every third draft wrong): tokens == "
+        f"non-spec, acceptance {s0['accept']:.4f}, {s0['ticks']} ticks; "
+        f"launches a rank {e0['counts']} / spec {s0['counts']}")
+    log(f"[sp] phase wall {time.perf_counter() - t0:.3f} s")
+    total = {}
+    for res in ranks:
+        for part in (res["counts"], res["engine"]["counts"], res["spec"]["counts"]):
+            for k, v in part.items():
+                total[k] = total.get(k, 0) + v
+    return total, r0["kernels"]
+
+
 def run_llama_phases(model, params, cpu_params, rng, specs, timed):
     """The llama3.2-1b engine phases, [main] through [dense], which run
     beside h2o-danube's child processes (their host walls with them);
@@ -2613,6 +3110,7 @@ def run_llama_phases(model, params, cpu_params, rng, specs, timed):
 
 def main() -> int:
     child = sys.argv[1:3] if sys.argv[1:2] == ["--family-engine"] else None
+    sp_rank = sys.argv[2:] if sys.argv[1:2] == ["--sp-rank"] else None
     try:
         import torch
     except ImportError:
@@ -2634,6 +3132,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if child is not None:
         return family_engine_child(child[1])
+    if sp_rank is not None:
+        return sp_child(sp_rank)
     t_start = time.perf_counter()
     log(f"[env] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -2682,6 +3182,9 @@ def main() -> int:
     # llama's profiled steps, with the card to this process alone
     timed("step", phase_step, model, params, cpu_params, rng, flush)
     timed("verify-step", phase_verify_step, model, params, rng)
+    # the sequence-sharded path: two gloo ranks on the card beside the
+    # single-device references in this process
+    sp_counts, sp_kernels = timed("sp", phase_sp, model, params)
     (main_counts, dl_counts, gather_counts, page_counts, spec_counts,
      dense_counts) = llama
 
@@ -2830,6 +3333,13 @@ def main() -> int:
                    (kernels[5], "sparse_decode_attn")):
         r["audio_launches"] = int(audio_counts[key])
         r["hybrid_launches"] = int(hybrid_counts[key])
+    # launches on the sequence-sharded paths ([sp] and [sp-engine], both
+    # ranks): B2's scoring half over each rank's pool, B6 over the
+    # assembled rows; and each against its plain version at those shapes
+    for r, key, short in ((kernels[1], "paged_indexer_scores", "B2 scoring"),
+                          (kernels[5], "sparse_decode_attn", "B6")):
+        r["sp_launches"] = int(sp_counts[key])
+        r["sp_max_abs_err"] = sp_kernels[short]["err"]
     (a, a_lo, a_hi), (c, c_lo, c_hi) = b7_ab["B7"], b7_ab["index_select"]
     kernels[6].update(ab_ms=a, ab_lo_ms=a_lo, ab_hi_ms=a_hi, ab_library_ms=c,
                       ab_library_lo_ms=c_lo, ab_library_hi_ms=c_hi)

@@ -1,7 +1,6 @@
-"""Core selection algorithms of the PyTorch port: GVR, radix and exact
-Top-K, the RoPE score structure and the temporal feedback helpers —
-every name of the JAX package's `repro.core` but the sequence-parallel
-GVR's (ROADMAP Queue A item 4)."""
+"""Core selection algorithms of the PyTorch port: GVR, its sequence-parallel
+form SP-GVR, radix and exact Top-K, the RoPE score structure and the
+temporal feedback helpers — every name of the JAX package's `repro.core`."""
 
 from .gvr import (GVRResult, GVRStats, extract_topk, global_passes, gvr_threshold,
                   gvr_topk, uniform_pre_idx, DEFAULT_K)
@@ -10,6 +9,7 @@ from .rope import (compute_static_pre_idx, g_delta, generate_indexer_scores,
 from .temporal import (TopKFeedback, hit_ratio, init_feedback, recycle_slot,
                        recycle_slot_arrays, reset_slot, reset_slot_arrays,
                        seed_slot_idx, shifted_hit_ratio, update_feedback)
+from .sp_gvr import SPGVRResult, sp_gvr_topk, sp_gvr_topk_local
 from .topk_baselines import exact_topk, radix_select_topk, sort_topk
 
 __all__ = [
@@ -19,5 +19,6 @@ __all__ = [
     "TopKFeedback", "hit_ratio", "init_feedback", "recycle_slot",
     "recycle_slot_arrays", "reset_slot", "reset_slot_arrays", "seed_slot_idx",
     "shifted_hit_ratio", "update_feedback",
+    "SPGVRResult", "sp_gvr_topk", "sp_gvr_topk_local",
     "exact_topk", "radix_select_topk", "sort_topk",
 ]

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -104,7 +105,14 @@ class KernelLibraries:
         if todo:
             nvcc = find_nvcc()
             for name, out in todo.items():
-                tmp = out.with_suffix(".tmp.so")
+                # a temporary of its own: other processes (the ranks of a
+                # sharded run) may compile the same source into the same
+                # directory at once; the last rename wins
+                fd, tmp = tempfile.mkstemp(dir=self.build_dir,
+                                           prefix=out.stem + ".",
+                                           suffix=".tmp.so")
+                os.close(fd)
+                tmp = Path(tmp)
                 cmd = [nvcc] + FLAGS + ["-o", str(tmp), str(CSRC / f"{name}.cu")]
                 procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT,

@@ -126,6 +126,49 @@ class Model:
             gather_granularity=gather_granularity)
 
 
+    # ---- sequence-sharded paged decode (the SP-GVR serving path) --------
+    # `mesh` is this rank's `launch.make_seq_mesh(S)`: every rank calls
+    # these with the same arguments and holds its own shard of the pools.
+
+    def init_sp_paged_decode_state(self, batch, max_len, *,
+                                   num_pages_per_shard, page_size,
+                                   seq_shards, dtype=None):
+        """This rank's sequence-sharded paged state: its shard of the page
+        pools (extent 1 on the shard axis) and the shard-local block
+        table."""
+        return self._hook("init_sp_paged_decode_state",
+                          "sequence-sharded paged decode state")(
+            self.cfg, batch, max_len, num_pages_per_shard=num_pages_per_shard,
+            page_size=page_size, seq_shards=seq_shards, device=self.device,
+            dtype=dtype)
+
+    def sp_paged_state_batch_axes(self) -> Optional[Dict[str, int]]:
+        """Slot axis of each per-slot leaf of the sharded paged state, or
+        None when the family has no sharded decode path."""
+        return self._axes("sp_paged_state_batch_axes")
+
+    def serve_step_sp_paged(self, params, state, tokens, *, mesh,
+                            min_write_pos=None):
+        """One sequence-sharded paged decode step on this rank (see
+        transformer.serve_step_sp_paged); bit-identical to
+        `serve_step_paged(paged_attn="fused")`."""
+        return self._hook("serve_step_sp_paged",
+                          "sequence-sharded paged serve_step")(
+            params, state, tokens, self.cfg, mesh=mesh,
+            min_write_pos=min_write_pos)
+
+    def serve_step_sp_spec_paged(self, params, state, tokens, *, mesh,
+                                 draft_len, max_accept, eos_id=-1,
+                                 min_write_pos=None, verify_kernel="scan"):
+        """Sequence-sharded speculative verify tick on this rank (see
+        transformer.serve_step_sp_spec_paged)."""
+        return self._hook("serve_step_sp_spec_paged",
+                          "sequence-sharded speculative paged serve_step")(
+            params, state, tokens, self.cfg, mesh=mesh, draft_len=draft_len,
+            max_accept=max_accept, eos_id=eos_id,
+            min_write_pos=min_write_pos, verify_kernel=verify_kernel)
+
+
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """The model for `cfg` on `device` ("cuda" by default)."""
     mod = _FAMILIES.get(cfg.family)

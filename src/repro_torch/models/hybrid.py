@@ -245,8 +245,9 @@ def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
     layers and the dense FFN on even ones."""
     if seq_sharded:
         raise NotImplementedError(
-            "seq_sharded serving is not ported yet (ROADMAP Queue A item 4: "
-            "sequence-parallel DSA)")
+            "seq_sharded serving of the hybrid family needs a "
+            "('data', 'model') mesh, which the port does not build yet "
+            "(ROADMAP item 7)")
     b = tokens.shape[0]
     x = params["embed"][tokens.long()]                     # (B, D)
     h_out, conv_out, topk_out = [], [], []

@@ -24,6 +24,10 @@ exceeds `dsa.min_n`, else dense attention over the whole extent.
   acceptance and exact rollback of the per-slot state on the device.
   `verify_kernel="scan"` runs d+1 `serve_step_paged` calls; "mq" one
   forward of the (B, d+1) rows (kernels B9 and B8 in the fused form).
+* `serve_step_sp_paged` / `serve_step_sp_spec_paged` — the same two over
+  the sequence-sharded paged layout, on each rank of a sequence mesh:
+  SP-GVR selection and the O(K) row assembly (`sparse/sp_dsa.py`; B2's
+  scoring half and B6 on the card), bit-identical to the fused step.
 
 Caches and pools are updated IN PLACE — copying a multi-GB cache per tick
 is what JAX's functional update costs and what this port avoids; a row
@@ -54,6 +58,7 @@ from repro_torch.core.temporal import (recycle_slot_arrays, reset_slot_arrays,
                                        seed_slot_idx)
 from repro_torch.kernels import ops
 from repro_torch.sparse import dsa as dsa_mod
+from repro_torch.sparse import sp_dsa as sp_dsa_mod
 from .config import ModelConfig
 from .layers import (apply_rotary, decode_attention, decode_attention_paged,
                      moe_mlp_dense_fallback, rms_norm, swiglu_mlp)
@@ -792,3 +797,273 @@ def serve_step_spec_paged(params, state, tokens: torch.Tensor,
     return _spec_verify_scan(step_fn, state, tokens, draft_len, max_accept,
                              int(eos_id), base_mwp,
                              paged_state_batch_axes(cfg), cfg.dsa.enabled)
+
+
+# --------------------------------------------------------------------------
+# Sequence-sharded paged decode: the SP-GVR serving path
+# --------------------------------------------------------------------------
+#
+# For contexts no single device holds, the page pools shard over the S ranks
+# of a sequence mesh (`launch.make_seq_mesh`): rank s owns the pages whose
+# LOGICAL token range falls in [s·N/S, (s+1)·N/S), in its own pool of
+# `num_pages_per_shard` pages plus its own write-sink page, and the block
+# table (the same on every rank) stores SHARD-LOCAL page ids — the logical
+# page index names the owner. The state keeps the reference's leaves and
+# axis order; a rank's pools carry extent 1 on the shard axis, so the
+# ranks' pools concatenated along axis 1 are the reference's
+# (L, S, PPL+1, ...) arrays. Everything the feedback loop touches —
+# prev_topk, topk_valid, sel_gvr, length — stays in GLOBAL logical token
+# space and is the same on every rank, as are the parameters and logits.
+# Selection runs through SP-GVR's O(1)-collective schedule and attention
+# assembles exactly the K selected rows with one O(K) psum
+# (`sparse/sp_dsa.py`), so the step is bit-identical to
+# `serve_step_paged(paged_attn="fused")` over the same logical content.
+
+
+def init_sp_paged_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
+                               num_pages_per_shard: int, page_size: int,
+                               seq_shards: int, device,
+                               dtype=None) -> Dict[str, torch.Tensor]:
+    """One rank's sequence-sharded paged state: the paged state of
+    `num_pages_per_shard` pages with the pools' shard axis (extent 1:
+    this rank's shard, its last page the rank's write sink) and the
+    replicated block table of shard-local ids. `max_len` must split into
+    `seq_shards` page-aligned spans."""
+    if max_len % (page_size * seq_shards) != 0:
+        raise ValueError(
+            f"max_len ({max_len}) must be a multiple of page_size × "
+            f"seq_shards ({page_size}×{seq_shards}) — shard token spans "
+            f"must be page-aligned for whole-page ownership")
+    state = init_paged_decode_state(cfg, batch, max_len,
+                                    num_pages=num_pages_per_shard,
+                                    page_size=page_size, device=device,
+                                    dtype=dtype)
+    for key in ("k_pages", "v_pages", "idx_k_pages"):
+        if key in state:
+            state[key] = state[key][:, None]
+    return state
+
+
+def sp_paged_state_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
+    """Slot axis of each per-slot leaf of the sharded paged state: the
+    single-device paged map (the sharded pools are pool-global per rank)."""
+    return paged_state_batch_axes(cfg)
+
+
+def _sp_paged_validate(state, cfg: ModelConfig, mesh) -> None:
+    """Entry validation shared by both sequence-sharded paged steps."""
+    page_size = state["k_pages"].shape[3]
+    mp = state["page_table"].shape[1]
+    if mp % mesh.size != 0:
+        raise ValueError(f"logical pages ({mp}) must divide over "
+                         f"{mesh.size} shards")
+    if not (cfg.dsa.enabled and mp * page_size > cfg.dsa.min_n):
+        raise ValueError(
+            "sequence-sharded paged decode requires the DSA gate open "
+            f"(dsa.enabled and max_len > dsa.min_n={cfg.dsa.min_n}): the "
+            "sequence-sharded path has no dense fallback attention")
+    if state["k_pages"].shape[1] != 1:
+        raise ValueError(
+            f"a rank's state holds its own shard of the page pools (extent "
+            f"1 on axis 1), got {state['k_pages'].shape[1]}")
+
+
+def _sp_layout(state, mesh):
+    """This rank's view of the block table: (table_local (B, MP/S) of
+    local ids, shard_offset, n_local, page_size, sink page id)."""
+    page_size = state["k_pages"].shape[3]
+    mp_local = state["page_table"].shape[1] // mesh.size
+    table_local = state["page_table"][
+        :, mesh.rank * mp_local:(mesh.rank + 1) * mp_local].contiguous()
+    n_local = mp_local * page_size
+    return (table_local, mesh.rank * n_local, n_local, page_size,
+            state["k_pages"].shape[2] - 1)
+
+
+def _sp_dest(table_local, positions, live_mwp, shard_offset: int,
+             n_local: int, page_size: int, sink: int):
+    """(page, offset) each row writes on this rank: its page where this
+    rank owns the position, the page is mapped and `live_mwp` allows the
+    write; else the rank's sink page."""
+    owner = (positions >= shard_offset) & (positions < shard_offset + n_local)
+    rel = (positions - shard_offset).clamp(0, n_local - 1)
+    phys = table_local.gather(-1, (rel // page_size).long())
+    writable = owner & (phys >= 0) & live_mwp
+    dest = torch.where(writable, phys, torch.full_like(phys, sink)).long()
+    return dest, (positions % page_size).long()
+
+
+def _sp_select_attend(p, cfg: ModelConfig, state, i: int, q, h, kp, vp,
+                      idx_kp, table_local, prev, valid, lengths, mesh,
+                      shard_offset: int, page_size: int):
+    """Layer i's sharded DSA for one query row per slot, as a `DSAOutput`."""
+    res = sp_dsa_mod.sp_dsa_decode_paged_local(
+        q, kp, vp, table_local, p["indexer"], h, idx_kp, prev, valid,
+        lengths, k=state["prev_topk"].shape[-1], scale=cfg.hd ** -0.5,
+        heads=cfg.dsa.indexer_heads, dim=cfg.dsa.indexer_dim,
+        rope_base=cfg.rope_base, shard_offset=shard_offset,
+        page_size=page_size, max_candidates=cfg.dsa.max_candidates,
+        swa_window=cfg.swa_window, mesh=mesh)
+    return dsa_mod.DSAOutput(res.attn_out, res.new_topk, res.secant_iters,
+                             res.gvr_rows)
+
+
+def _sp_paged_token_body(params, state, tokens: torch.Tensor,
+                         mwp: torch.Tensor, cfg: ModelConfig, *, mesh):
+    """One rank's part of ONE sequence-sharded paged decode step (the
+    speculative scan calls it once per position). The rank owning
+    position `length` writes the new rows into its pools in place; every
+    other rank, and every row masked by `mwp`, writes its own sink page.
+    Returns (logits, new_state), the same on every rank but the pools."""
+    table_local, so, n_local, ps, sink = _sp_layout(state, mesh)
+    positions = state["length"]
+    new_len = positions + 1
+    dest, off = _sp_dest(table_local, positions[:, None],
+                         (positions >= mwp)[:, None], so, n_local, ps, sink)
+    dest, off = dest[:, 0], off[:, 0]
+    valid = state.get("topk_valid")
+
+    def attend(i, p, h, q, kn, vn):
+        kp, vp = state["k_pages"][i, 0], state["v_pages"][i, 0]
+        idx_kp = state["idx_k_pages"][i, 0]
+        kp[dest, off] = kn.to(kp.dtype)
+        vp[dest, off] = vn.to(vp.dtype)
+        ik = dsa_mod.indexer_k(p["indexer"], h, positions,
+                               dim=cfg.dsa.indexer_dim, rope_base=cfg.rope_base)
+        idx_kp[dest, off] = ik.to(idx_kp.dtype)
+        res = _sp_select_attend(p, cfg, state, i, q, h, kp, vp, idx_kp,
+                                table_local, state["prev_topk"][i],
+                                None if valid is None else valid[i], new_len,
+                                mesh, so, ps)
+        return res.attn_out, res
+
+    return _decode_layers(params, state, tokens, cfg, attend)
+
+
+def serve_step_sp_paged(params, state, tokens: torch.Tensor,
+                        cfg: ModelConfig, *, mesh,
+                        min_write_pos: Optional[torch.Tensor] = None):
+    """One sequence-sharded paged decode step on this rank of `mesh` (a
+    `SeqGroup`; every rank calls it with the same tokens and replicated
+    state). tokens: (B,) int. Returns (logits (B, V) f32, new_state).
+
+    Per layer: the rank owning logical position `length` scatters the new
+    token's K/V/indexer-K rows into ITS pools (the others, and rows masked
+    by `min_write_pos`, write their sink page); each rank scores its own
+    tokens; SP-GVR selects the exact global Top-K with O(1)-sized
+    collectives; one O(K) psum assembles the K selected rows and attention
+    runs over them on every rank (`sp_dsa_decode_paged_local`). Logits,
+    feedback and telemetry are bit-identical to
+    `serve_step_paged(..., paged_attn="fused")` over the same logical
+    cache content. Requires the DSA gate open (`cfg.dsa.enabled` and
+    `max_len > cfg.dsa.min_n`): the sharded path has no dense fallback."""
+    _sp_paged_validate(state, cfg, mesh)
+    mwp = (min_write_pos if min_write_pos is not None
+           else torch.zeros_like(state["length"]))
+    return _sp_paged_token_body(params, state, tokens, mwp, cfg, mesh=mesh)
+
+
+def _sp_paged_verify_mq(params, state, tokens: torch.Tensor,
+                        cfg: ModelConfig, *, draft_len: torch.Tensor,
+                        base_mwp: torch.Tensor, mesh):
+    """The sharded mq verify body: `_paged_verify_mq` over the rank's
+    pools. Per layer every position's rows are written first (each to the
+    rank owning it; frozen and masked rows to the sink page), then the
+    Top-K chain and attention run position by position through
+    `sp_dsa_decode_paged_local` (selection is sequential over the
+    positions, and each position's collective schedule is the
+    non-speculative step's). Returns (ys, state) in the scan's stack
+    format, for `_spec_accept_rollback`."""
+    b, d1 = tokens.shape
+    hd = cfg.hd
+    dev = tokens.device
+    table_local, so, n_local, ps, sink = _sp_layout(state, mesh)
+    length0 = state["length"]
+    jj = torch.arange(d1, dtype=torch.int32, device=dev)
+    positions = length0[:, None] + jj[None, :]             # (B, Q)
+    lengths_q = positions + 1                              # causal extents
+    live = (jj[None, :] <= draft_len[:, None]) & (positions >= base_mwp[:, None])
+    dest, off = _sp_dest(table_local, positions, live, so, n_local, ps, sink)
+    flat_pos = positions.reshape(b * d1)
+    valid0 = state.get("topk_valid")
+
+    x = params["embed"][tokens.long()]                     # (B, Q, D)
+    sel_idx, sel_gvr = [], []
+    for i in range(cfg.n_layers):
+        p = layer_params(params["layers"], i)
+        kp, vp = state["k_pages"][i, 0], state["v_pages"][i, 0]
+        idx_kp = state["idx_k_pages"][i, 0]
+        h = rms_norm(x, p["ln1"])
+        hf = h.reshape(b * d1, -1)
+        q, kn, vn = _project_qkv(p, hf, b * d1, flat_pos, cfg)
+        q = q.reshape(b, d1, cfg.n_heads, hd)
+        # every position writes before anything attends
+        kp[dest, off] = kn.reshape(b, d1, cfg.n_kv_heads, hd).to(kp.dtype)
+        vp[dest, off] = vn.reshape(b, d1, cfg.n_kv_heads, hd).to(vp.dtype)
+        ik = dsa_mod.indexer_k(p["indexer"], hf, flat_pos,
+                               dim=cfg.dsa.indexer_dim, rope_base=cfg.rope_base)
+        idx_kp[dest, off] = ik.reshape(b, d1, -1).to(idx_kp.dtype)
+        prev = state["prev_topk"][i]
+        valid = None if valid0 is None else valid0[i]
+        rows = []
+        for j in range(d1):
+            rows.append(_sp_select_attend(
+                p, cfg, state, i, q[:, j], h[:, j], kp, vp, idx_kp,
+                table_local, prev, valid, lengths_q[:, j], mesh, so, ps))
+            prev = rows[-1].topk_idx
+            valid = None if valid is None else torch.ones_like(valid)
+        sel_idx.append(torch.stack([r.topk_idx for r in rows], 1))  # (B, Q, K)
+        sel_gvr.append(torch.stack([r.gvr_rows for r in rows], 1))  # (B, Q)
+        attn = torch.stack([r.attn_out for r in rows], 1)
+        x = x + attn.reshape(b, d1, cfg.n_heads * hd).to(x.dtype) @ p["wo"]
+        h2 = rms_norm(x, p["ln2"])
+        if cfg.moe.num_experts:
+            x = x + torch.stack([_mlp(p, h2[:, j], cfg) for j in range(d1)], 1)
+        else:
+            x = x + swiglu_mlp(h2, p["w_gate"], p["w_up"], p["w_down"])
+
+    logits = _lm_head(params, x, cfg)                      # (B, Q, V)
+    ys = {"logits": logits.transpose(0, 1),
+          "prev_topk": torch.stack(sel_idx).permute(2, 0, 1, 3),
+          "topk_valid": torch.ones((d1,) + state["topk_valid"].shape,
+                                   dtype=torch.bool, device=dev),
+          "sel_gvr": torch.stack(sel_gvr).permute(2, 0, 1)}
+    return ys, dict(state)
+
+
+def serve_step_sp_spec_paged(params, state, tokens: torch.Tensor,
+                             cfg: ModelConfig, *, mesh, draft_len, max_accept,
+                             eos_id: int = -1,
+                             min_write_pos: Optional[torch.Tensor] = None,
+                             verify_kernel: str = "scan"):
+    """Sequence-sharded speculative verify tick on this rank of `mesh`:
+    the verify semantics of `serve_step_spec_paged` over the sharded body
+    — "scan" runs d+1 `_sp_paged_token_body` steps, "mq" batches each
+    layer's projections and writes (`_sp_paged_verify_mq`) — with the same
+    acceptance and rollback arithmetic on every rank. Each position costs
+    one non-speculative step's collective schedule. Bit-identical to the
+    single-device `serve_step_spec_paged(paged_attn="fused")` with the
+    same `verify_kernel`. Returns its 5-tuple."""
+    _sp_paged_validate(state, cfg, mesh)
+    if verify_kernel not in ("scan", "mq"):
+        raise ValueError(f"unknown verify_kernel {verify_kernel!r} "
+                         f"(expected 'scan' or 'mq')")
+    dev = state["length"].device
+    tokens = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
+    draft_len = torch.as_tensor(draft_len, dtype=torch.int32, device=dev)
+    max_accept = torch.as_tensor(max_accept, dtype=torch.int32, device=dev)
+    base_mwp = (min_write_pos if min_write_pos is not None
+                else torch.zeros_like(state["length"]))
+    if verify_kernel == "mq":
+        ys, end_state = _sp_paged_verify_mq(params, state, tokens, cfg,
+                                            draft_len=draft_len,
+                                            base_mwp=base_mwp, mesh=mesh)
+        return _spec_accept_rollback(state["length"], end_state, ys, tokens,
+                                     draft_len, max_accept, int(eos_id), True)
+
+    def step_fn(st, tok, mwp):
+        return _sp_paged_token_body(params, st, tok, mwp, cfg, mesh=mesh)
+
+    return _spec_verify_scan(step_fn, state, tokens, draft_len, max_accept,
+                             int(eos_id), base_mwp,
+                             sp_paged_state_batch_axes(cfg), True)

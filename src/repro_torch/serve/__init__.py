@@ -19,7 +19,7 @@ them in one speculative verify tick.
 from .engine import DecodeEngine, EngineReport, Request
 from .feedback_pool import FeedbackPool
 from .paged import (AdmitPlan, BlockPool, BlockTable, PagedKVManager,
-                    PoolExhausted, PrefixCache)
+                    PoolExhausted, PrefixCache, ShardedPagedKVManager)
 from .sampling import sample_token
 from .spec import (Drafter, ModelDrafter, NgramDrafter, ReplayDrafter,
                    ScriptedDrafter)
@@ -30,7 +30,7 @@ from .scheduler import (DECODE, DONE, PREFILL, QUEUED, FIFOScheduler,
 __all__ = [
     "DecodeEngine", "EngineReport", "Request", "FeedbackPool",
     "AdmitPlan", "BlockPool", "BlockTable", "PagedKVManager",
-    "PoolExhausted", "PrefixCache", "sample_token",
+    "PoolExhausted", "PrefixCache", "ShardedPagedKVManager", "sample_token",
     "Scheduler", "FIFOScheduler", "LongestContextFirstScheduler",
     "make_scheduler", "QUEUED", "PREFILL", "DECODE", "DONE",
     "Drafter", "ModelDrafter", "NgramDrafter", "ReplayDrafter",

@@ -46,10 +46,19 @@ the front of the queue and replays deterministically.
 The engine runs on its model's device (the card unless the model was built
 with device="cpu"). It serves `kv_layout="dense"` (the default) and
 `kv_layout="paged"` with `paged_attn="fused"` or `"gather"` and
-`gather_granularity="token"` or `"page"`, with or without speculation;
-sequence sharding is a later slice of the port and raises
-NotImplementedError. The dense layout has no prefix cache, so it reports
-`prefix_hit_tokens` 0 and `peak_page_utilization` 0.0, as the reference.
+`gather_granularity="token"` or `"page"`, with or without speculation.
+
+Sequence-sharded serving (`kv_layout="paged", seq_shards=S`): the engine
+runs on each of the S ranks of a sequence mesh (`launch.make_seq_mesh`),
+every rank the same host code over the same requests. The page pools
+partition by logical token span, rank s holding shard s's pool
+(`ShardedPagedKVManager`, `num_pages` counted per shard), and each tick
+runs `serve_step_sp_paged` (SP-GVR selection, O(K) row assembly) on every
+rank. Tokens, the method log and the reports are the single-device fused
+engine's; admission, copy-on-write and preemption account per shard.
+
+The dense layout has no prefix cache, so it reports `prefix_hit_tokens` 0
+and `peak_page_utilization` 0.0, as the reference.
 """
 
 from __future__ import annotations
@@ -65,7 +74,7 @@ from repro_torch.models.transformer import PAGED_NEVER_WRITE, check_paged_option
 
 from . import sampling
 from .feedback_pool import FeedbackPool
-from .paged import PagedKVManager, PoolExhausted
+from .paged import PagedKVManager, PoolExhausted, ShardedPagedKVManager
 from .scheduler import DECODE, DONE, PREFILL, QUEUED, Scheduler, make_scheduler
 from .spec import NgramDrafter
 
@@ -179,8 +188,8 @@ class DecodeEngine:
                  kv_layout: str = "dense", page_size: int = 16,
                  num_pages: Optional[int] = None, prefix_caching: bool = True,
                  paged_attn: str = "fused", gather_granularity: str = "token",
-                 seq_shards: int = 1, spec_depth: int = 0, drafter=None,
-                 verify_kernel: str = "scan"):
+                 seq_shards: int = 1, mesh=None, spec_depth: int = 0,
+                 drafter=None, verify_kernel: str = "scan"):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         check_paged_options(paged_attn, gather_granularity)
@@ -188,6 +197,11 @@ class DecodeEngine:
             raise ValueError(
                 "gather_granularity='page' requires kv_layout='paged' "
                 "(page-granular reads address the page pools)")
+        if gather_granularity == "page" and seq_shards > 1:
+            raise ValueError(
+                "gather_granularity='page' is not supported under "
+                "seq_shards > 1: the sharded attention assembles selected "
+                "rows via the O(K) psum, not the paged gather")
         if verify_kernel not in ("scan", "mq"):
             raise ValueError(f"unknown verify_kernel {verify_kernel!r} "
                              f"(expected 'scan' or 'mq')")
@@ -198,10 +212,6 @@ class DecodeEngine:
                 "spec_depth > 0 requires kv_layout='paged': the verify "
                 "tick runs through the paged step and its rollback is the "
                 "page-cursor rewind (serve.spec)")
-        if seq_shards > 1:
-            raise NotImplementedError(
-                "seq_shards > 1 is not ported yet (ROADMAP Queue A item 4: "
-                "sequence-sharded serving)")
         self.model = model
         self.params = params
         self.cfg = model.cfg
@@ -217,6 +227,8 @@ class DecodeEngine:
         self.paged_attn = paged_attn
         self.gather_granularity = gather_granularity
         self.verify_kernel = verify_kernel
+        self.seq_shards = int(seq_shards)
+        self.mesh = mesh
         self.pool = FeedbackPool(model, self.num_slots)
 
         # speculative decoding: the drafter proposes up to spec_depth tokens
@@ -232,7 +244,10 @@ class DecodeEngine:
         self._spec_pos_total = np.zeros((self.spec_depth + 1,), np.int64)
 
         self.kv: Optional[PagedKVManager] = None
-        if kv_layout == "paged":
+        if self.seq_shards > 1:
+            self._init_sharded(kv_layout, paged_attn, int(page_size),
+                               num_pages, prefix_caching)
+        elif kv_layout == "paged":
             # the page pools are pool-global: every per-slot leaf is merged
             self._axes = self._merge_axes = model.paged_state_batch_axes()
             if self._axes is None:
@@ -285,10 +300,64 @@ class DecodeEngine:
         else:
             self._cold_method = "radix"
 
+    def _init_sharded(self, kv_layout: str, paged_attn: str, page_size: int,
+                      num_pages: Optional[int], prefix_caching: bool) -> None:
+        """The sequence-sharded layout: the reference's checks and
+        messages, this rank's mesh, the per-shard manager and state."""
+        if kv_layout != "paged":
+            raise ValueError("seq_shards > 1 requires kv_layout='paged' "
+                             "(the dense layout has no sharded pool)")
+        if paged_attn != "fused":
+            raise ValueError(
+                "seq_shards > 1 requires paged_attn='fused': the "
+                "sharded step is block-table-native per shard and "
+                "never materializes a logical view to 'gather' from")
+        cfg = self.cfg
+        if not (cfg.dsa.enabled and self.max_len > cfg.dsa.min_n):
+            raise ValueError(
+                "seq_shards > 1 requires the DSA gate open "
+                f"(dsa.enabled and max_len > dsa.min_n="
+                f"{cfg.dsa.min_n}): the sequence-sharded step has no "
+                "dense fallback attention")
+        if self.max_len % (page_size * self.seq_shards) != 0:
+            raise ValueError(
+                f"max_len ({self.max_len}) must be a multiple of "
+                f"page_size × seq_shards ({page_size}×{self.seq_shards})"
+                f" — shard token spans must be page-aligned")
+        if self.mesh is None:
+            from repro_torch.launch.mesh import make_seq_mesh
+            self.mesh = make_seq_mesh(self.seq_shards, device=self.device)
+        if ("seq" not in self.mesh.axis_names
+                or self.mesh.shape["seq"] != self.seq_shards):
+            raise ValueError(
+                f"mesh must carry a 'seq' axis of extent "
+                f"{self.seq_shards}, got {dict(self.mesh.shape)}")
+        self._axes = self._merge_axes = self.model.sp_paged_state_batch_axes()
+        if self._axes is None:
+            raise ValueError(f"model family {cfg.family!r} does "
+                             f"not expose a sequence-sharded paged "
+                             f"decode state")
+        span_pages = self.max_len // page_size // self.seq_shards
+        # `num_pages` is PER SHARD here: the per-device KV budget
+        per_shard = (int(num_pages) if num_pages is not None
+                     else self.num_slots * span_pages)
+        self.num_pages = per_shard * self.seq_shards
+        self.kv = ShardedPagedKVManager(
+            num_slots=self.num_slots, max_len=self.max_len,
+            page_size=page_size, num_pages_per_shard=per_shard,
+            seq_shards=self.seq_shards, prefix_caching=prefix_caching)
+        self.state = self.model.init_sp_paged_decode_state(
+            self.num_slots, self.max_len, num_pages_per_shard=per_shard,
+            page_size=page_size, seq_shards=self.seq_shards)
+
     # ---- device steps ---------------------------------------------------
 
     def _step(self, state, tokens: torch.Tensor, min_write_pos):
         """Layout dispatch: one model step over the given (sub-)pool."""
+        if self.seq_shards > 1:
+            return self.model.serve_step_sp_paged(
+                self.params, state, tokens, min_write_pos=min_write_pos,
+                mesh=self.mesh)
         if self.kv is None:
             return self.model.serve_step(self.params, state, tokens,
                                          min_write_pos=min_write_pos)
@@ -374,21 +443,37 @@ class DecodeEngine:
             self.kv.dirty = False
 
     def _copy_page(self, cow) -> None:
-        """Device-side page copy backing a copy-on-write remap (in place)."""
-        src, dst = cow
+        """Device-side page copy backing a copy-on-write remap (in place).
+        The descriptor is `(src, dst)`, or `(shard, src, dst)` with
+        shard-local ids under sequence sharding, where only the rank
+        holding that shard's pool copies."""
+        if self.seq_shards > 1:
+            shard, src, dst = cow
+            if shard != self.mesh.rank:
+                return
+            index = (slice(None), 0)
+        else:
+            (src, dst), index = cow, (slice(None),)
         for key in ("k_pages", "v_pages", "idx_k_pages"):
             if key in self.state:
-                arr = self.state[key]
+                arr = self.state[key][index]
                 arr[:, dst] = arr[:, src]
 
-    def _preempt_victim(self, exclude: Optional[int] = None) -> Optional[int]:
+    def _preempt_victim(self, exclude: Optional[int] = None,
+                        shard: Optional[int] = None) -> Optional[int]:
         """Lowest-priority victim under page pressure: the PREFILL slot with
         the most remaining prompt tokens (ties toward the latest admission);
         if every other slot decodes, the DECODE slot with the fewest
-        generated tokens."""
+        generated tokens. When the exhaustion names a pressured shard
+        (sequence sharding), only slots holding pages in that shard are
+        candidates: evicting any other frees no page where the allocation
+        failed."""
+        def holds(s):
+            return shard is None or self.kv.pages_in_shard(s, shard) > 0
         best, best_key = None, None
         for s, req in enumerate(self.slots):
-            if req is None or req.phase != PREFILL or s == exclude:
+            if (req is None or req.phase != PREFILL or s == exclude
+                    or not holds(s)):
                 continue
             key = (len(req.prompt) - req.prefill_pos, req.admitted_at)
             if best_key is None or key > best_key:
@@ -396,7 +481,8 @@ class DecodeEngine:
         if best is not None:
             return best
         for s, req in enumerate(self.slots):
-            if req is None or req.phase != DECODE or s == exclude:
+            if (req is None or req.phase != DECODE or s == exclude
+                    or not holds(s)):
                 continue
             key = (-len(req.generated), req.admitted_at)
             if best_key is None or key > best_key:
@@ -437,12 +523,14 @@ class DecodeEngine:
                     self._copy_page(cow)
                 return
             except PoolExhausted as exc:
-                victim = self._preempt_victim(exclude=slot)
+                victim = self._preempt_victim(exclude=slot, shard=exc.shard)
                 if victim is None:
+                    # the message names the binding pool (the sharded
+                    # manager's names the shard)
                     raise RuntimeError(
                         f"page pool exhausted ({exc}) with nothing left to "
                         f"preempt: slot {slot} alone needs more pages than "
-                        f"the pool holds — increase num_pages") from None
+                        f"the binding pool holds — increase num_pages") from None
                 self._preempt(victim)
 
     def _admit(self) -> None:
@@ -568,15 +656,20 @@ class DecodeEngine:
         dev = self.device
         active = torch.as_tensor(active_np).to(dev)
         mwp = torch.where(active, 0, PAGED_NEVER_WRITE).to(torch.int32)
-        out_tokens, accept_len, logits_all, sel_pos, new_state = \
-            self.model.serve_step_spec_paged(
+        kw = dict(draft_len=torch.as_tensor(draft_len).to(dev),
+                  max_accept=torch.as_tensor(max_accept).to(dev),
+                  eos_id=self.eos_id if self.eos_id is not None else -1,
+                  min_write_pos=mwp, verify_kernel=self.verify_kernel)
+        if self.seq_shards > 1:
+            out = self.model.serve_step_sp_spec_paged(
                 self.params, self.state, torch.as_tensor(tokens).to(dev),
-                draft_len=torch.as_tensor(draft_len).to(dev),
-                max_accept=torch.as_tensor(max_accept).to(dev),
-                eos_id=self.eos_id if self.eos_id is not None else -1,
-                min_write_pos=mwp, paged_attn=self.paged_attn,
-                verify_kernel=self.verify_kernel,
-                gather_granularity=self.gather_granularity)
+                mesh=self.mesh, **kw)
+        else:
+            out = self.model.serve_step_spec_paged(
+                self.params, self.state, torch.as_tensor(tokens).to(dev),
+                paged_attn=self.paged_attn,
+                gather_granularity=self.gather_granularity, **kw)
+        out_tokens, accept_len, logits_all, sel_pos, new_state = out
         self.state = self._merge_active(new_state, self.state, active)
         # one device-to-host copy per tick: tokens, accept lengths, layer-0
         # GVR path per position

@@ -9,15 +9,18 @@ identical prompt prefixes are stored once and shared by ref-count
 verified against the raw tokens). Writes into a shared page go through
 copy-on-write (`PagedKVManager.ensure_writable`). Everything the GVR
 feedback loop sees stays in logical token space, so page-table remaps never
-disturb the temporal prediction.
+disturb the temporal prediction. `ShardedPagedKVManager` keeps one pool
+per shard of the sequence-sharded layout, behind the same admission core.
 """
 
 from .block_pool import BlockPool, PoolExhausted
 from .block_table import BlockTable
 from .manager import AdmitPlan, PagedAdmissionCore, PagedKVManager
 from .prefix_cache import PrefixCache, chain_hashes
+from .sharded import ShardedPagedKVManager
 
 __all__ = [
     "AdmitPlan", "BlockPool", "BlockTable", "PagedAdmissionCore",
-    "PagedKVManager", "PoolExhausted", "PrefixCache", "chain_hashes",
+    "PagedKVManager", "PoolExhausted", "PrefixCache", "ShardedPagedKVManager",
+    "chain_hashes",
 ]

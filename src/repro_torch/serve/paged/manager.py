@@ -30,9 +30,9 @@ class AdmitPlan:
 
 
 class PagedAdmissionCore:
-    """Owner-routed admission core: the single-pool `PagedKVManager` now,
-    and the sequence-sharded manager once it is ported (ROADMAP Queue A
-    item 4), share this one probe→match→map sequence.
+    """Owner-routed admission core shared by `PagedKVManager` and
+    `ShardedPagedKVManager`: both layouts run this one probe→match→map
+    sequence.
 
     The core is written against per-shard primitives; the single-pool
     manager is the trivial routing (one shard, every logical page owned by
@@ -264,7 +264,8 @@ class PagedKVManager(PagedAdmissionCore):
     def can_ever_hold(self, num_tokens: int) -> bool:
         """Could a request spanning `num_tokens` ever be admitted with the
         pool otherwise empty? (The engine's submit-time sizing check —
-        the sequence-sharded manager's accounting will be per shard.)"""
+        layout-polymorphic with `ShardedPagedKVManager.can_ever_hold`,
+        whose accounting is per shard.)"""
         return -(-int(num_tokens) // self.page_size) <= self.pool.num_pages
 
     def sizing_error(self, num_tokens: int) -> str:

@@ -1,0 +1,168 @@
+"""One rank of the sequence-sharded port tests (see `_sp_common.py`).
+
+    python tests/_sp_rank.py TASK RANK WORLD INIT_METHOD INPUT_DIR OUT_DIR
+
+Joins a gloo group of WORLD ranks on the CPU, runs TASK over
+INPUT_DIR/inputs.npz and saves its results to OUT_DIR/rank{RANK}.pt.
+Imports the port only (no jax)."""
+
+from __future__ import annotations
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from _sp_common import unflatten  # noqa: E402
+
+from repro_torch import bridge  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.launch import init_seq_group, make_seq_mesh  # noqa: E402
+from repro_torch.models.api import build_model  # noqa: E402
+
+GVR_CASES = ("normal", "ties", "lognormal", "k1")
+DSA_CONFIGS = (("llama", "llama3.2-1b"), ("danube", "h2o-danube-3-4b"))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def task_gvr(mesh, inp):
+    """sp_gvr_topk on each case, and the mesh's refusals."""
+    from repro_torch.core import sp_gvr_topk
+    out = {}
+    for name in GVR_CASES:
+        idx, thr, iters = sp_gvr_topk(_t(inp[f"gvr_x_{name}"]),
+                                      _t(inp[f"gvr_prev_{name}"]),
+                                      int(inp[f"gvr_k_{name}"]), mesh)
+        out[name] = (idx, thr, iters)
+    errors = {}
+    for key, kw in (("size", dict(seq_shards=mesh.size + 1)),
+                    ("backend", dict(seq_shards=mesh.size, backend="nccl"))):
+        try:
+            make_seq_mesh(device="cpu", **kw)
+        except ValueError as exc:
+            errors[key] = str(exc)
+    out["errors"] = errors
+    out["bill"] = mesh.bill()
+    return out
+
+
+def task_dsa(mesh, inp):
+    """The paged layer (llama and danube's window) and the contiguous
+    layer, each rank over its own shard."""
+    from repro_torch.sparse.sp_dsa import make_sp_dsa, sp_dsa_decode_paged_local
+    r, s = mesh.rank, mesh.size
+    out = {}
+    for c, arch in DSA_CONFIGS:
+        cfg = get_config(arch, smoke=True)
+        table = _t(inp[f"{c}_sp_table"])
+        span = table.shape[1] // s
+        ps = inp[f"{c}_sp_k_pages"].shape[3]
+        res = sp_dsa_decode_paged_local(
+            _t(inp[f"{c}_q"]), _t(inp[f"{c}_sp_k_pages"][0, r]),
+            _t(inp[f"{c}_sp_v_pages"][0, r]),
+            table[:, r * span:(r + 1) * span].contiguous(),
+            {"wq": _t(inp[f"{c}_wq"]), "w": _t(inp[f"{c}_w"])},
+            _t(inp[f"{c}_h"]), _t(inp[f"{c}_sp_idx_k_pages"][0, r]),
+            _t(inp[f"{c}_prev_topk"][0]), _t(inp[f"{c}_topk_valid"][0]),
+            _t(inp[f"{c}_length"]), k=int(inp[f"{c}_prev_topk"].shape[-1]),
+            scale=cfg.hd ** -0.5, heads=cfg.dsa.indexer_heads,
+            dim=cfg.dsa.indexer_dim, rope_base=cfg.rope_base,
+            shard_offset=r * span * ps, page_size=ps,
+            max_candidates=cfg.dsa.max_candidates,
+            swa_window=cfg.swa_window, mesh=mesh)
+        out[c] = tuple(res)
+    cfg = get_config("llama3.2-1b", smoke=True)
+    nl = inp["c_kc"].shape[1] // s
+    local = {key: _t(inp[key][:, r * nl:(r + 1) * nl])
+             for key in ("c_kc", "c_vc", "c_ikc")}
+    layer = make_sp_dsa(mesh, k=int(inp["c_prev"].shape[-1]),
+                        scale=cfg.hd ** -0.5, heads=cfg.dsa.indexer_heads,
+                        dim=cfg.dsa.indexer_dim, rope_base=cfg.rope_base)
+    res = layer(_t(inp["c_q"]), local["c_kc"], local["c_vc"], local["c_ikc"],
+                _t(inp["c_h"]), {"wq": _t(inp["llama_wq"]),
+                                 "w": _t(inp["llama_w"])},
+                _t(inp["c_prev"]), _t(inp["c_lengths"]), _t(inp["c_knew"]),
+                _t(inp["c_vnew"]), _t(inp["c_iknew"]))
+    out["contig"] = tuple(res)
+    return out
+
+
+def _model(inp):
+    cfg = get_config("llama3.2-1b", smoke=True)
+    model = build_model(cfg, device="cpu")
+    return model, bridge.params_from_numpy(unflatten(inp, "params/"))
+
+
+def _sp_state(inp, mesh):
+    r = mesh.rank
+    state = {key: _t(inp[f"sp_{key}"][:, r:r + 1])
+             for key in ("k_pages", "v_pages", "idx_k_pages")}
+    state.update(page_table=_t(inp["sp_table"]), length=_t(inp["length"]),
+                 prev_topk=_t(inp["prev_topk"]),
+                 topk_valid=_t(inp["topk_valid"]),
+                 sel_gvr=torch.zeros(inp["topk_valid"].shape, dtype=torch.bool))
+    return state
+
+
+def task_step(mesh, inp):
+    """4 non-speculative steps, then one verify tick by each body."""
+    model, params = _model(inp)
+    state = _sp_state(inp, mesh)
+    tok = _t(inp["tokens"])
+    steps = []
+    for _ in range(4):
+        logits, state = model.serve_step_sp_paged(params, state, tok, mesh=mesh)
+        steps.append({"logits": logits, **{k: state[k] for k in (
+            "prev_topk", "topk_valid", "sel_gvr", "length")}})
+        tok = logits.argmax(-1).int()
+    spec = {}
+    for vk in ("scan", "mq"):
+        st = {k: v.clone() for k, v in state.items()}
+        toks = torch.cat([tok[:, None], _t(inp["draft"])], 1)
+        res = model.serve_step_sp_spec_paged(
+            params, st, toks, mesh=mesh, draft_len=_t(inp["draft_len"]),
+            max_accept=_t(inp["max_accept"]), verify_kernel=vk)
+        spec[vk] = res[:4] + ({k: res[4][k] for k in (
+            "prev_topk", "topk_valid", "sel_gvr", "length")},)
+    pools = {k: state[k] for k in ("k_pages", "v_pages", "idx_k_pages")}
+    return {"steps": steps, "spec": spec, "pools": pools,
+            "bill": mesh.bill()}
+
+
+def task_engine(mesh, inp):
+    """The coverage trace through `DecodeEngine(seq_shards=S)`, and with
+    `full` the preemption and speculative traces too."""
+    from _sp_traces import engine_runs
+    model, params = _model(inp)
+    full = bool(inp["full"])
+    return engine_runs(model, params, pre=full, spec=full,
+                       seq_shards=mesh.size, mesh=mesh)
+
+
+TASKS = {"gvr": task_gvr, "dsa": task_dsa, "step": task_step,
+         "engine": task_engine}
+
+
+def main(argv) -> int:
+    task, rank, world, init, inp_dir, out_dir = argv
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(2)
+    init_seq_group(rank, world, init_method=init, backend="gloo",
+                   timeout_s=120)
+    mesh = make_seq_mesh(world, backend="gloo", device="cpu")
+    inp = dict(np.load(Path(inp_dir) / "inputs.npz"))
+    out = TASKS[task](mesh, inp)
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    mesh.barrier()
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

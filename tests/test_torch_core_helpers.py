@@ -32,10 +32,9 @@ from repro_torch.core import temporal as ttemp
 
 
 def test_core_exports_every_name_but_sp_gvr():
-    """`repro_torch.core` exports the reference's names but the
-    sequence-parallel GVR's (ROADMAP Queue A item 4)."""
-    sp = {"SPGVRResult", "sp_gvr_topk", "sp_gvr_topk_local"}
-    assert sorted(tcore.__all__) == sorted(set(jcore.__all__) - sp)
+    """`repro_torch.core` exports every name of the reference's,
+    the sequence-parallel GVR's included."""
+    assert sorted(tcore.__all__) == sorted(jcore.__all__)
     for name in tcore.__all__:
         assert hasattr(tcore, name), name
 

@@ -39,7 +39,9 @@ the card against the CPU. The rest of the dense family's widths (G 48,
 split cases, and h2o-danube's sliding window through the scoring body
 and B1. whisper-medium's width (G = 1, hd 64, KVH 16, bf16) runs through
 B6/B10, and the smoke configs of whisper-medium (DSA: B5, B1, B6) and
-rwkv6-3b (plain PyTorch) step on the card against the CPU.
+rwkv6-3b (plain PyTorch) step on the card against the CPU. The
+sequence-sharded step runs on two gloo ranks sharing the card against the
+fused single-device step, bit for bit.
 """
 
 import pytest
@@ -1098,3 +1100,44 @@ def test_family_serve_step_on_card_matches_cpu(dev, arch):
             ("indexer_scores", "gvr_topk", "sparse_decode_attn"))
     attn_layers = cfg.n_layers // 8 if cfg.family == "hybrid" else cfg.n_layers
     assert all(counts[name] == 6 * attn_layers for name in want), counts
+
+
+@pytest.mark.cuda
+def test_sequence_sharded_step_on_card_bit_identical_to_fused(dev, tmp_path):
+    """Two gloo ranks on the card (`chip_smoke.py --sp-rank`, llama3.2-1b
+    at full width, 2 layers, N = 16384, 3 greedy ticks) against the fused
+    single-device step here over the same seeded logical cache: logits,
+    feedback and telemetry bit for bit on both ranks; B2's scoring half
+    and B6 ran on each rank and agree with their plain versions at those
+    shapes; the step-4 assembly alone (bf16 rows with -0.0 entries, one
+    owner a row, summed as int32 bit patterns) equals the whole buffer
+    bit for bit."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+    n, ticks = 16384, 3
+    procs = cs.start_sp_children(tmp_path, depth=2, n=n, ticks=ticks,
+                                 bill_n=0, engine=0)
+    try:
+        model = build_model(dataclasses.replace(get_config("llama3.2-1b"),
+                                                n_layers=2), device=dev)
+        params = model.init_params(seed=0)
+        st = cs.sp_state(model, n=n, lengths=[n - 9, n // 2 - 6],
+                         seed=cs.SP_SEED)
+        fused, _ = cs._sp_ticks(model, params, st, lambda s, t:
+                                model.serve_step_paged(params, s, t), ticks)
+    finally:
+        ranks = cs.join_sp_children(procs, tmp_path, "[sp] test")
+    for res in ranks:
+        for got, want in zip(res["ticks"], fused):
+            for key in ("logits", "prev_topk", "sel_gvr", "topk_valid", "length"):
+                assert torch.equal(got[key], want[key]), key
+        assert res["counts"]["paged_indexer_scores"] == 2 * ticks
+        assert res["counts"]["sparse_decode_attn"] == 2 * ticks
+        assert res["counts"]["gvr_topk"] == 0
+        assert res["assembly"]["bit_equal"] and res["assembly"]["neg_zeros"] > 0

@@ -118,11 +118,16 @@ def test_engine_matches_raw_serve_step_loop(models):
 
 
 @pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(kv_layout="paged", seq_shards=2), "item 4",
+    pytest.param(dict(kv_layout="paged", seq_shards=2),
+                 "seq_shards=2 needs a process group of 2 ranks and none is "
+                 "initialised: start one process per shard",
                  id="kw1-item 4")])
 def test_unported_engine_options_raise(models, kw, item):
+    """The sharded engine needs a process group of seq_shards ranks: in
+    one process with no group it raises `make_seq_mesh`'s actionable
+    ValueError, never a silent single-rank run."""
     _, _, tm, tparams = models
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         DecodeEngine(tm, tparams, num_slots=1, max_len=64, page_size=8, **kw)
 
 

@@ -310,7 +310,8 @@ def test_engine_and_facade_refuse_the_family_as_jax(kv_layout):
     """Neither package's engine serves the hybrid family (no slot-wise or
     paged state hooks): the same ValueError for each layout; the facade's
     hooks raise the same NotImplementedError or give None, as the
-    reference's; a sequence-sharded step is not ported (item 4)."""
+    reference's; a sequence-sharded step of this family needs the 2-D
+    mesh of ROADMAP item 7."""
     jm = jax_build(jax_config(ARCH, smoke=True))
     tm = build_model(get_config(ARCH, smoke=True), device="cpu")
     tparams = tm.init_params(seed=0)
@@ -334,6 +335,6 @@ def test_engine_and_facade_refuse_the_family_as_jax(kv_layout):
                 call(m)
             texts.append(str(err.value))
         assert texts[0] == texts[1]
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         tm.serve_step(tparams, tm.init_decode_state(2, 32),
                       torch.zeros(2, dtype=torch.int32), seq_sharded=True)
