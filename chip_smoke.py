@@ -74,7 +74,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     cut of the same weights (full width) on the card
                     against the plain path on the CPU;
  13. dense-family — h2o-danube-3-4b (SWA window 4096, hd 120) at full
-                    width and depth: a prompt past the window and three
+                    width and FAMILY_CHILD_DEPTH of its 24 layers (full
+                    depth until the training phases joined the script;
+                    [dense-family-step] keeps all 24): a prompt past the window and three
                     short ones through the paged fused engine (B2/B1/B3)
                     and the dense layout (B5/B1/B6), the same tokens, in
                     two child processes started after phase 2 that run
@@ -113,7 +115,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     processes of a gloo group on the one card (NCCL runs
                     one rank per device), run after phase 9 while this
                     process runs the single-device references:
-                    llama3.2-1b at full width and depth, B = 2, max_len
+                    llama3.2-1b at full width and SP_DEPTH (8) of its 16
+                    layers, B = 2, max_len
                     131072, 8 greedy ticks of `serve_step_sp_paged`
                     (SP-GVR, B2's scoring half per rank, the O(K) row
                     assembly, B6) bit-identical to the fused step in
@@ -127,7 +130,29 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     max_len 8192, equal to the fused engine in tokens,
                     method log, hit rate and prefix hits, and at
                     spec_depth 3 (mq verify) giving the same tokens;
- 19. summary      — each kernel's device time lost against its bound
+ 19. train        — llama3.2-1b trained at full width and depth (16
+                    layers, bf16 parameters, f32 moments), B = 4, S = 2048,
+                    10 steps of `launch.train.make_train_step` over
+                    `data.pipeline.synthetic_stream` (no kernel of the
+                    port: autograd, cuBLAS and the plain f32 blockwise
+                    attention, as the reference trains outside any Pallas
+                    kernel): losses finite, the indexer's gradients exactly
+                    zero and its update decay-only bit for bit; host wall a
+                    step, tokens/s, peak memory, one profiled step's device
+                    time and busy share, model FLOPs against the bf16 peak;
+ 20. train-cut    — one train step at full width and 2 layers (whisper
+                    2 + 2), float32, B = 1, S = 128, on the card and on the
+                    CPU for llama3.2-1b, moonshot-v1-16b-a3b, whisper-medium
+                    and rwkv6-3b: loss and every gradient leaf within
+                    the stated tolerances, AdamW from equal gradients
+                    on both, and each leaf's step from each side's own;
+ 21. train-resume — in a child process under deterministic algorithms
+                    (started after phase 19, beside phase 20): llama3.2-1b
+                    at full width, 2 layers, B = 2, S = 512, 6 steps
+                    straight against 3 + save + restore_latest + 3,
+                    parameters and moments bit for bit; the train CLI on
+                    the card resuming from its checkpoint at step 4;
+ 22. summary      — each kernel's device time lost against its bound
                     over its path at llama's 16 layers (launches x (ms -
                     bound_ms), the launches of phases 3 and 4 scaled from
                     MAIN_DEPTH layers; B2, B5 and B9 by their scoring
@@ -2094,18 +2119,24 @@ def short_family_specs(rng, vocab):
 # the script, the build included, takes ~730 s on the H100. Side by side
 # the two layouts and the llama engine phases end together (~430 s); the
 # llama engines' host walls read higher while they run (PERF.md), and
-# the profiled llama steps wait for the children.
+# the profiled llama steps wait for the children. Since the training
+# phases joined the script the children run FAMILY_CHILD_DEPTH of its 24
+# layers (full width; the trace still crosses the window), so that they
+# end halfway through the llama phases, which then run alone and faster.
 FAMILY_ARCH = "h2o-danube-3-4b"
+FAMILY_CHILD_DEPTH = 8
 FAMILY_CHILD_TIMEOUT_S = 900
 
 
 def family_engine_child(layout: str) -> int:
-    """A child's work: h2o-danube-3-4b at full width and depth, seed 0,
-    the [dense-family] trace in one layout; prints the run as JSON last."""
+    """A child's work: h2o-danube-3-4b at full width and FAMILY_CHILD_DEPTH
+    layers, seed 0, the [dense-family] trace in one layout; prints the
+    run as JSON last."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.models.api import build_model
-    cfg = get_config(FAMILY_ARCH)
+    cfg = dataclasses.replace(get_config(FAMILY_ARCH),
+                              n_layers=FAMILY_CHILD_DEPTH)
     model = build_model(cfg)
     params = model.init_params(seed=0)
     res = _layout_run(model, params, family_specs(np.random.default_rng(20),
@@ -2161,7 +2192,7 @@ def join_family_children(procs, log_dir: Path, specs, cfg):
 FAMILY_STEP_LENGTHS = [8000, 5000, 1000, 3001]   # [dense-family-step]
 FAMILY_CUT_DEPTH = 4     # layers of chatglm3-6b, qwen2-vl-7b and granite-34b
 # moonshot-v1-16b-a3b's layers in [moe] and [moe-step] (of 48): cut so
-# that h2o-danube-3-4b's full-depth engines fit the time limit
+# that h2o-danube-3-4b's engines fit the time limit
 MOE_DEPTH = 12
 # llama3.2-1b's layers in [main] and [dense-layout] (of 16): the two
 # longest llama phases, they run beside h2o-danube's child processes
@@ -2629,6 +2660,9 @@ SP_SEED = 23
 # number of times per layer
 SP_LOOP_TAGS = ("secant", "hist", "snap", "fallback")
 SP_ENGINE_DEPTH = 2                 # [sp-engine]'s layers (full width)
+# [sp]'s layers (full width): 16 until the training phases joined the
+# script; the ranks and the fused reference init this depth from seed 0
+SP_DEPTH = 8
 SP_BILL_TICKS = 3
 
 
@@ -3085,6 +3119,392 @@ def phase_sp(model, params):
     return total, r0["kernels"]
 
 
+# ------------------------------------------------------------- training ----
+
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 10     # [train]: full width and depth
+TRAIN_CUT_ARCHS = ("llama3.2-1b", "moonshot-v1-16b-a3b", "whisper-medium",
+                   "rwkv6-3b")
+TRAIN_CUT_B, TRAIN_CUT_S = 1, 128               # [train-cut]: 2 layers, f32
+TRAIN_CUT_LOSS_RTOL = 1e-5
+TRAIN_CUT_GRAD_RTOL = 1e-4
+TRAIN_CUT_UPDATE_RTOL = 1e-6                    # AdamW from equal gradients
+TRAIN_CUT_OWN_RTOL = 1e-2                       # ... from each side's own
+RESUME_DEPTH, RESUME_B, RESUME_S = 2, 2, 512    # [train-resume], full width
+RESUME_STEPS = 6                                # 6 straight vs 3 + resume + 3
+RESUME_CHILD_TIMEOUT_S = 600
+F32_FLOPS = 67e12                  # H100 SXM f32 CUDA-core peak (no TF32)
+
+
+def _train_flops(cfg, b, s) -> tuple:
+    """(total, attention) model FLOPs of one train step: 6 x the weights a
+    token uses x tokens (the tied head counted, the indexer and the
+    embedding gather not), the remat forward of the layers (2 x layer
+    weights x tokens), and the blockwise attention's two einsums over
+    every block pair (the reference skips none): 4 B S^2 H hd a layer
+    for each of the forward, the remat forward and the backward's two."""
+    d, hd, l = cfg.d_model, cfg.hd, cfg.n_layers
+    layer = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+             + 3 * d * cfg.d_ff)
+    tokens = b * s
+    attn = 4 * 4 * b * s * s * cfg.n_heads * hd * l
+    return (6 * (l * layer + d * cfg.vocab) * tokens
+            + 2 * l * layer * tokens + attn), attn
+
+
+def _indexer_leaves(tree):
+    from repro_torch.tree import flatten_with_paths
+    return [(p, t) for p, t in flatten_with_paths(tree) if "['indexer']" in p]
+
+
+def phase_train():
+    """llama3.2-1b at full width and depth (bf16 parameters, f32 moments)
+    through TRAIN_STEPS steps of `make_train_step` over `synthetic_stream`
+    with the CLI's AdamWConfig: losses and grad norms finite; the indexer
+    leaves (no part in the loss) keep zero moments, which holds only if
+    every gradient they got was exactly zero, and take the decay-only
+    update (p - lr (wd p)).to(bf16) bit for bit each step. Host wall a
+    step (CUDA-synchronised, the median of steps 3-10), tokens/s, peak
+    memory, one profiled step's device time, busy share and top kernels,
+    and the model FLOPs as a share of the bf16 peak."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import synthetic_stream
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(seed=0)
+    opt = adamw.init(params)
+    n_all = sum(t.numel() for t in leaves(params))
+    n_idx = sum(t.numel() for _, t in _indexer_leaves(params))
+    ocfg = adamw.AdamWConfig(total_steps=max(TRAIN_STEPS, 10))
+    step = make_train_step(model, ocfg)
+    stream = synthetic_stream(vocab=cfg.vocab, batch=TRAIN_B, seq=TRAIN_S,
+                              seed=0, family=cfg.family, cfg=cfg)
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, full width, "
+        f"{n_all / 1e9:.4f} B parameters ({n_idx / 1e6:.1f} M indexer) in "
+        f"bf16, f32 moments; B={TRAIN_B}, S={TRAIN_S}, {TRAIN_STEPS} steps "
+        f"of make_train_step (remat on, AdamWConfig(total_steps="
+        f"{ocfg.total_steps}))")
+    walls, moved = [], 0
+    for i in range(TRAIN_STEPS):
+        batch = next(stream)
+        before = [t.clone() for _, t in _indexer_leaves(params)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        loss, gn, lr = (float(met[k]) for k in ("loss", "grad_norm", "lr"))
+        if not (np.isfinite(loss) and np.isfinite(gn)):
+            fail(f"[train] step {i}: loss {loss}, grad norm {gn}")
+        for (path, p), p0 in zip(_indexer_leaves(params), before):
+            want = (p0.float() - met["lr"] * (ocfg.weight_decay * p0.float())
+                    ).to(p0.dtype)
+            if not torch.equal(p, want):
+                fail(f"[train] step {i}: indexer {path} is not the "
+                     f"decay-only update")
+            moved += int((p != p0).sum())
+        del before
+        log(f"[train] step {i}: loss {loss:.6f} grad norm {gn:.6f} lr "
+            f"{lr:.6e} host wall {walls[-1] * 1e3:.3f} ms")
+    for tree, name in ((opt.m, "m"), (opt.v, "v")):
+        for path, t in _indexer_leaves(tree):
+            if t.any():
+                fail(f"[train] indexer moment {name}{path} is not zero: its "
+                     f"gradient was not")
+    wall = statistics.median(walls[2:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops, attn = _train_flops(cfg, TRAIN_B, TRAIN_S)
+    log(f"[train] indexer gradients exactly zero (moments 0 after "
+        f"{TRAIN_STEPS} steps), every update decay-only bit for bit "
+        f"({moved} of {n_idx} indexer elements x {TRAIN_STEPS} steps moved "
+        f"in bf16); host wall a step {wall * 1e3:.3f} ms (median of steps "
+        f"3-{TRAIN_STEPS}), {TRAIN_B * TRAIN_S / wall:.1f} tokens/s, peak "
+        f"{peak:.3f} GiB allocated")
+    batch = next(stream)
+    t0 = time.perf_counter()
+    events = _profiled(lambda: step(params, opt, batch))
+    prof_wall = (time.perf_counter() - t0) * 1e3
+    dev = {}
+    for name, _, us in events:
+        dev[name] = dev.get(name, 0.0) + us / 1e3
+    busy = sum(dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[train] profiled step: {busy:.3f} ms device busy, "
+        f"{busy / (wall * 1e3):.3f} busy share of the {wall * 1e3:.3f} ms "
+        f"step ({prof_wall:.3f} ms host wall under the profiler, "
+        f"{len(events)} device events); top device time (ms): "
+        + ", ".join(f"{k[:48]}={v:.3f}" for k, v in top))
+    log(f"[train] model FLOPs a step {flops / 1e12:.3f} T (attention "
+        f"{attn / 1e12:.3f} T, in f32 einsums as the reference computes "
+        f"them): {flops / wall / 1e12:.1f} TFLOP/s, "
+        f"{flops / wall / BF16_FLOPS:.3f} of the bf16 peak (a printed "
+        f"figure, not a claim); the f32 attention alone needs "
+        f"{attn / F32_FLOPS * 1e3:.1f} ms at the f32 peak")
+    return dict(wall_ms=wall * 1e3, tokens_s=TRAIN_B * TRAIN_S / wall,
+                peak_gib=peak, device_ms=busy)
+
+
+def _worst(got, want, skip=(), equal=False):
+    """(rel L2, path) of the worst leaf of `got` (on the card) against
+    `want` (moved to the card for the comparison), leaves whose path
+    holds a `skip` word left out; with `equal`, also whether every leaf
+    is bit-equal."""
+    import torch
+    from repro_torch.tree import flatten_with_paths
+    worst, same = (0.0, ""), True
+    for (path, a), (_, c) in zip(flatten_with_paths(got),
+                                 flatten_with_paths(want)):
+        if not any(w in path for w in skip):
+            c = c.to(a.device)
+            rel = float((a - c).norm() / c.norm().clamp_min(1e-30))
+            worst = max(worst, (rel, path))
+            same = same and (not equal or torch.equal(a, c))
+    return (worst, same) if equal else worst
+
+
+def phase_train_cut():
+    """Training's counterpart of the 2-layer serving cuts, and the only
+    value check of the card's training at full width: one train step at
+    full width and 2 layers (whisper 2 + 2), float32 with TF32 off,
+    B = 1, S = 128, on the card and through the plain path on the CPU
+    from the same parameters and batch, in `make_train_step`'s two
+    halves: `loss_and_grads` (loss within TRAIN_CUT_LOSS_RTOL, every
+    gradient leaf within TRAIN_CUT_GRAD_RTOL relative L2, the indexer's
+    exactly zero on both), then `adamw.update` on each side from the
+    same (the CPU's) gradients (every updated parameter within
+    TRAIN_CUT_UPDATE_RTOL), and from each side's own gradients: there
+    the step each leaf takes (new - old) within TRAIN_CUT_OWN_RTOL
+    relative L2 of the CPU's. Adam's first step is lr g / (|g| + eps),
+    near +-lr for every element whatever its size, so the two differ by
+    up to 2 lr only where an element's gradient is ~eps, while a fault in
+    the gradients or the update moves a whole leaf's step (relative L2
+    ~1). The step, not the parameter: at the first step's lr (3e-6) a
+    whole step is ~1.5e-4 of a parameter of scale 0.02. The worst leaf
+    of each."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.launch.train import batch_to, loss_and_grads
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_map
+    ocfg = adamw.AdamWConfig()
+    for arch in TRAIN_CUT_ARCHS:
+        t0 = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=2, dtype="float32",
+                                  encoder_layers=2 if full.encoder_layers else 0)
+        gm, cm = build_model(cfg), build_model(cfg, device="cpu")
+        params = gm.init_params(seed=0)
+        cparams = _to_cpu(params)
+        batch = batch_for_step(0, vocab=cfg.vocab, batch=TRAIN_CUT_B,
+                               seq=TRAIN_CUT_S, family=cfg.family, cfg=cfg)
+        t1 = time.perf_counter()
+        lg, g_card = loss_and_grads(gm, params, batch_to(batch, gm.device))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        lc, g_cpu = loss_and_grads(cm, cparams, batch_to(batch, "cpu"))
+        t3 = time.perf_counter()
+        pc, _, mc = adamw.update(g_cpu, adamw.init(cparams), cparams, ocfg)
+        t4 = time.perf_counter()
+        lg, lc = float(lg), float(lc)
+        g_cpu = tree_map(lambda t: t.to(gm.device), g_cpu)
+        for path, t in _indexer_leaves(g_card) + _indexer_leaves(g_cpu):
+            if t.any():
+                fail(f"[train-cut] {arch}: indexer gradient {path} not zero")
+        worst_g = _worst(g_card, g_cpu, skip=("['indexer']",))
+        p0 = tree_map(torch.clone, params)
+        own = tree_map(torch.clone, params)      # the card's own step
+        adamw.update(g_card, adamw.init(own), own, ocfg)
+        del g_card
+        pg, _, mg = adamw.update(g_cpu, adamw.init(params), params, ocfg)
+        worst_u, same = _worst(pg, pc, equal=True)
+        worst_own = _worst(tree_map(torch.sub, own, p0),
+                           tree_map(torch.sub, pg, p0))
+        worst_own_p = _worst(own, pg)
+        log(f"[train-cut] {arch}: full width, 2 layers"
+            f"{' (+ 2 encoder layers)' if full.encoder_layers else ''}, f32, "
+            f"B={TRAIN_CUT_B}, S={TRAIN_CUT_S}: loss {lg:.7f} card / {lc:.7f} "
+            f"CPU (rel {abs(lg - lc) / abs(lc):.3e}, tol {TRAIN_CUT_LOSS_RTOL}); "
+            f"worst gradient leaf {worst_g[1]} rel L2 {worst_g[0]:.3e} (tol "
+            f"{TRAIN_CUT_GRAD_RTOL}); grad norm {float(mg['grad_norm']):.6f} / "
+            f"{float(mc['grad_norm']):.6f}; AdamW from the same gradients: "
+            f"worst parameter {worst_u[1]} rel L2 {worst_u[0]:.3e} (tol "
+            f"{TRAIN_CUT_UPDATE_RTOL}; bit-equal: {same}); from each side's "
+            f"own gradients: worst step {worst_own[1]} rel L2 "
+            f"{worst_own[0]:.3e} (tol {TRAIN_CUT_OWN_RTOL}), worst parameter "
+            f"{worst_own_p[1]} rel L2 {worst_own_p[0]:.3e}; card gradients "
+            f"{t2 - t1:.3f} s, CPU gradients {t3 - t2:.3f} s, CPU update "
+            f"{t4 - t3:.3f} s, in all "
+            f"{time.perf_counter() - t0:.3f} s")
+        if not (abs(lg - lc) <= TRAIN_CUT_LOSS_RTOL * abs(lc)
+                and worst_g[0] <= TRAIN_CUT_GRAD_RTOL
+                and worst_u[0] <= TRAIN_CUT_UPDATE_RTOL
+                and worst_own[0] <= TRAIN_CUT_OWN_RTOL):
+            fail(f"[train-cut] {arch}: the card's train step is not the CPU's "
+                 f"within the stated tolerances")
+        del gm, cm, params, cparams, g_cpu, own, pg, pc, p0
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_resume_child(argv) -> int:
+    """[train-resume]'s child, under torch.use_deterministic_algorithms
+    (the embedding gather's backward accumulates with atomics otherwise)
+    with CUBLAS_WORKSPACE_CONFIG set by the parent before CUDA starts:
+    ARCH at DEPTH layers (SMOKE 1: its smoke config), B x S, bf16; 6
+    steps of make_train_step straight against 3 + `save` +
+    `restore_latest` + 3, parameters and moments bit for bit; beside
+    them, the train CLI on the card, 4 steps with a checkpoint every 2,
+    then `--steps 6 --resume`. Writes OUT/train_resume.json."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    out_dir, arch, smoke, depth, b, s = argv
+    out_dir, depth, b, s = Path(out_dir), int(depth), int(b), int(s)
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != ":4096:8":
+        fail("[train-resume] CUBLAS_WORKSPACE_CONFIG is not :4096:8")
+    import torch
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten_with_paths
+    cfg = dataclasses.replace(get_config(arch, smoke=smoke == "1"),
+                              n_layers=depth)
+    model = build_model(cfg)
+    step = make_train_step(model, adamw.AdamWConfig(total_steps=10))
+
+    def fresh():
+        params = model.init_params(seed=0)
+        return params, adamw.init(params)
+
+    def run(params, opt, start, n):
+        for i in range(start, start + n):
+            params, opt, _ = step(params, opt, batch_for_step(
+                i, vocab=cfg.vocab, batch=b, seq=s, family=cfg.family, cfg=cfg))
+        return params, opt
+
+    # the train CLI on the card, 4 steps then a resume to 6, in a thread
+    # beside the deterministic runs (each CLI process pays its start-up)
+    cli_dir = tempfile.mkdtemp(prefix="train_cli_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "llama3.2-1b", "--smoke", "--batch", "2", "--seq", "16",
+            "--checkpoint-dir", cli_dir, "--checkpoint-every", "2"]
+    cli = []
+
+    def run_cli():
+        for extra in (["--steps", "4"], ["--steps", "6", "--resume"]):
+            p = subprocess.run(base + extra, capture_output=True, text=True,
+                               timeout=300, env=env, cwd=str(ROOT))
+            cli.append(dict(rc=p.returncode, stdout=p.stdout,
+                            stderr=p.stderr[-3000:]))
+
+    cli_thread = threading.Thread(target=run_cli)
+    cli_thread.start()
+    half = RESUME_STEPS // 2
+    t0 = time.perf_counter()
+    pa, oa = run(*fresh(), 0, RESUME_STEPS)
+    pb, ob = run(*fresh(), 0, half)
+    ck = tempfile.mkdtemp(prefix="train_resume_")
+    try:
+        t1 = time.perf_counter()
+        ckpt.save(ck, (pb, ob), half)
+        save_s = time.perf_counter() - t1
+        nbytes = sum(f.stat().st_size for f in Path(ck).rglob("*") if f.is_file())
+        del pb, ob
+        t1 = time.perf_counter()
+        (pb, ob), at = ckpt.restore_latest(ck, fresh())
+        restore_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    pb, ob = run(pb, ob, half, RESUME_STEPS - half)
+    leaves_a = flatten_with_paths((pa, oa))
+    differ = [p for (p, x), (_, y) in zip(leaves_a, flatten_with_paths((pb, ob)))
+              if not torch.equal(x, y)]
+    train_s = time.perf_counter() - t0
+    cli_thread.join()
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    res = dict(restored_step=at, leaves=len(leaves_a), differ=differ,
+               checkpoint_bytes=nbytes, save_s=save_s, restore_s=restore_s,
+               train_s=train_s, cli=cli, name=cfg.name, depth=depth, b=b, s=s)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "train_resume.json").write_text(json.dumps(res))
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def start_train_resume_child(out_dir: Path, arch=TRAIN_ARCH, smoke=False,
+                             depth=RESUME_DEPTH, b=RESUME_B, s=RESUME_S):
+    """[train-resume]'s child process (its log in out_dir), with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 in its environment from the start."""
+    import os
+    out_dir.mkdir(parents=True, exist_ok=True)
+    f = open(out_dir / "train_resume.log", "w")
+    # one CPU thread for it and the CLI processes it starts: its work is
+    # on the card, and [train-cut]'s CPU half runs beside it
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--train-resume",
+         str(out_dir), arch, "1" if smoke else "0", str(depth), str(b), str(s)],
+        stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT), env=env)
+    return proc, f
+
+
+def join_train_resume_child(child, out_dir: Path) -> dict:
+    """Wait for the child, check its run and log it: the resumed
+    parameters and moments equal the straight run's bit for bit, and the
+    CLI resumed from step 4 and printed `done` on the card. Returns the
+    child's result."""
+    proc, f = child
+    try:
+        rc = proc.wait(timeout=RESUME_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"[train-resume] the child ran past {RESUME_CHILD_TIMEOUT_S} s")
+    finally:
+        f.close()
+    text = (out_dir / "train_resume.log").read_text()
+    if rc != 0:
+        fail(f"[train-resume] the child exited {rc} (an op without a "
+             f"deterministic form names itself here): {text[-3000:]}")
+    res = json.loads((out_dir / "train_resume.json").read_text())
+    if res["differ"] or res["restored_step"] != RESUME_STEPS // 2:
+        fail(f"[train-resume] resumed run differs from the straight run in "
+             f"{res['differ'][:8]} (restored step {res['restored_step']})")
+    if len(res["cli"]) != 2:
+        fail(f"[train-resume] the train CLI did not run twice: {res['cli']}")
+    first, second = res["cli"]
+    lines = second["stdout"].splitlines()
+    if (first["rc"] or second["rc"] or not lines or lines[0] != "resumed from step 4"
+            or lines[-1] != "done" or first["stdout"].splitlines()[-1:] != ["done"]):
+        fail(f"[train-resume] the train CLI on the card: {res['cli']}")
+    log(f"[train-resume] {res['name']} at full width, {res['depth']} layers, "
+        f"B={res['b']}, S={res['s']}, deterministic algorithms: "
+        f"{RESUME_STEPS} steps straight == {RESUME_STEPS // 2} + save + "
+        f"restore_latest (step {res['restored_step']}) + "
+        f"{RESUME_STEPS - RESUME_STEPS // 2}, all {res['leaves']} leaves "
+        f"(parameters and moments) bit for bit; checkpoint "
+        f"{res['checkpoint_bytes'] / 1e9:.3f} GB, save {res['save_s']:.3f} s, "
+        f"restore {res['restore_s']:.3f} s, the two runs {res['train_s']:.3f} s")
+    log(f"[train-resume] train CLI on the card: --steps 4 --checkpoint-every "
+        f"2, then --steps 6 --resume: " + " | ".join(lines))
+    return res
+
+
 def run_llama_phases(model, params, cpu_params, rng, specs, timed):
     """The llama3.2-1b engine phases, [main] through [dense], which run
     beside h2o-danube's child processes (their host walls with them);
@@ -3111,6 +3531,7 @@ def run_llama_phases(model, params, cpu_params, rng, specs, timed):
 def main() -> int:
     child = sys.argv[1:3] if sys.argv[1:2] == ["--family-engine"] else None
     sp_rank = sys.argv[2:] if sys.argv[1:2] == ["--sp-rank"] else None
+    resume = sys.argv[2:] if sys.argv[1:2] == ["--train-resume"] else None
     try:
         import torch
     except ImportError:
@@ -3134,6 +3555,8 @@ def main() -> int:
         return family_engine_child(child[1])
     if sp_rank is not None:
         return sp_child(sp_rank)
+    if resume is not None:
+        return train_resume_child(resume)
     t_start = time.perf_counter()
     log(f"[env] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -3175,8 +3598,10 @@ def main() -> int:
     children = start_family_children(family_dir)
     try:
         llama = run_llama_phases(model, params, cpu_params, rng, specs, timed)
-        fam_paged, fam_dense = timed("dense-family (join)", join_family_children,
-                                     children, family_dir, fspecs, dcfg)
+        fam_paged, fam_dense = timed(
+            "dense-family (join)", join_family_children, children,
+            family_dir, fspecs,
+            dataclasses.replace(dcfg, n_layers=FAMILY_CHILD_DEPTH))
     finally:
         stop_family_children(children)
     # llama's profiled steps, with the card to this process alone
@@ -3184,7 +3609,10 @@ def main() -> int:
     timed("verify-step", phase_verify_step, model, params, rng)
     # the sequence-sharded path: two gloo ranks on the card beside the
     # single-device references in this process
-    sp_counts, sp_kernels = timed("sp", phase_sp, model, params)
+    sp_model = build_model(dataclasses.replace(cfg, n_layers=SP_DEPTH))
+    sp_counts, sp_kernels = timed("sp", phase_sp, sp_model,
+                                  sp_model.init_params(seed=0))
+    del sp_model
     (main_counts, dl_counts, gather_counts, page_counts, spec_counts,
      dense_counts) = llama
 
@@ -3238,6 +3666,22 @@ def main() -> int:
     # B1 on the paper's RoPE rows
     hybrid_counts = timed("hybrid", phase_hybrid, flush)
     timed("temporal", phase_temporal, flush)
+    # training: llama3.2-1b at full width and depth with the card to this
+    # process alone, then the 2-layer cuts against the CPU while the
+    # deterministic resume check runs in a child process
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("train", phase_train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resume_dir = ROOT / "build" / "chip_smoke" / "train"
+    resume_child = start_train_resume_child(resume_dir)
+    try:
+        timed("train-cut", phase_train_cut)
+        timed("train-resume (join)", join_train_resume_child, resume_child,
+              resume_dir)
+    finally:
+        stop_family_children({"train-resume": resume_child})
 
     rows = [("B1 gvr_topk", "gvr_topk.cu", "src/repro/kernels/gvr_topk.py:334",
              main_counts["gvr_topk"]),

@@ -49,6 +49,17 @@ class Model:
         generator = torch.Generator(device=self.device).manual_seed(seed)
         return self.mod.init_params(self.cfg, generator, self.device)
 
+    def loss_fn(self, params, batch):
+        """Mean next-token cross-entropy of `batch`, a dict of tensors on
+        the model's device (tokens, targets, optional mask; frames for
+        the audio family, patch_embeds for the vlm)."""
+        return self.mod.loss_fn(params, batch, self.cfg)
+
+    def forward_train(self, params, tokens, **kw):
+        """Training-path logits (B, S, V) under autograd; `kw` is the
+        family's (`remat`, `frames`, `patch_embeds`)."""
+        return self.mod.forward_train(params, tokens, self.cfg, **kw)
+
     def init_decode_state(self, batch, max_len, *, dtype=None):
         return self.mod.init_decode_state(self.cfg, batch, max_len,
                                           device=self.device, dtype=dtype)

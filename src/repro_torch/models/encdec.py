@@ -1,6 +1,6 @@
 """Whisper-style encoder-decoder backbone (audio family), PyTorch port of
-the JAX package's `models/encdec.py`: parameters, the encoder, the decode
-state and the one-token decode step.
+the JAX package's `models/encdec.py`: parameters, the encoder, the
+training forward, the decode state and the one-token decode step.
 
 The conv/mel frontend is a stub, as in the reference: the encoder takes
 precomputed frame embeddings (B, encoder_frames, d_model), adds the
@@ -13,6 +13,12 @@ window, as the reference passes neither. Cross-attention over the
 `encoder_frames` precomputed rows stays exact (`layers.decode_attention`,
 plain PyTorch, as the reference leaves it to XLA).
 
+`forward_train` / `loss_fn` follow the reference's training path under
+autograd: the encoder over the frames (gradients flow through it), then
+per decoder layer RoPE and `layers.blockwise_causal_attention`, exact
+cross-attention over the encoder output and the GELU MLP; no DSA, so the
+indexer weights get a zero gradient.
+
 The reference serves this family step by step only: it defines no
 slot-wise or paged hooks, so `DecodeEngine` refuses it. Its
 `init_decode_state` makes the cross K/V (`ck`, `cv`) zeros and no serve
@@ -24,15 +30,16 @@ step returns `length` and, under DSA, `prev_topk` anew.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.core.temporal import seed_slot_idx
 from repro_torch.sparse import dsa as dsa_mod
 from .config import ModelConfig
-from .layers import apply_rotary, decode_attention, gelu_mlp, rms_norm
-from .transformer import layer_params, torch_dtype
+from .layers import (apply_rotary, blockwise_causal_attention, cross_entropy,
+                     decode_attention, gelu_mlp, remat_call, rms_norm)
+from .transformer import layer_params, torch_dtype, unstack_layers
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -80,29 +87,92 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
 
 
-def _self_attn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Bidirectional self-attention of the encoder, f32 softmax. x:
-    (B, S, D) normed input; returns (B, S, D) in x's dtype."""
+def _full_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               hd: int) -> torch.Tensor:
+    """Unmasked attention, f32 softmax: q (B, S, H, hd), k/v (B, Se, H,
+    hd) → (B, S, H, hd) f32."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1),
+                        v.float())
+
+
+def _self_attn(p, x: torch.Tensor, cfg: ModelConfig,
+               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention over x (B, S, D) normed: bidirectional (the
+    encoder) without `positions`, else the decoder's training form, RoPE
+    at `positions` and the blockwise causal attention. Returns (B, S, D)
+    in x's dtype."""
     b, s, _ = x.shape
     hd = cfg.hd
     q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
     k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
     v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
-    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1),
-                       v.float())
+    if positions is None:
+        out = _full_attn(q, k, v, hd)
+    else:
+        q = apply_rotary(q, positions, base=cfg.rope_base)
+        k = apply_rotary(k, positions, base=cfg.rope_base)
+        out = blockwise_causal_attention(q, k, v, scale=hd ** -0.5)
     return out.reshape(b, s, -1).to(x.dtype) @ p["wo"]
+
+
+def _cross_attn(p, x: torch.Tensor, enc_out: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """The decoder's training-form cross-attention: queries from x (B, S,
+    D) normed, keys and values from the encoder output (B, F, D)."""
+    b, s, _ = x.shape
+    hd, se = cfg.hd, enc_out.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = (enc_out @ p["wk"]).reshape(b, se, cfg.n_kv_heads, hd)
+    v = (enc_out @ p["wv"]).reshape(b, se, cfg.n_kv_heads, hd)
+    return _full_attn(q, k, v, hd).reshape(b, s, -1).to(x.dtype) @ p["wo"]
 
 
 def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """frames: (B, encoder_frames, D) precomputed frame embeddings (the
     stubbed frontend). Returns the normed encoder output (B, F, D)."""
     x = frames.to(torch_dtype(cfg.dtype)) + params["enc_pos"][None]
-    for i in range(cfg.encoder_layers or cfg.n_layers):
-        p = layer_params(params["encoder"], i)
+    for p in unstack_layers(params["encoder"], cfg.encoder_layers or cfg.n_layers):
         x = x + _self_attn(p["attn"], rms_norm(x, p["ln1"]), cfg)
         x = x + gelu_mlp(rms_norm(x, p["ln2"]), **p["mlp"])
     return rms_norm(x, params["enc_norm"])
+
+
+def _decoder_layer(p, x: torch.Tensor, enc_out: torch.Tensor,
+                   positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = x + _self_attn(p["self_attn"], rms_norm(x, p["ln1"]), cfg, positions)
+    x = x + _cross_attn(p["cross_attn"], rms_norm(x, p["ln2"]), enc_out, cfg)
+    return x + gelu_mlp(rms_norm(x, p["ln3"]), **p["mlp"])
+
+
+def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  frames: Optional[torch.Tensor] = None,
+                  patch_embeds=None, remat: bool = True) -> torch.Tensor:
+    """tokens (B, S) → logits (B, S, V), under autograd: the encoder over
+    `frames` (zeros in the config dtype when None, as in the reference),
+    then the decoder layers, each recomputed in the backward pass under
+    `remat` (the encoder is not, as in the reference). `patch_embeds` is
+    taken and ignored, as the reference's is."""
+    b, s = tokens.shape
+    if frames is None:
+        frames = torch.zeros((b, cfg.encoder_frames, cfg.d_model),
+                             dtype=torch_dtype(cfg.dtype),
+                             device=params["embed"].device)
+    enc_out = encode(params, frames, cfg)
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    for p in unstack_layers(params["decoder"], cfg.n_layers):
+        x = remat_call(_decoder_layer, remat, p, x, enc_out, positions, cfg)
+    return rms_norm(x, params["final_norm"]) @ params["lm_head"]
+
+
+def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of `batch` (tokens, targets, optional
+    mask and frames)."""
+    logits = forward_train(params, batch["tokens"], cfg,
+                           frames=batch.get("frames"))
+    return cross_entropy(logits, batch)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *, device,

@@ -1,6 +1,6 @@
 """Jamba-style hybrid (hybrid family), PyTorch port of the JAX package's
-`models/hybrid.py`: parameters, the decode state and the one-token decode
-step.
+`models/hybrid.py`: parameters, the training forward, the decode state
+and the one-token decode step.
 
 Superblocks of SB = 8 layers: layer 0 is attention, layers 1-7 Mamba
 (selective SSM); the feed-forward after each layer is a MoE on odd layers
@@ -23,6 +23,10 @@ The Mamba step keeps the reference's dtype chain: the causal conv in f32
 over the `conv` cache and cast back to the activation dtype, dt from a
 softplus promoted to f32 by the f32 `dt_bias`, the state `h` updated in
 f32, the `d_skip` term in f32, the output cast back before the SiLU gate.
+The training form (`forward_train`, over superblocks, each recomputed in
+the backward pass under `remat`) keeps the reference's own chain, which
+differs: its conv sums in the activation dtype and its SiLU output stays
+in f32 through `x_proj` (`_mamba_train`).
 
 The reference serves this family step by step only: it defines no
 slot-wise, paged or speculative hooks, so `DecodeEngine` refuses it. The
@@ -42,9 +46,10 @@ import torch.nn.functional as F
 from repro_torch.core.temporal import linspace_i32
 from repro_torch.sparse import dsa as dsa_mod
 from .config import ModelConfig
-from .layers import (apply_rotary, decode_attention, moe_mlp_dense_fallback,
+from .layers import (apply_rotary, blockwise_causal_attention, cross_entropy,
+                     decode_attention, moe_mlp_dense_fallback, remat_call,
                      rms_norm, swiglu_mlp)
-from .transformer import layer_params, torch_dtype
+from .transformer import layer_params, torch_dtype, unstack_layers
 
 SB = 8  # superblock size: 1 attention layer + 7 Mamba layers
 
@@ -189,13 +194,98 @@ def _mamba_step(p, x: torch.Tensor, h: torch.Tensor, conv: torch.Tensor,
 
 
 def _ffn(p, x: torch.Tensor, cfg: ModelConfig, is_moe: bool) -> torch.Tensor:
-    """The feed-forward of one token per row, x (B, D) normed: the MoE
-    with the reference's (B, 1, D) call shape, or SwiGLU."""
+    """The feed-forward over x normed: the MoE or SwiGLU. x is (B, D), one
+    token per row, which the MoE takes in the reference's (B, 1, D) call
+    shape, or the training path's (B, S, D)."""
     if is_moe:
-        return moe_mlp_dense_fallback(x[:, None], p["router"], p["w_gate"],
-                                      p["w_up"], p["w_down"],
-                                      top_k=cfg.moe.top_k)[:, 0]
+        return moe_mlp_dense_fallback(
+            x.reshape(x.shape[0], -1, x.shape[-1]), p["router"], p["w_gate"],
+            p["w_up"], p["w_down"], top_k=cfg.moe.top_k).reshape(x.shape)
     return swiglu_mlp(x, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w in the promoted dtype, as JAX multiplies an f32 activation by
+    a bf16 weight."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return a.to(dt) @ w.to(dt)
+
+
+def _mamba_train(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A Mamba layer over (B, S, D) normed, the reference's training form:
+    the causal depthwise conv summed in x's dtype (the step form sums it
+    in f32), the SiLU after the f32 `conv_b` in f32, and the selective
+    scan over S in f32 from a zero state."""
+    b, s, _ = x.shape
+    di, ds, dtr, dc = _dims(cfg)
+    xz = x @ p["in_proj"]
+    x1, z = xz[..., :di], xz[..., di:]
+    xp = F.pad(x1, (0, 0, dc - 1, 0))
+    x1 = sum(xp[:, i:i + s] * p["conv_w"][i][None, None] for i in range(dc))
+    x1 = F.silu(x1 + p["conv_b"])
+    proj = _mm(x1, p["x_proj"])
+    dt = F.softplus(_mm(proj[..., :dtr], p["dt_proj"]) + p["dt_bias"]).float()
+    bmat = proj[..., dtr:dtr + ds].float()
+    cmat = proj[..., dtr + ds:].float()
+    a = -torch.exp(p["a_log"])
+    xf = x1.float()
+    h = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        h = (torch.exp(dt[:, t, :, None] * a[None]) * h
+             + (dt[:, t] * xf[:, t])[..., None] * bmat[:, t, None, :])
+        ys.append(torch.einsum("bds,bs->bd", h, cmat[:, t]))
+    y = torch.stack(ys, dim=1) + p["d_skip"] * xf
+    return (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+
+
+def _superblock_train(p, x: torch.Tensor, positions: torch.Tensor,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """One superblock over (B, S, D): the attention layer (RoPE, the
+    blockwise causal attention), then the 8 layers' Mamba (i > 0) and
+    feed-forward (MoE on odd i, dense on even) in the reference's order."""
+    b, s, _ = x.shape
+    hd = cfg.hd
+    pa = p["attn"]
+    h = rms_norm(x, pa["ln"])
+    q = apply_rotary((h @ pa["wq"]).reshape(b, s, cfg.n_heads, hd), positions,
+                     base=cfg.rope_base)
+    k = apply_rotary((h @ pa["wk"]).reshape(b, s, cfg.n_kv_heads, hd),
+                     positions, base=cfg.rope_base)
+    v = (h @ pa["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    att = blockwise_causal_attention(q, k, v, scale=hd ** -0.5)
+    x = x + att.reshape(b, s, -1).to(x.dtype) @ pa["wo"]
+    mamba = unstack_layers(p["mamba"], SB - 1)
+    ffn = {kind: unstack_layers(p[kind], SB // 2) for kind in ("dense", "moe")}
+    for i in range(SB):
+        if i > 0:
+            pm = mamba[i - 1]
+            x = x + _mamba_train(pm, rms_norm(x, pm["ln"]), cfg)
+        kind = "moe" if i % 2 == 1 else "dense"
+        pf = ffn[kind][i // 2]
+        x = x + _ffn(pf, rms_norm(x, pf["ln"]), cfg, kind == "moe")
+    return x
+
+
+def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  patch_embeds=None, remat: bool = True) -> torch.Tensor:
+    """tokens (B, S) → logits (B, S, V), under autograd; each superblock
+    is recomputed in the backward pass under `remat` (the reference's
+    `jax.checkpoint` of the superblock). No DSA: the indexer weights get
+    a zero gradient."""
+    b, s = tokens.shape
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    for p in unstack_layers(params["blocks"], cfg.n_layers // SB):
+        x = remat_call(_superblock_train, remat, p, x, positions, cfg)
+    return rms_norm(x, params["final_norm"]) @ params["lm_head"]
+
+
+def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of `batch` (tokens, targets, optional
+    mask)."""
+    return cross_entropy(forward_train(params, batch["tokens"], cfg), batch)
 
 
 def attention_layer(pa, x: torch.Tensor, state, sb: int, cfg: ModelConfig):

@@ -1,4 +1,5 @@
-"""Shared model layers of the PyTorch port: norm, rotary embedding, decode
+"""Shared model layers of the PyTorch port: norm, rotary embedding, the
+training path's blockwise causal attention and cross-entropy, decode
 attention, SwiGLU and GELU MLPs, the MoE feed-forward on one device.
 
 Dtype handling follows the JAX package's `models/layers.py` step for step
@@ -60,6 +61,92 @@ def apply_rotary(x: torch.Tensor, positions: torch.Tensor, *, kind: str = "rope"
     r2 = x2 * cos + x1 * sin
     xr = torch.stack([r1, r2], dim=-1).reshape(xr.shape)
     return torch.cat([xr, xp], dim=-1) if rot_d < d else xr
+
+
+def remat_call(fn, remat: bool, *args):
+    """fn(*args), recomputed in the backward pass when `remat` (the
+    reference's `jax.checkpoint` of a layer): activations inside fn are
+    not kept. The forward draws no random numbers, so no RNG state is
+    stashed."""
+    if not remat:
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               *, scale: float, q_block: int = 512,
+                               kv_block: int = 1024,
+                               window: Optional[int] = None) -> torch.Tensor:
+    """The training path's causal attention, the reference's blockwise
+    online softmax: q (B, S, H, D), k/v (B, S, KVH, D) → (B, S, H, D) f32,
+    with no (S, S) buffer. GQA groups the H query heads as (KVH, G);
+    `window` is the SWA width (a key at position j is seen from i when
+    i - window < j <= i). Every (query block, key block) pair runs in the
+    reference's order, masked ones too: under a window an early block
+    whose row is all masked gives p = 1 that a later block's alpha = 0
+    wipes, and the bits and gradients follow that order. Plain PyTorch
+    under autograd: the reference has no kernel for it."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qb, kb = min(q_block, s), min(kv_block, s)
+    assert s % qb == 0 and s % kb == 0
+    nq, nk = s // qb, s // kb
+    q = q.reshape(b, nq, qb, kvh, g, d)
+    k = k.reshape(b, nk, kb, kvh, d)
+    v = v.reshape(b, nk, kb, kvh, d)
+    pos = torch.arange(s, device=q.device)
+    outs = []
+    for i in range(nq):
+        qblk = q[:, i].float()                           # (B, qb, KVH, G, D)
+        q_pos = pos[i * qb:(i + 1) * qb][None, :, None, None, None]
+        m = torch.full((b, qb, kvh, g), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, qb, kvh, g), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, qb, kvh, g, d), dtype=torch.float32,
+                          device=q.device)
+        for j in range(nk):
+            k_pos = pos[j * kb:(j + 1) * kb][None, None, None, None, :]
+            logits = torch.einsum("bqkgd,bskd->bqkgs", qblk,
+                                  k[:, j].float()) * scale
+            mask = k_pos <= q_pos
+            if window is not None:
+                mask &= k_pos > (q_pos - window)
+            logits = torch.where(mask, logits, NEG_INF)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            p = torch.exp(logits - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqkgs,bskd->bqkgd", p, v[:, j].float())
+            m = m_new
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    return torch.stack(outs, dim=1).reshape(b, s, h, d)
+
+
+def cross_entropy(logits: torch.Tensor, batch) -> torch.Tensor:
+    """Every family's `loss_fn` tail: mean over the masked positions of
+    f32 logsumexp minus the gold logit, divided by max(sum(mask), 1).
+    logits (B, S, V); batch["targets"] (B, S), optional batch["mask"].
+
+    The logsumexp is the reference's form, amax + log(sum(exp(x - amax)))
+    with amax detached, so that its gradient is exp(x - amax) / sum: a
+    softmax normalised to float32's resolution at 1. torch.logsumexp's
+    backward takes exp(x - result) instead, whose error is that of the
+    result, an ulp at the logits' size (~1e-5 at |x| ~ 100); once the
+    loss is near 0, the gradient p - onehot is of that size and it
+    loses most of its digits."""
+    logits = logits.float()
+    targets = batch["targets"].long()
+    amax = logits.detach().amax(dim=-1, keepdim=True)
+    amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
+    logz = torch.log(torch.sum(torch.exp(logits - amax), dim=-1)) + amax[..., 0]
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    mask = batch.get("mask")
+    mask = (torch.ones_like(targets, dtype=torch.float32) if mask is None
+            else mask.float())
+    return torch.sum((logz - gold) * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
 def decode_attention(q: torch.Tensor, kcache: torch.Tensor, vcache: torch.Tensor,

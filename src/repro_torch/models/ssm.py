@@ -1,6 +1,6 @@
 """RWKV6 'Finch' (ssm family), PyTorch port of the JAX package's
-`models/ssm.py`: parameters, the decode state and the one-token decode
-step.
+`models/ssm.py`: parameters, the training forward, the decode state and
+the one-token decode step.
 
 Per layer a time-mix block (the WKV recurrence with per-channel
 data-dependent decay w_t = exp(-exp(w0 + LoRA(x)))) and a channel-mix
@@ -14,9 +14,12 @@ token-shift mixes promote to f32 (the `mix_*` leaves and the stored
 previous inputs are f32), each mix is cast to the weight dtype before
 its matmul, the LoRA's tanh is taken in the weight dtype and `w0` added
 in f32, the WKV update runs in f32 on `s`, and `x_att` / `x_ffn` keep the
-normed inputs in f32. The reference serves this family step by step
-only: it defines no slot-wise or paged hooks, so `DecodeEngine` refuses
-it.
+normed inputs in f32. The training form (`_layer_train`) has its own
+chain, as in the reference: the shifted inputs are the normed rows in
+the activation dtype, r/k/v/w go to f32 for the recurrence over S, and
+each block's output is cast to the activation dtype before its residual
+add. The reference serves this family step by step only: it defines no
+slot-wise or paged hooks, so `DecodeEngine` refuses it.
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import rms_norm
-from .transformer import layer_params, torch_dtype
+from .layers import cross_entropy, remat_call, rms_norm
+from .transformer import layer_params, torch_dtype, unstack_layers
 
 LORA_R = 32
 
@@ -109,6 +112,59 @@ def _channel_mix_step(p, x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
     k = torch.relu(_mix(x, x_prev, p["mix_ck"]).to(p["ck"].dtype) @ p["ck"]).square()
     r = torch.sigmoid(_mix(x, x_prev, p["mix_cr"]).to(p["cr"].dtype) @ p["cr"])
     return r * (k @ p["cv"])
+
+
+def _shifted(x: torch.Tensor) -> torch.Tensor:
+    """Token shift over (B, S, D): row t holds x[t - 1], row 0 zeros."""
+    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+
+
+def _layer_train(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One layer over (B, S, D), the reference's training form: the
+    projections run over all S positions at once, only the WKV state
+    update steps through time, in f32 from a zero state."""
+    b, s, d = x.shape
+    hd = cfg.rwkv_head_dim
+    h = d // hd
+    xa = rms_norm(x, p["ln1"])
+    xa_prev = _shifted(xa)
+
+    def proj(mix, w):
+        return _mix(xa, xa_prev, p[mix]).to(p[w].dtype) @ p[w]
+
+    r, k, v = (proj(f"mix_{n}", f"w{n}").reshape(b, s, h, hd).float()
+               for n in "rkv")
+    g = F.silu(proj("mix_g", "wg"))
+    lora = torch.tanh(proj("mix_w", "w_a")) @ p["w_b"]
+    w = torch.exp(-torch.exp(p["w0"] + lora)).reshape(b, s, h, hd).float()
+    st = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
+    outs = []
+    for t in range(s):
+        kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                                 st + p["u"][None, :, :, None] * kv))
+        st = w[:, t, ..., None] * st + kv
+    att = rms_norm(torch.stack(outs, dim=1).reshape(b, s, d), p["ln_x"])
+    att = (att * g.reshape(b, s, d).to(att.dtype)).to(p["wo"].dtype) @ p["wo"]
+    x = x + att.to(x.dtype)
+    xc = rms_norm(x, p["ln2"])
+    return x + _channel_mix_step(p, xc, _shifted(xc)).to(x.dtype)
+
+
+def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  patch_embeds=None, remat: bool = True) -> torch.Tensor:
+    """tokens (B, S) → logits (B, S, V), under autograd; each layer is
+    recomputed in the backward pass under `remat`."""
+    x = params["embed"][tokens.long()]
+    for p in unstack_layers(params["layers"], cfg.n_layers):
+        x = remat_call(_layer_train, remat, p, x, cfg)
+    return rms_norm(x, params["final_norm"]) @ params["lm_head"]
+
+
+def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of `batch` (tokens, targets, optional
+    mask)."""
+    return cross_entropy(forward_train(params, batch["tokens"], cfg), batch)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *, device,

@@ -1,10 +1,16 @@
-"""Decoder-only transformer LM, decode side of the dense, vlm and MoE
-families, PyTorch port.
+"""Decoder-only transformer LM of the dense, vlm and MoE families, PyTorch
+port: the training forward and the decode side.
 
 Parameters are a plain dict of tensors stacked over layers (L, ...) in the
 JAX package's layout (weights (in, out), used as `x @ W`), so the JAX
 parameters carry over one to one (`repro_torch.bridge`). A Python loop over
 the layers takes the place of `lax.scan`.
+
+`forward_train` / `loss_fn` are the reference's training path under
+autograd: embeddings, per layer RoPE and `layers.blockwise_causal_attention`
+(plain PyTorch, f32, as the reference computes it outside any kernel),
+the SwiGLU or MoE feed-forward, each layer recomputed in the backward
+pass under `remat`; no DSA, so the indexer weights get a zero gradient.
 
 Two cache layouts, one computation. Per layer: projections + RoPE, the new
 K/V/indexer-K rows written at position `length`, then DSA (indexer → exact
@@ -36,8 +42,9 @@ page (paged). The small per-slot leaves (length, prev_topk, topk_valid,
 sel_gvr) come back as new tensors, so the engine can merge them row by row.
 
 The vlm family (qwen2-vl) serves its text path: M-RoPE over 2-D
-positions (three identical streams) and a `patch_proj` parameter that only
-the reference's training forward reads. A sliding window (`swa_window`,
+positions (three identical streams); its `patch_proj` parameter is read
+by `forward_train` alone, which puts the projected patch embeddings in
+the first `num_patches` positions. A sliding window (`swa_window`,
 h2o-danube) limits the dense fallback's extent and, under DSA, the
 positions the indexer may select (`sparse/dsa.py`).
 
@@ -60,8 +67,9 @@ from repro_torch.kernels import ops
 from repro_torch.sparse import dsa as dsa_mod
 from repro_torch.sparse import sp_dsa as sp_dsa_mod
 from .config import ModelConfig
-from .layers import (apply_rotary, decode_attention, decode_attention_paged,
-                     moe_mlp_dense_fallback, rms_norm, swiglu_mlp)
+from .layers import (apply_rotary, blockwise_causal_attention, cross_entropy,
+                     decode_attention, decode_attention_paged,
+                     moe_mlp_dense_fallback, remat_call, rms_norm, swiglu_mlp)
 
 # min_write_pos sentinel larger than any position: the row never writes.
 # Rows whose write is masked (inactive slots, shared-prefix replay over
@@ -142,8 +150,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense((d, cfg.vocab), d ** -0.5)
     if cfg.num_patches:
-        # the vlm's stubbed patch-embedding projection: the reference's
-        # training forward reads it, no serve step does
+        # the vlm's stubbed patch-embedding projection: `forward_train`
+        # reads it, no serve step does
         params["patch_proj"] = dense((d, d), d ** -0.5)
     return params
 
@@ -152,6 +160,79 @@ def layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Views of layer i's parameters in the stacked dict."""
     return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
             for k, v in layers.items()}
+
+
+def unstack_layers(layers: Dict[str, Any], n: int) -> list:
+    """The n layers' parameters of a stacked dict, as `layer_params` gives
+    them, taken with one `unbind` a leaf: under autograd a leaf's gradient
+    is then one stack of its n layers' gradients, where n selects would
+    each add a zero-filled copy of the whole leaf."""
+    per_leaf = {k: unstack_layers(v, n) if isinstance(v, dict) else v.unbind(0)
+                for k, v in layers.items()}
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
+
+
+# --------------------------------------------------------------------------
+# Train forward
+# --------------------------------------------------------------------------
+
+def _attention_train(p, x: torch.Tensor, cfg: ModelConfig,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention of the training path over (B, S, D): RoPE
+    (M-RoPE for the vlm, on half the dims for chatglm) and the blockwise
+    attention under the config's sliding window."""
+    b, s, _ = x.shape
+    hd = cfg.hd
+    rope = dict(kind=cfg.rope_kind, base=cfg.rope_base,
+                fraction=cfg.rope_fraction)
+    q = apply_rotary((x @ p["wq"]).reshape(b, s, cfg.n_heads, hd), positions,
+                     **rope)
+    k = apply_rotary((x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd),
+                     positions, **rope)
+    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    out = blockwise_causal_attention(q, k, v, scale=hd ** -0.5,
+                                     window=cfg.swa_window)
+    return out.reshape(b, s, cfg.n_heads * hd).to(x.dtype) @ p["wo"]
+
+
+def _train_layer(p, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    x = x + _attention_train(p, rms_norm(x, p["ln1"]), cfg, positions)
+    return x + _mlp(p, rms_norm(x, p["ln2"]), cfg)
+
+
+def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  patch_embeds: Optional[torch.Tensor] = None,
+                  remat: bool = True) -> torch.Tensor:
+    """tokens (B, S) → logits (B, S, V) in the parameter dtype, under
+    autograd. The vlm's first `num_patches` positions take the stubbed
+    patch embeddings through `patch_proj` (promoted as JAX promotes an f32
+    input against bf16 weights) in place of the token embeddings.
+    `remat` recomputes each layer in the backward pass (the reference's
+    `jax.checkpoint`). The indexer weights take no part: their gradient
+    is zero, as in the reference."""
+    _check_family(cfg)
+    b, s = tokens.shape
+    x = params["embed"][tokens.long()]
+    if cfg.num_patches and patch_embeds is not None:
+        proj = params["patch_proj"]
+        dt = torch.promote_types(patch_embeds.dtype, proj.dtype)
+        pe = (patch_embeds.to(dt) @ proj.to(dt)).to(x.dtype)
+        x = torch.cat([pe, x[:, cfg.num_patches:]], dim=1)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    for p in unstack_layers(params["layers"], cfg.n_layers):
+        x = remat_call(_train_layer, remat, p, x, positions, cfg)
+    x = rms_norm(x, params["final_norm"])
+    return x @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+
+
+def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of `batch` (tokens, targets, optional
+    mask and, for the vlm, patch_embeds): a 0-dim f32 tensor."""
+    logits = forward_train(params, batch["tokens"], cfg,
+                           patch_embeds=batch.get("patch_embeds"))
+    return cross_entropy(logits, batch)
 
 
 # --------------------------------------------------------------------------
@@ -324,12 +405,13 @@ def _attend_views(cfg: ModelConfig, state, i: int, p, h, q, kc, vc, idx_kc,
 
 
 def _mlp(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Layer p's feed-forward of one token per row, h (B, D): SwiGLU, or
-    the MoE with the reference's (B, 1, D) call shape."""
+    """Layer p's feed-forward: SwiGLU, or the MoE. h is (B, D), one token
+    per row, which the MoE takes in the reference's (B, 1, D) call shape,
+    or the training path's (B, S, D)."""
     if cfg.moe.num_experts:
-        return moe_mlp_dense_fallback(h[:, None, :], p["router"], p["w_gate"],
-                                      p["w_up"], p["w_down"],
-                                      top_k=cfg.moe.top_k)[:, 0]
+        return moe_mlp_dense_fallback(
+            h.reshape(h.shape[0], -1, h.shape[-1]), p["router"], p["w_gate"],
+            p["w_up"], p["w_down"], top_k=cfg.moe.top_k).reshape(h.shape)
     return swiglu_mlp(h, p["w_gate"], p["w_up"], p["w_down"])
 
 

@@ -41,7 +41,11 @@ and B1. whisper-medium's width (G = 1, hd 64, KVH 16, bf16) runs through
 B6/B10, and the smoke configs of whisper-medium (DSA: B5, B1, B6) and
 rwkv6-3b (plain PyTorch) step on the card against the CPU. The
 sequence-sharded step runs on two gloo ranks sharing the card against the
-fused single-device step, bit for bit.
+fused single-device step, bit for bit. The training path (no kernel of
+the port: autograd and the plain blockwise attention) takes one train step
+of six smoke configs on the card against the CPU, and a 6-step run equals
+3 steps + checkpoint + resume + 3 bit for bit under deterministic
+algorithms, in a child process; the train CLI resumes on the card.
 """
 
 import pytest
@@ -1141,3 +1145,69 @@ def test_sequence_sharded_step_on_card_bit_identical_to_fused(dev, tmp_path):
         assert res["counts"]["sparse_decode_attn"] == 2 * ticks
         assert res["counts"]["gvr_topk"] == 0
         assert res["assembly"]["bit_equal"] and res["assembly"]["neg_zeros"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "moonshot-v1-16b-a3b",
+                                  "qwen2-vl-7b", "whisper-medium", "rwkv6-3b",
+                                  "jamba-1.5-large-398b"])
+def test_train_step_on_card_matches_cpu(dev, arch):
+    """One train step (`loss_and_grads`, then `adamw.update`: the halves
+    of `make_train_step`) of the smoke config (float32, TF32 off) on the
+    card and through the plain path on the CPU from the same parameters
+    and data-pipeline batch (frames for whisper, patch embeddings for
+    qwen2-vl), B = 2, S = 64: loss within 1e-5 relative, every gradient
+    leaf within 1e-4 relative L2 (float32 GEMMs and reductions in other
+    orders), the indexer's exactly zero on both, every updated parameter
+    and moment within 1e-5."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import batch_for_step
+    from repro_torch.launch.train import batch_to, loss_and_grads
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten_with_paths, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch, smoke=True)
+    gm, cm = build_model(cfg, device=dev), build_model(cfg, device="cpu")
+    params = gm.init_params(seed=0)
+    cparams = tree_map(lambda t: t.cpu(), params)
+    batch = batch_for_step(1, vocab=cfg.vocab, batch=2, seq=64,
+                           family=cfg.family, cfg=cfg)
+    lg, gg = loss_and_grads(gm, params, batch_to(batch, dev))
+    lc, gc = loss_and_grads(cm, cparams, batch_to(batch, "cpu"))
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+
+    def rel(a, b):
+        return float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30))
+
+    for (path, a), (_, c) in zip(flatten_with_paths(gg), flatten_with_paths(gc)):
+        if "['indexer']" in path:
+            assert not a.any() and not c.any(), path
+        else:
+            assert rel(a, c) <= 1e-4, path
+    ocfg = adamw.AdamWConfig()
+    pg, og, _ = adamw.update(gg, adamw.init(params), params, ocfg)
+    pc, oc, _ = adamw.update(gc, adamw.init(cparams), cparams, ocfg)
+    for (path, a), (_, c) in zip(flatten_with_paths((pg, og.m, og.v)),
+                                 flatten_with_paths((pc, oc.m, oc.v))):
+        assert rel(a, c) <= 1e-5, path
+
+
+@pytest.mark.cuda
+def test_train_resume_bit_exact_on_card(dev, tmp_path):
+    """`chip_smoke.py --train-resume` on llama3.2-1b's smoke config (2
+    layers, B = 2, S = 64) in a child process under deterministic
+    algorithms with CUBLAS_WORKSPACE_CONFIG=:4096:8: 6 steps straight
+    equal 3 + save + restore_latest + 3 in every parameter and moment bit
+    for bit, and the train CLI resumes on the card from its step-4
+    checkpoint and prints `done`."""
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+    child = cs.start_train_resume_child(tmp_path, arch="llama3.2-1b",
+                                        smoke=True, depth=2, b=2, s=64)
+    res = cs.join_train_resume_child(child, tmp_path)
+    assert res["differ"] == [] and res["restored_step"] == 3
