@@ -49,7 +49,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     against the CPU plain path;
   7. gather, page — the paged engine with `paged_attn="gather"` (B7) and
                     with `gather_granularity="page"` (B10) on a short trace,
-                    against a fused run of it;
+                    against a fused run of it (phases 3 and 4 at
+                    MAIN_DEPTH layers, 7, 8 and 10 at ENGINE_DEPTH);
   8. spec         — speculative decoding at depth 2 on the short trace,
                     against the fused run's tokens: scan verify with oracle
                     drafts (B2/B1/B3), mq verify (B9/B8) with oracle drafts,
@@ -130,6 +131,22 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     max_len 8192, equal to the fused engine in tokens,
                     method log, hit rate and prefix hits, and at
                     spec_depth 3 (mq verify) giving the same tokens;
+ 18b. tp, ep, hybrid-sp — a ("data", "model") mesh of four ranks, child
+                    processes of a gloo group on the one card, run after
+                    llama is freed, each against the single-device step
+                    run first here (every tick fed its greedy token;
+                    logits within the phase's tolerance, tokens equal but
+                    for near-ties, Top-K agreement, the bill by axis and
+                    tag): [tp] llama3.2-1b at 8 layers on (2, 2)
+                    (heads, d_ff, vocab over "model", rows over "data";
+                    B5, B1, B6 on every rank, against their plain
+                    versions at its shapes); [ep] moonshot-v1-16b-a3b at
+                    4 layers, bf16, on (1, 4) (`moe_mlp_ep`; a router
+                    flip passes only as a near-tie its margin shows; one
+                    overflowing call whose drops equal the CPU's count);
+                    [hybrid-sp] jamba at one superblock and 4 experts,
+                    sequence-sharded on (2, 2) at max_len 524288 (SP-DSA
+                    over "data", the rest over "model");
  19. train        — llama3.2-1b trained at full width and depth (16
                     layers, bf16 parameters, f32 moments), B = 4, S = 2048,
                     10 steps of `launch.train.make_train_step` over
@@ -154,8 +171,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     the card resuming from its checkpoint at step 4;
  22. summary      — each kernel's device time lost against its bound
                     over its path at llama's 16 layers (launches x (ms -
-                    bound_ms), the launches of phases 3 and 4 scaled from
-                    MAIN_DEPTH layers; B2, B5 and B9 by their scoring
+                    bound_ms), the launches of phases 3, 4, 7, 8 and 10
+                    scaled from the depth each ran; B2, B5 and B9 by their scoring
                     launch, so B1 counts once), the
                     `kernels` JSON line, the card's name and power limit,
                     and the contract line `{"ok": true, ...}` last.
@@ -2194,9 +2211,12 @@ FAMILY_CUT_DEPTH = 4     # layers of chatglm3-6b, qwen2-vl-7b and granite-34b
 # moonshot-v1-16b-a3b's layers in [moe] and [moe-step] (of 48): cut so
 # that h2o-danube-3-4b's engines fit the time limit
 MOE_DEPTH = 12
-# llama3.2-1b's layers in [main] and [dense-layout] (of 16): the two
-# longest llama phases, they run beside h2o-danube's child processes
-MAIN_DEPTH = 8
+# llama3.2-1b's layers (of 16) in [main] and [dense-layout], which run
+# beside h2o-danube's child processes and take most of their host wall
+# from that contention: 4 since the mesh phases joined the script, for its
+# time limit; [gather]/[page], [spec] and [dense] run ENGINE_DEPTH
+MAIN_DEPTH = 4
+ENGINE_DEPTH = 8
 
 
 def phase_family_step(model, params, rng, flush, tag):
@@ -2825,8 +2845,11 @@ def _gloo_cuda_probe(mesh):
             ("all_reduce_sum", lambda t: dist.all_reduce(t)),
             ("all_reduce_max", lambda t: dist.all_reduce(t, dist.ReduceOp.MAX)),
             ("all_gather", lambda t: dist.all_gather(
-                [torch.empty_like(t) for _ in range(mesh.size)], t))):
-        t = torch.ones(4, device=mesh.device)
+                [torch.empty_like(t) for _ in range(mesh.size)], t)),
+            ("all_to_all", lambda t: dist.all_to_all(
+                list(torch.empty_like(t).chunk(mesh.size)),
+                list(t.chunk(mesh.size))))):
+        t = torch.ones(4 * mesh.size, device=mesh.device)
         try:
             call(t)
             torch.cuda.synchronize()
@@ -3509,29 +3532,494 @@ def run_llama_phases(model, params, cpu_params, rng, specs, timed):
     """The llama3.2-1b engine phases, [main] through [dense], which run
     beside h2o-danube's child processes (their host walls with them);
     returns their launch counts (main, dense-layout, gather, page, spec,
-    dense). [main] and [dense-layout] run the first MAIN_DEPTH layers
-    (views of the same weights, full width), the other phases all 16. The
-    profiled steps, [step] and [verify-step], run after the children."""
+    dense). [main] and [dense-layout] run the first MAIN_DEPTH layers,
+    [gather]/[page], [spec] and [dense] the first ENGINE_DEPTH (views of
+    the same weights, full width); [layouts] runs all 16, and so do the
+    profiled steps, [step] and [verify-step], after the children."""
     from repro_torch.models.api import build_model
-    cut = build_model(dataclasses.replace(model.cfg, n_layers=MAIN_DEPTH),
-                      device=model.device)
-    cut_params = {**params, "layers": _first_layers(params["layers"], MAIN_DEPTH)}
-    main_counts, main_tokens = timed("main", phase_main, cut, cut_params, specs)
-    dl_counts = timed("dense-layout", phase_dense_layout, cut, cut_params,
-                      specs, main_tokens)
+
+    def cut(depth):
+        return (build_model(dataclasses.replace(model.cfg, n_layers=depth),
+                            device=model.device),
+                {**params, "layers": _first_layers(params["layers"], depth)})
+
+    main, engine = cut(MAIN_DEPTH), cut(ENGINE_DEPTH)
+    main_counts, main_tokens = timed("main", phase_main, *main, specs)
+    dl_counts = timed("dense-layout", phase_dense_layout, *main, specs,
+                      main_tokens)
     timed("layouts", phase_layouts, model, params, cpu_params, rng)
     gather_counts, page_counts, fused = timed("gather+page", phase_gather_page,
-                                              model, params, rng)
-    spec_counts = timed("spec", phase_spec, model, params, fused)
-    dense_counts = timed("dense", phase_dense, model, params, rng)
+                                              *engine, rng)
+    spec_counts = timed("spec", phase_spec, *engine, fused)
+    dense_counts = timed("dense", phase_dense, *engine, rng)
     return (main_counts, dl_counts, gather_counts, page_counts, spec_counts,
             dense_counts)
+
+
+# ------------------------------------------------------- the 2-D mesh ------
+# [tp], [ep] and [hybrid-sp] serve on a ("data", "model") mesh of 4 ranks,
+# child processes of a gloo group sharing the one H100 as [sp]'s do
+# (`python3 chip_smoke.py --mesh-rank PHASE R 4 file://... OUT`): each rank
+# holds the blocks its specs give it (`Model.init_params(mesh=, rules=)`,
+# `bridge.shard_tree`), and the ranks initialise one after another so the
+# card never holds two ranks' draws at once. The parent first runs the
+# single-device step over the same seeded cache, keeps its result on the
+# CPU, frees the card, then starts the ranks and holds their ticks against
+# it. A functional check (every collective is a gloo host round trip),
+# not a speed.
+MESH_WORLD = 4
+MESH_CHILD_TIMEOUT_S = 600
+MESH_SEED = 25
+MESH_PHASES = {
+    # llama3.2-1b, 8 of 16 layers, B = 4, heads, d_ff and vocab over
+    # "model", the batch over "data"
+    "tp": dict(arch="llama3.2-1b", depth=8, experts=None,
+               shape=(2, 2), lengths=[4200, 5301, 6402, 7999], n=8192,
+               ticks=8, seq=False, tol=5e-2),
+    # moonshot-v1-16b-a3b, 4 of 48 layers, 16 of 64 experts a rank, bf16;
+    # a row whose router choice flips is held to the flip's margin
+    # (`_router_flips`) and left out of the later ticks' comparisons
+    "ep": dict(arch="moonshot-v1-16b-a3b", depth=4, experts=None,
+               shape=(1, 4), lengths=[4200, 5301, 6402, 7999],
+               n=8192, ticks=8, seq=False, tol=5e-2),
+    # jamba-1.5-large-398b, one superblock, 4 of 16 experts (top-2), the
+    # sequence over "data" (long_500k's max_len); the write crosses the
+    # shards' boundary at 262144 on the second tick
+    "hybrid-sp": dict(arch="jamba-1.5-large-398b", depth=8, experts=4,
+                      shape=(2, 2), lengths=[262143], n=524288, ticks=3,
+                      seq=True, tol=5e-2),
+}
+# [ep]'s overflowing moe_mlp_ep call: 4 x 256 tokens at moonshot's width
+EP_OVERFLOW_TOKENS = (4, 256)
+
+
+# a flipped expert choice passes only where the router logits' measured
+# difference from the single-device step's is at most this share of their
+# spread (a rounding-sized difference: [tp]'s logits differ by ~1e-2)
+ROUTER_ROUNDING = 0.05
+
+
+def _mesh_cfg(spec):
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(get_config(spec["arch"]), n_layers=spec["depth"])
+    if spec["experts"]:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=spec["experts"]))
+    return cfg
+
+
+def mesh_state(model, n, lengths, seed):
+    """The decode state over a seeded cache: every K, V and indexer-K row
+    of every layer drawn on the card, layer by layer, from per-layer
+    seeds (the same content in every process), lengths `lengths`."""
+    import torch
+    st = model.init_decode_state(len(lengths), n)
+    for j, key in enumerate(("k", "v", "idx_k")):
+        for i in range(st[key].shape[0]):
+            g = torch.Generator(device=model.device).manual_seed(
+                seed * 1000 + 3 * i + j)
+            st[key][i].copy_(torch.randn(st[key][i].shape, generator=g,
+                                         device=model.device))
+    st["length"] = torch.tensor(lengths, dtype=torch.int32, device=model.device)
+    return st
+
+
+def _mesh_ticks(model, params, st, ticks, *, feed=None, mesh=None,
+                rules=None, seq=False):
+    """`ticks` steps from tokens 1..B: greedy, or fed `feed[t]` at tick t
+    > 0 (the single-device step's greedy tokens, so that a rank's logits
+    are held against the reference's on the same inputs every tick). Per
+    tick the step's host wall, its rows' logits and feedback (CPU), its
+    argmax over all rows, the f32 router logits of every `moe_route` call
+    in call order (the dense fallback's rows, or this EP rank's token
+    slice) and (on a mesh) the collective bill by axis and tag."""
+    import torch
+    from repro_torch.models import layers
+    b = st["length"].shape[0]
+    tok = torch.arange(1, b + 1, dtype=torch.int32, device=model.device)
+    entry = None if mesh is None else rules.spec("batch", sizes=(b,))[0]
+    out, routed, route = [], [], layers.moe_route
+
+    def recording(x, router_w, top_k):
+        routed.append((x.float() @ router_w).reshape(-1, router_w.shape[-1]).cpu())
+        return route(x, router_w, top_k)
+
+    layers.moe_route = recording
+    try:
+        for t in range(ticks):
+            out.append(_mesh_tick(model, params, st, tok, t, feed, mesh, rules,
+                                  seq, entry))
+            st, tok = out[-1].pop("state"), out[-1].pop("next")
+            out[-1]["router"] = list(routed)
+            routed.clear()
+    finally:
+        layers.moe_route = route
+    return out, st
+
+
+def _mesh_tick(model, params, st, tok, t, feed, mesh, rules, seq, entry):
+    """One tick of `_mesh_ticks`; the record also holds the new state and
+    the next token ("state", "next")."""
+    import torch
+    if feed is not None and t > 0:
+        tok = feed[t].to(model.device)
+    if mesh is not None:
+        mesh.reset_bill()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if mesh is None:
+        logits, st = model.serve_step(params, st, tok)
+    else:
+        logits, st = model.serve_step(params, st, tok, mesh=mesh,
+                                      rules=rules, seq_sharded=seq)
+    torch.cuda.synchronize()
+    rec = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+           "logits": logits.float().cpu(), "prev_topk": st["prev_topk"].cpu()}
+    if mesh is not None:
+        rec["bill"] = mesh.bill()
+    tok = logits.argmax(-1).int()
+    if entry is not None:
+        tok = mesh.axis(entry).all_gather(tok, dim=0, tiled=True)
+    rec["tokens"] = tok.cpu()
+    rec["state"], rec["next"] = st, tok
+    return rec
+
+
+def _router_flips(cfg, ref, ranks, tag):
+    """The first (tick, MoE call) at which a rank routes a row to other
+    top-k experts than the single-device step does, by row. A flip passes
+    only as a near-tie that this run's rounding explains: the reference's
+    margin between its k-th and (k+1)-th expert is at most twice the
+    rank's measured max |router logit difference| on that token, and
+    that difference is at most ROUTER_ROUNDING of the token's logit
+    spread. The row's later ticks then diverge (another expert's output)
+    and are left out; the other rows stay independent of it (no token
+    drops at these batches). Logs each flip with its numbers."""
+    import torch
+    k = cfg.moe.top_k
+    if not k:
+        return {}
+
+    def top(v):
+        return set(torch.sort(v, descending=True, stable=True).indices[:k].tolist())
+
+    flips = {}
+    for t, want in enumerate(ref):
+        for r, res in enumerate(ranks):
+            rows, me = res["rows"], res["coords"]["model"]
+            for call, got in enumerate(res["ticks"][t]["router"]):
+                tm = got.shape[0]
+                for i in range(tm):
+                    row = rows.start + me * tm + i
+                    if row >= rows.stop or row in flips:
+                        continue
+                    o = want["router"][call][row]
+                    if top(got[i]) == top(o):
+                        continue
+                    srt = torch.sort(o, descending=True, stable=True).values
+                    f = {"tick": t, "moe_call": call, "rank": r,
+                         "margin": float(srt[k - 1] - srt[k]),
+                         "diff": float((got[i] - o).abs().max()),
+                         "spread": float(o.std())}
+                    if (f["margin"] > 2 * f["diff"]
+                            or f["diff"] > ROUTER_ROUNDING * f["spread"]):
+                        fail(f"{tag} row {row}: a router flip that rounding "
+                             f"does not explain: {f}")
+                    flips[row] = f
+    n_calls = len(ref[0]["router"]) if ref else 0
+    log(f"{tag} router choices against the single-device step's over "
+        f"{len(ref)} ticks x {n_calls} MoE calls: "
+        + (f"first flips by row (the reference's k-th - (k+1)-th logit "
+           f"margin, the rank's max |logit difference|, the logits' std): "
+           f"{flips}" if flips else "no flip"))
+    return flips
+
+
+def _mesh_kernels_vs_plain(seen):
+    """B5's scoring, B1 and B6 on the first inputs a rank gave them (its
+    rows, its heads), each against its plain version."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    res = {}
+    args, kw = seen["indexer_scores"]
+    s_ker, s_ref = ops.indexer_scores(*args, **kw), ref.indexer_scores_ref(*args, **kw)
+    live = s_ref > -1e38
+    if not torch.equal(live, s_ker > -1e38):
+        fail("[mesh] B5 scoring at a rank's shapes: NEG mask differs")
+    err = float((s_ker - s_ref)[live].abs().max())
+    if err > 1e-4 * float(s_ref[live].abs().max()):
+        fail(f"[mesh] B5 scoring at a rank's shapes: max |err| {err}")
+    res["B5 scoring"] = {"err": err, "shape": list(args[1].shape)}
+    args, kw = seen["gvr_topk"]
+    got, want = ops.gvr_topk(*args, **kw), ref.gvr_topk_ref(*args, **kw)
+    if not torch.equal(got[1], want[1]):
+        fail("[mesh] B1 at a rank's shapes: indices differ from the plain "
+             "version")
+    res["B1"] = {"err": 0.0, "shape": list(args[0].shape)}
+    args, kw = seen["sparse_decode_attn"]
+    o, o_ref = ops.sparse_decode_attn(*args, **kw), ref.sparse_attn_ref(*args, **kw)
+    err = float((o - o_ref).abs().max())
+    if not torch.allclose(o, o_ref, atol=1e-4, rtol=1e-4):
+        fail(f"[mesh] B6 at a rank's heads: max |err| {err} beyond 1e-4")
+    res["B6"] = {"err": err, "shape": list(args[0].shape)}
+    return res
+
+
+def _ep_overflow(model, params, mesh, rules, g):
+    """One `moe_mlp_ep` call of layer 0 at EP_OVERFLOW_TOKENS tokens, with
+    inputs whose routing is exact on any device (entries in {-1, 0, 1}
+    against a router of multiples of 1/256): its drop count, against the
+    CPU's count from the same inputs in the parent."""
+    import torch
+    from repro_torch.models import layers
+    cfg = model.cfg
+    x = torch.randint(-1, 2, EP_OVERFLOW_TOKENS + (cfg.d_model,), generator=g,
+                      device=model.device).to(params["embed"].dtype)
+    router = torch.randint(-127, 128, (cfg.d_model, cfg.moe.num_experts),
+                           generator=g, device=model.device).float() / 256
+    p = params["layers"]
+    y = layers.moe_mlp_ep(x, router, p["w_gate"][0], p["w_up"][0],
+                          p["w_down"][0], top_k=cfg.moe.top_k,
+                          capacity_factor=cfg.moe.capacity_factor, mesh=mesh)
+    drops = layers.moe_ep_drops(x, router, top_k=cfg.moe.top_k,
+                                num_experts=cfg.moe.num_experts,
+                                capacity_factor=cfg.moe.capacity_factor,
+                                ep=mesh.shape["model"])
+    return {"x": x.cpu(), "router": router.cpu(), "drops": drops,
+            "finite": bool(torch.isfinite(y).all()), "shape": list(y.shape)}
+
+
+def mesh_child(argv) -> int:
+    """One rank of a mesh phase: PHASE RANK WORLD INIT OUT. Saves its ticks,
+    launch counts, kernel checks and memory to OUT/rank{RANK}.pt."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch.kernels import ops
+    from repro_torch.launch import init_mesh_group, make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.models.tensor_parallel import Placement
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.tree import leaves
+    phase, rank, world, init, out_dir = argv
+    rank, world = int(rank), int(world)
+    spec = MESH_PHASES[phase]
+    init_mesh_group(rank, world, init_method=init, backend="gloo",
+                    timeout_s=300)
+    mesh = make_mesh(spec["shape"], ("data", "model"), backend="gloo")
+    rules = make_rules(mesh)
+    model = build_model(_mesh_cfg(spec), device=mesh.device)
+    b, n = len(spec["lengths"]), spec["n"]
+    t0 = time.perf_counter()
+    for r in range(world):           # one rank's draws on the card at a time
+        if r == rank:
+            free, total = torch.cuda.mem_get_info(mesh.device)
+            print(f"rank {rank}: {free / 2 ** 30:.3f} of {total / 2 ** 30:.3f} "
+                  f"GiB free on the card before its init", flush=True)
+            params = model.init_params(seed=0, mesh=mesh, rules=rules)
+            full = mesh_state(model, n, spec["lengths"], MESH_SEED)
+            st = bridge.shard_tree(full, model.state_specs(
+                rules, batch=b, max_len=n, seq_sharded=spec["seq"]), mesh)
+            del full
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        mesh.barrier()
+    res = {"device": str(mesh.device), "backend": mesh.backend,
+           "coords": mesh.coords, "init_s": time.perf_counter() - t0,
+           "rows": Placement(mesh, rules, b).rows,
+           "probe": _gloo_cuda_probe(mesh),
+           "param_gib": sum(x.numel() * x.element_size() for x in
+                            leaves(params)) / 2 ** 30}
+    torch.cuda.reset_peak_memory_stats()
+    seen, restore = _capture(ops, ("indexer_scores", "gvr_topk",
+                                   "sparse_decode_attn"))
+    ops.reset_launch_counts()
+    feed = torch.load(Path(out_dir) / "feed.pt")
+    res["ticks"], st = _mesh_ticks(model, params, st, spec["ticks"], feed=feed,
+                                   mesh=mesh, rules=rules, seq=spec["seq"])
+    restore()
+    res["counts"] = ops.launch_counts()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if seen:
+        res["kernels"] = _mesh_kernels_vs_plain(seen)
+    if phase == "ep":
+        res["overflow"] = _ep_overflow(model, params, mesh, rules, torch.Generator(
+            device=mesh.device).manual_seed(MESH_SEED))
+    torch.save(res, Path(out_dir) / f"rank{rank}.pt")
+    mesh.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def start_mesh_children(phase, out_dir: Path):
+    """The ranks of a fresh gloo group (a file rendezvous in out_dir);
+    their output goes to out_dir/rank{r}.log."""
+    import os
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rdv = out_dir / "rendezvous"
+    if rdv.exists():
+        rdv.unlink()
+    # four ranks' caches share the card: segments that grow and shrink
+    # keep each rank's freed draws from pinning memory the next one needs
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = []
+    for r in range(MESH_WORLD):
+        f = open(out_dir / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+             phase, str(r), str(MESH_WORLD), f"file://{rdv}", str(out_dir)],
+            stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT), env=env), f))
+    return procs
+
+
+def join_mesh_children(procs, out_dir: Path, tag: str):
+    """Wait for every rank (MESH_CHILD_TIMEOUT_S); a rank that fails or
+    hangs fails the phase, with the end of every failed rank's log (a
+    rank that fails first takes its peers down with it)."""
+    import torch
+    failed = []
+    try:
+        for r, (proc, f) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=MESH_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"{tag} rank {r} ran past {MESH_CHILD_TIMEOUT_S} s")
+            f.close()
+            if rc != 0:
+                failed.append((r, rc))
+    finally:
+        stop_family_children({r: p for r, p in enumerate(procs)})
+    if failed:
+        fail(f"{tag} ranks exited nonzero: " + "\n".join(
+            f"rank {r} exited {rc}: "
+            + (out_dir / f"rank{r}.log").read_text()[-2000:] for r, rc in failed))
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+            for r in range(MESH_WORLD)]
+
+
+def phase_mesh(phase):
+    """[tp] / [ep] / [hybrid-sp]: the single-device step here, then the
+    ranks; tokens equal every tick (or a near-tie), logits within the
+    phase's tolerance (relative L2 of each row: bf16, and the sharded sums
+    round in another order), router flips held to their margin
+    (`_router_flips`), Top-K agreement per layer reported, the bill by
+    axis and tag, each rank's launches. Returns the launches summed over
+    the ranks."""
+    import torch
+    from repro_torch.models.api import build_model
+    spec = MESH_PHASES[phase]
+    tag = f"[{phase}]"
+    cfg = _mesh_cfg(spec)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(seed=0)
+    st = mesh_state(model, spec["n"], spec["lengths"], MESH_SEED)
+    torch.cuda.synchronize()
+    one_gib = torch.cuda.memory_allocated() / 2 ** 30
+    ref, st = _mesh_ticks(model, params, st, spec["ticks"])
+    log(f"{tag} {cfg.name} at full width, {cfg.n_layers} layers, {cfg.dtype}"
+        + (f", {cfg.moe.num_experts} experts (top-{cfg.moe.top_k})"
+           if cfg.moe.num_experts else "")
+        + f"; B = {len(spec['lengths'])}, max_len {spec['n']}, lengths "
+        f"{spec['lengths']}: the single-device step first ({one_gib:.3f} GiB "
+        f"on the card, {time.perf_counter() - t0:.3f} s with the init), "
+        f"{np.median([r['wall_ms'] for r in ref[1:]]):.3f} ms a step")
+    del model, params, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "chip_smoke" / "mesh" / phase
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # every tick's input is the single-device step's greedy token
+    torch.save([None] + [r["tokens"] for r in ref[:-1]], out_dir / "feed.pt")
+    ranks = join_mesh_children(start_mesh_children(phase, out_dir), out_dir, tag)
+    r0 = ranks[0]
+    log(f"{tag} mesh {dict(zip(('data', 'model'), spec['shape']))} over "
+        f"{MESH_WORLD} gloo ranks on one card ({r0['device']}); gloo on CUDA "
+        f"tensors directly: {r0['probe']}; per rank "
+        + ", ".join(f"{res['param_gib']:.3f} GiB of parameters, peak "
+                    f"{res['peak_gib']:.3f} GiB" for res in ranks[:1])
+        + f"; the ranks' init one at a time {max(res['init_s'] for res in ranks):.3f} s")
+    flips = _router_flips(cfg, ref, ranks, tag)
+    worst, agree, same, ties, held = 0.0, [], 0, [], 0
+    for r, res in enumerate(ranks):
+        rows = res["rows"]
+        for t, (got, want) in enumerate(zip(res["ticks"], ref)):
+            for i, row in enumerate(range(rows.start, rows.stop)):
+                if row in flips and t >= flips[row]["tick"]:
+                    continue
+                held += 1
+                rel = _rel(got["logits"][i], want["logits"][row])
+                worst = max(worst, rel)
+                if rel > spec["tol"]:
+                    fail(f"{tag} rank {r} tick {t} row {row}: logits rel L2 "
+                         f"{rel} > {spec['tol']}")
+                # a token may differ only where the reference's own logits
+                # cannot tell the two apart by more than this rank's
+                # measured difference from them (a near-tie under bf16
+                # rounding)
+                a, w = int(got["tokens"][row]), int(want["tokens"][row])
+                if a == w:
+                    same += 1
+                    continue
+                ref_row = want["logits"][row]
+                gap = float(ref_row[w] - ref_row[a])
+                diff = float((got["logits"][i] - ref_row).abs().max())
+                if gap > 2 * diff:
+                    fail(f"{tag} rank {r} tick {t} row {row}: token {a} against "
+                         f"the single-device step's {w}, whose logits part them "
+                         f"by {gap}, beyond twice this rank's difference {diff}")
+                ties.append((r, t, row, round(gap, 5), round(diff, 5)))
+            if r == 0:
+                agree.append(_topk_agreement(got["prev_topk"],
+                                             want["prev_topk"][:, rows]))
+    if not held:
+        fail(f"{tag} every row's router choice flipped before any tick could "
+             f"be held against the single-device step: {flips}")
+    log(f"{tag} every tick fed the single-device step's greedy tokens: "
+        f"{held} (rank, tick, row)s held to it (rows after a router flip "
+        f"left out); the ranks' own argmax equals them on {same} of them, "
+        f"the rest near-ties (rank, tick, row, the reference's logit gap, "
+        f"the rank's max |logit difference|): {ties}; logits rel L2 at most "
+        f"{worst:.3e} (tolerance {spec['tol']}); Top-K agreement per layer, "
+        f"rank 0, by tick: {agree}")
+    bill = r0["ticks"][-1]["bill"]
+    log(f"{tag} the last tick's collectives on rank 0, by axis and tag "
+        f"(calls, bytes): " + "; ".join(
+            f"{ax}: " + ", ".join(f"{k} {v['calls']}/{v['bytes']}"
+                                  for k, v in tags.items())
+            for ax, tags in bill.items())
+        + f"; host wall a tick {np.median([t['wall_ms'] for t in r0['ticks'][1:]]):.3f} ms")
+    counts = {k: sum(res["counts"][k] for res in ranks) for k in r0["counts"]}
+    per_rank = [{k: res["counts"][k] for k in ("indexer_scores", "gvr_topk",
+                                               "sparse_decode_attn")}
+                for res in ranks]
+    log(f"{tag} launches per rank (B5 scoring, B1, B6): {per_rank}")
+    if phase in ("tp", "ep") and any(min(c.values()) == 0 for c in per_rank):
+        fail(f"{tag} a rank launched no B5, B1 or B6: {per_rank}")
+    if "kernels" in r0:
+        log(f"{tag} rank 0's first B5 scoring / B1 / B6 inputs against the "
+            f"plain versions: {r0['kernels']}")
+    if phase == "ep":
+        from repro_torch.models import layers
+        o = r0["overflow"]
+        want = layers.moe_ep_drops(o["x"], o["router"], top_k=cfg.moe.top_k,
+                                   num_experts=cfg.moe.num_experts,
+                                   capacity_factor=cfg.moe.capacity_factor,
+                                   ep=spec["shape"][1])
+        if o["drops"] != want or want == 0 or not o["finite"]:
+            fail(f"{tag} moe_mlp_ep at {EP_OVERFLOW_TOKENS} tokens: {o['drops']} "
+                 f"drops on the card, {want} on the CPU, finite {o['finite']}")
+        log(f"{tag} moe_mlp_ep at {EP_OVERFLOW_TOKENS} tokens: {o['drops']} "
+            f"assignments dropped past capacity, the CPU's count from the "
+            f"same inputs; output {o['shape']} finite")
+    return counts, r0.get("kernels", {})
 
 
 def main() -> int:
     child = sys.argv[1:3] if sys.argv[1:2] == ["--family-engine"] else None
     sp_rank = sys.argv[2:] if sys.argv[1:2] == ["--sp-rank"] else None
     resume = sys.argv[2:] if sys.argv[1:2] == ["--train-resume"] else None
+    mesh_rank = sys.argv[2:] if sys.argv[1:2] == ["--mesh-rank"] else None
     try:
         import torch
     except ImportError:
@@ -3557,6 +4045,8 @@ def main() -> int:
         return sp_child(sp_rank)
     if resume is not None:
         return train_resume_child(resume)
+    if mesh_rank is not None:
+        return mesh_child(mesh_rank)
     t_start = time.perf_counter()
     log(f"[env] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -3621,6 +4111,10 @@ def main() -> int:
     del model, params, cpu_params
     gc.collect()
     torch.cuda.empty_cache()
+    # the ("data", "model") mesh: 4 gloo ranks on the card, each phase after
+    # its single-device step has run here and been freed
+    mesh_counts = {phase: timed(phase, phase_mesh, phase)
+                   for phase in ("tp", "ep", "hybrid-sp")}
     mmodel = build_model(dataclasses.replace(mcfg, n_layers=MOE_DEPTH))
     t0 = time.perf_counter()
     mparams = mmodel.init_params(seed=0)
@@ -3784,6 +4278,15 @@ def main() -> int:
                           (kernels[5], "sparse_decode_attn", "B6")):
         r["sp_launches"] = int(sp_counts[key])
         r["sp_max_abs_err"] = sp_kernels[short]["err"]
+    # launches on the mesh paths ([tp], [ep]: every rank, B5 -> B1 -> B6 at
+    # its rows and heads), and each against its plain version there
+    for r, key, short in ((kernels[0], "gvr_topk", "B1"),
+                          (kernels[4], "indexer_scores", "B5 scoring"),
+                          (kernels[5], "sparse_decode_attn", "B6")):
+        for phase in ("tp", "ep"):
+            counts, checks = mesh_counts[phase]
+            r[f"{phase}_launches"] = int(counts[key])
+            r[f"{phase}_max_abs_err"] = checks[short]["err"]
     (a, a_lo, a_hi), (c, c_lo, c_hi) = b7_ab["B7"], b7_ab["index_select"]
     kernels[6].update(ab_ms=a, ab_lo_ms=a_lo, ab_hi_ms=a_hi, ab_library_ms=c,
                       ab_library_lo_ms=c_lo, ab_library_hi_ms=c_hi)
@@ -3793,16 +4296,16 @@ def main() -> int:
                        long_row_bound_ms=long10["bound"][0],
                        long_row_max_abs_err=long10["err"])
     # the redesign order: device time lost against the bound over each
-    # kernel's path in this run, at llama's full depth: B1, B2, B3, B5 and
-    # B6 were counted in [main] and [dense-layout], which ran MAIN_DEPTH
-    # layers, so their launches count n_layers / MAIN_DEPTH times; B2, B5
-    # and B9 by their scoring launch alone, so that B1 (their second
-    # launch) is counted once
-    depth = cfg.n_layers / MAIN_DEPTH
+    # kernel's path in this run, at llama's full depth: every launch was
+    # counted in the engine phases, which ran MAIN_DEPTH layers ([main],
+    # [dense-layout]: B1/B2/B3/B5/B6) or ENGINE_DEPTH (B4, B7, B8, B9,
+    # B10), so they count n_layers / depth times; B2, B5 and B9 by their
+    # scoring launch alone, so that B1 (their second launch) is counted once
+    engine_rows = ("B4", "B7", "B8", "B9", "B10")
 
     def at_depth(k):
-        return k["launches"] * (depth if k["name"].split()[0] in
-                                ("B1", "B2", "B3", "B5", "B6") else 1)
+        ran = ENGINE_DEPTH if k["name"].split()[0] in engine_rows else MAIN_DEPTH
+        return k["launches"] * cfg.n_layers / ran
 
     lost = sorted(((at_depth(k) * (k.get("scoring_ms", k["ms"])
                                    - k.get("scoring_bound_ms", k["bound_ms"])) / 1e3,

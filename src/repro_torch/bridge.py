@@ -1,4 +1,5 @@
-"""Carry the JAX package's parameters over to the PyTorch port.
+"""Carry the JAX package's parameters over to the PyTorch port, and cut a
+tree into the blocks of a mesh's ranks.
 
 The caller turns the JAX parameter tree into numpy arrays
 (`jax.tree.map(np.asarray, params)`) and passes the nested dict; this
@@ -6,14 +7,20 @@ module never imports jax. The layouts already agree (weights (in, out),
 layers stacked on a leading axis), so the conversion is leaf by leaf.
 bfloat16 leaves (`ml_dtypes.bfloat16`, which torch cannot read directly)
 go through float32, which holds every bfloat16 value exactly.
+
+`shard_tree(tree, specs, mesh)` gives a rank the block of every leaf that
+its spec assigns it (what JAX's NamedSharding places on that device);
+`unshard_tree` puts the ranks' blocks back together (tests).
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import block_slices
 
 
 def to_torch(arr, device="cpu") -> torch.Tensor:
@@ -29,3 +36,48 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return to_torch(tree, device)
+
+
+def _zip_map(fn, specs: Any, *trees: Any) -> Any:
+    """fn(spec, leaf, ...) over nested dicts whose leaves are specs (which
+    are tuples, so a generic tree walk would descend into them)."""
+    if isinstance(specs, dict):
+        return {k: _zip_map(fn, v, *(t[k] for t in trees))
+                for k, v in specs.items()}
+    return fn(specs, *trees)
+
+
+def shard_tree(tree: Any, specs: Any, mesh,
+               coords: Optional[Dict[str, int]] = None) -> Any:
+    """The block of every leaf of `tree` that the rank at `coords` (a
+    `Mesh`'s own by default; give them for an `AbstractMesh`) holds under
+    the same-keyed `specs`, as contiguous tensors."""
+    coords = mesh.coords if coords is None else coords
+    return _zip_map(lambda spec, x: x[block_slices(
+        spec, x.shape, mesh, coords)].contiguous(), specs, tree)
+
+
+def unshard_tree(blocks: Sequence[Any], specs: Any, mesh) -> Any:
+    """The inverse of `shard_tree`: `blocks[r]` is the tree of the rank
+    whose coordinates are the row-major unravelling of r over
+    `mesh.axis_names`; each leaf is rebuilt from its blocks (a replicated
+    dimension from the last rank that holds that block)."""
+    names = mesh.axis_names
+    coords = []
+    for r in range(len(blocks)):
+        c, rest = {}, r
+        for a in reversed(names):
+            c[a], rest = rest % mesh.shape[a], rest // mesh.shape[a]
+        coords.append(c)
+
+    def join(spec, *parts):
+        full = list(parts[0].shape)
+        for d, entry in enumerate(spec):
+            for a in ((entry,) if isinstance(entry, str) else entry or ()):
+                full[d] *= mesh.shape[a]
+        out = parts[0].new_empty(full)
+        for part, c in zip(parts, coords):
+            out[block_slices(spec, full, mesh, c)] = part
+        return out
+
+    return _zip_map(join, specs, *blocks)

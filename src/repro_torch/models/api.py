@@ -14,15 +14,32 @@ and `DecodeEngine` refuses them with the reference's ValueError.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.parallel.sharding import block_slices
+from repro_torch.tree import tree_map
 from . import encdec, hybrid, ssm, transformer
 from .config import ModelConfig
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
              "audio": encdec, "ssm": ssm, "hybrid": hybrid}
+
+# the reference's shape cells
+SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1,
+                      seq_sharded=True),
+}
+
+
+class ShapeDtype(NamedTuple):
+    """An array's shape and dtype, with no storage (`jax.ShapeDtypeStruct`)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
 
 
 def resolve_device(device=None) -> torch.device:
@@ -43,11 +60,66 @@ class Model:
     mod: object
     device: torch.device
 
-    def init_params(self, seed: int = 0):
+    def init_params(self, seed: int = 0, *, mesh=None, rules=None):
         """Random-init parameters on the model's device, drawn from a
-        `torch.Generator` on that device seeded with `seed`."""
+        `torch.Generator` on that device seeded with `seed`. Under a `mesh`
+        and its `rules`: this rank's blocks of those same parameters (the
+        blocks `bridge.shard_tree` of `param_specs` gives), each layer cut
+        as it is drawn, so a rank never holds its whole tree."""
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        return self.mod.init_params(self.cfg, generator, self.device)
+        if mesh is None:
+            return self.mod.init_params(self.cfg, generator, self.device)
+        specs = self.param_specs(rules)
+
+        def block(path, x):
+            spec = specs
+            for key in path.split("/"):
+                spec = spec[key]
+            spec = spec[len(spec) - x.dim():]
+            return x[block_slices(spec, x.shape, mesh, mesh.coords)].contiguous()
+
+        return self.mod.init_params(self.cfg, generator, self.device,
+                                    block=block)
+
+    def param_specs(self, rules):
+        """The spec of every parameter leaf under `rules` (the reference's
+        tree and names; `bridge.shard_tree` takes a rank's blocks)."""
+        return self.mod.param_specs(self.cfg, rules)
+
+    def state_specs(self, rules, *, batch, max_len, seq_sharded=False):
+        """The spec of every leaf of `init_decode_state(batch, max_len)`."""
+        return self.mod.state_specs(self.cfg, rules, batch=batch,
+                                    max_len=max_len, seq_sharded=seq_sharded)
+
+    def input_specs(self, shape: str) -> Dict[str, ShapeDtype]:
+        """The inputs of a shape cell as shapes and dtypes: tokens and
+        targets (frames for the audio family, patch embeddings for the
+        vlm) for train and prefill; one token a row for decode, whose
+        cache is `decode_state_specs`."""
+        s = SHAPES[shape]
+        b, sl = s["global_batch"], s["seq_len"]
+        if s["kind"] not in ("train", "prefill"):
+            return {"tokens": ShapeDtype((b,), torch.int32)}
+        specs = {"tokens": ShapeDtype((b, sl), torch.int32),
+                 "targets": ShapeDtype((b, sl), torch.int32)}
+        dt = transformer.torch_dtype(self.cfg.dtype)
+        if self.cfg.family == "audio":
+            specs["frames"] = ShapeDtype(
+                (b, self.cfg.encoder_frames, self.cfg.d_model), dt)
+        if self.cfg.num_patches:
+            specs["patch_embeds"] = ShapeDtype(
+                (b, self.cfg.num_patches, self.cfg.d_model), dt)
+        return specs
+
+    def decode_state_specs(self, shape: str) -> Dict[str, Any]:
+        """The decode state of a decode shape cell as shapes and dtypes
+        (built on the meta device: nothing is allocated)."""
+        s = SHAPES[shape]
+        if s["kind"] != "decode":
+            raise ValueError(f"{shape!r} is not a decode shape cell")
+        state = self.mod.init_decode_state(self.cfg, s["global_batch"],
+                                           s["seq_len"], device="meta")
+        return tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype), state)
 
     def loss_fn(self, params, batch):
         """Mean next-token cross-entropy of `batch`, a dict of tensors on
@@ -105,12 +177,21 @@ class Model:
             self.cfg, state, slot)
 
     def serve_step(self, params, state, tokens, *, min_write_pos=None,
-                   seq_sharded: bool = False):
+                   mesh=None, rules=None, seq_sharded: bool = False):
         """One dense-layout decode step (see transformer.serve_step; the
         enc-dec, ssm and hybrid steps take no `min_write_pos`, as the
-        reference's). `seq_sharded` reaches the hybrid step alone, as in
-        the reference's facade."""
+        reference's). Under a `mesh` (`launch.make_mesh`) and its `rules`
+        each rank passes the blocks `bridge.shard_tree` gives it of the
+        parameters and state and the global tokens, and gets the logits of
+        its own batch rows. `seq_sharded` reaches the hybrid step alone, as
+        in the reference's facade."""
         kw = {} if min_write_pos is None else {"min_write_pos": min_write_pos}
+        if mesh is not None:
+            if self.mod in (encdec, ssm):
+                raise NotImplementedError(
+                    f"the {self.cfg.family} family's step under a mesh is "
+                    f"not ported yet (ROADMAP item 7)")
+            kw.update(mesh=mesh, rules=rules)
         if self.cfg.family == "hybrid":
             kw["seq_sharded"] = seq_sharded
         return self.mod.serve_step(params, state, tokens, self.cfg, **kw)
@@ -178,6 +259,15 @@ class Model:
             params, state, tokens, self.cfg, mesh=mesh, draft_len=draft_len,
             max_accept=max_accept, eos_id=eos_id,
             min_write_pos=min_write_pos, verify_kernel=verify_kernel)
+
+
+def supported_shapes(cfg: ModelConfig) -> list:
+    """The shape cells that apply to `cfg`: long_500k only for the
+    sub-quadratic families (ssm, hybrid)."""
+    shapes = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.family in ("ssm", "hybrid"):
+        shapes.append("long_500k")
+    return shapes
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

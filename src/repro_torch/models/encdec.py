@@ -35,55 +35,85 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.core.temporal import seed_slot_idx
+from repro_torch.parallel.sharding import MeshRules, P, stacked
 from repro_torch.sparse import dsa as dsa_mod
 from .config import ModelConfig
 from .layers import (apply_rotary, blockwise_causal_attention, cross_entropy,
                      decode_attention, gelu_mlp, remat_call, rms_norm)
-from .transformer import layer_params, torch_dtype, unstack_layers
+from .transformer import drawer, layer_params, torch_dtype, unstack_layers
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> Dict[str, Any]:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device,
+                block=None) -> Dict[str, Any]:
     """Random-init parameters from `generator`, the reference's tree
     stacked over layers: N(0, 1/fan_in) weights (`enc_pos` at 0.02, the
-    embedding at 1), unit norms, zero f32 MLP biases."""
+    embedding at 1), unit norms, zero f32 MLP biases. The weights are
+    drawn one layer at a time (`transformer.drawer`; `block` cuts each to
+    a rank's block)."""
     dtype = torch_dtype(cfg.dtype)
     d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
-
-    def dense(shape, scale):
-        return (torch.randn(shape, generator=generator, device=device)
-                * scale).to(dtype)
+    dense = drawer(generator, device, dtype, block)
 
     def f32(shape, value):
         return torch.full(shape, value, dtype=torch.float32, device=device)
 
-    def attn(l):
-        return {"wq": dense((l, d, cfg.n_heads * hd), d ** -0.5),
-                "wk": dense((l, d, cfg.n_kv_heads * hd), d ** -0.5),
-                "wv": dense((l, d, cfg.n_kv_heads * hd), d ** -0.5),
-                "wo": dense((l, cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5)}
+    def attn(l, at):
+        return {"wq": dense((l,), (d, cfg.n_heads * hd), d ** -0.5, at + "/wq"),
+                "wk": dense((l,), (d, cfg.n_kv_heads * hd), d ** -0.5, at + "/wk"),
+                "wv": dense((l,), (d, cfg.n_kv_heads * hd), d ** -0.5, at + "/wv"),
+                "wo": dense((l,), (cfg.n_heads * hd, d),
+                            (cfg.n_heads * hd) ** -0.5, at + "/wo")}
 
-    def mlp(l):
-        return {"w_up": dense((l, d, f), d ** -0.5), "b_up": f32((l, f), 0.0),
-                "w_down": dense((l, f, d), f ** -0.5), "b_down": f32((l, d), 0.0)}
+    def mlp(l, at):
+        return {"w_up": dense((l,), (d, f), d ** -0.5, at + "/w_up"),
+                "b_up": f32((l, f), 0.0),
+                "w_down": dense((l,), (f, d), f ** -0.5, at + "/w_down"),
+                "b_down": f32((l, d), 0.0)}
 
     enc_l, dec_l = cfg.encoder_layers or cfg.n_layers, cfg.n_layers
     decoder = {"ln1": f32((dec_l, d), 1.0), "ln2": f32((dec_l, d), 1.0),
-               "ln3": f32((dec_l, d), 1.0), "self_attn": attn(dec_l),
-               "cross_attn": attn(dec_l), "mlp": mlp(dec_l)}
+               "ln3": f32((dec_l, d), 1.0),
+               "self_attn": attn(dec_l, "decoder/self_attn"),
+               "cross_attn": attn(dec_l, "decoder/cross_attn"),
+               "mlp": mlp(dec_l, "decoder/mlp")}
     if cfg.dsa.enabled:
         decoder["indexer"] = dsa_mod.indexer_init(
             generator, d, cfg.dsa.indexer_heads, cfg.dsa.indexer_dim, dtype,
             device, layers=dec_l)
     return {
-        "embed": dense((cfg.vocab, d), 1.0),
-        "enc_pos": dense((cfg.encoder_frames, d), 0.02),
+        "embed": dense((), (cfg.vocab, d), 1.0, "embed"),
+        "enc_pos": dense((), (cfg.encoder_frames, d), 0.02),
         "encoder": {"ln1": f32((enc_l, d), 1.0), "ln2": f32((enc_l, d), 1.0),
-                    "attn": attn(enc_l), "mlp": mlp(enc_l)},
+                    "attn": attn(enc_l, "encoder/attn"),
+                    "mlp": mlp(enc_l, "encoder/mlp")},
         "decoder": decoder,
         "enc_norm": f32((d,), 1.0),
         "final_norm": f32((d,), 1.0),
-        "lm_head": dense((d, cfg.vocab), d ** -0.5),
+        "lm_head": dense((), (d, cfg.vocab), d ** -0.5, "lm_head"),
+    }
+
+
+def param_specs(cfg: ModelConfig, rules: MeshRules) -> Dict[str, Any]:
+    """The reference's specs of `init_params`'s tree under `rules`."""
+    d, hd = cfg.d_model, cfg.hd
+    sp = rules.spec
+    attn = {"wq": sp("d_model", "heads", sizes=(d, cfg.n_heads * hd)),
+            "wk": sp("d_model", "kv_heads", sizes=(d, cfg.n_kv_heads * hd)),
+            "wv": sp("d_model", "kv_heads", sizes=(d, cfg.n_kv_heads * hd)),
+            "wo": sp("heads", "d_model", sizes=(cfg.n_heads * hd, d))}
+    mlp = {"w_up": sp("d_model", "d_ff", sizes=(d, cfg.d_ff)), "b_up": P(None),
+           "w_down": sp("d_ff", "d_model", sizes=(cfg.d_ff, d)), "b_down": P(None)}
+    enc = {"ln1": P(None), "ln2": P(None), "attn": attn, "mlp": mlp}
+    dec = {"ln1": P(None), "ln2": P(None), "ln3": P(None),
+           "self_attn": attn, "cross_attn": attn, "mlp": mlp}
+    if cfg.dsa.enabled:
+        dec["indexer"] = {"wq": P(None, None), "wk": P(None, None), "w": P(None)}
+    return {
+        "embed": sp("vocab", "d_model", sizes=(cfg.vocab, d)),
+        "enc_pos": P(None, None),
+        "encoder": stacked(enc), "decoder": stacked(dec),
+        "enc_norm": P(None), "final_norm": P(None),
+        "lm_head": sp("d_model", "vocab", sizes=(d, cfg.vocab)),
     }
 
 
@@ -200,6 +230,31 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *, device,
         base = seed_slot_idx(kk, max(max_len, 2), device)
         state["prev_topk"] = base[None, None].expand(l, batch, kk).clone()
     return state
+
+
+def state_specs(cfg: ModelConfig, rules: MeshRules, *, batch: int,
+                max_len: int, seq_sharded: bool = False) -> Dict[str, Any]:
+    """The reference's specs of `init_decode_state`'s leaves."""
+    l, hd = cfg.n_layers, cfg.hd
+    sp = rules.spec
+    seq_ax = "seq_shard" if seq_sharded else None
+    specs = {
+        "k": sp(None, "batch", seq_ax, "kv_heads", None,
+                sizes=(l, batch, max_len, cfg.n_kv_heads, hd)),
+        "v": sp(None, "batch", seq_ax, "kv_heads", None,
+                sizes=(l, batch, max_len, cfg.n_kv_heads, hd)),
+        "ck": sp(None, "batch", None, "kv_heads", None,
+                 sizes=(l, batch, cfg.encoder_frames, cfg.n_kv_heads, hd)),
+        "cv": sp(None, "batch", None, "kv_heads", None,
+                 sizes=(l, batch, cfg.encoder_frames, cfg.n_kv_heads, hd)),
+        "length": P(None),
+    }
+    if cfg.dsa.enabled:
+        specs["idx_k"] = sp(None, "batch", seq_ax, None,
+                            sizes=(l, batch, max_len, cfg.dsa.indexer_dim))
+        specs["prev_topk"] = sp(None, "batch", None,
+                                sizes=(l, batch, min(cfg.dsa.k, max_len)))
+    return specs
 
 
 def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig):

@@ -28,6 +28,12 @@ the backward pass under `remat`) keeps the reference's own chain, which
 differs: its conv sums in the activation dtype and its SiLU output stays
 in f32 through `x_proj` (`_mamba_train`).
 
+Under a ("data", "model") mesh (`serve_step(mesh=, rules=,
+seq_sharded=)`) each rank runs the step on its blocks: heads, Mamba
+channels, `d_ff` and experts over "model", the batch over "data", and
+with `seq_sharded` the attention layer's caches over the sequence on
+"data" through SP-DSA (`sparse/sp_dsa.py`).
+
 The reference serves this family step by step only: it defines no
 slot-wise, paged or speculative hooks, so `DecodeEngine` refuses it. The
 K/V and indexer-K caches are written in place (the
@@ -37,19 +43,22 @@ DSA, `prev_topk` come back as new tensors.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.temporal import linspace_i32
+from repro_torch.parallel.sharding import (MeshRules, P, block_slices, stacked,
+                                         unstacked)
 from repro_torch.sparse import dsa as dsa_mod
 from .config import ModelConfig
 from .layers import (apply_rotary, blockwise_causal_attention, cross_entropy,
-                     decode_attention, moe_mlp_dense_fallback, remat_call,
-                     rms_norm, swiglu_mlp)
-from .transformer import layer_params, torch_dtype, unstack_layers
+                     decode_attention, moe_mlp_ep, remat_call, rms_norm)
+from .tensor_parallel import NO_MESH, Heads, Placement, axis_of, heads_of
+from .transformer import drawer, layer_params, torch_dtype, unstack_layers
 
 SB = 8  # superblock size: 1 attention layer + 7 Mamba layers
 
@@ -61,16 +70,17 @@ def _dims(cfg: ModelConfig):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> Dict[str, Any]:
+                device, block=None) -> Dict[str, Any]:
     """Random-init parameters from `generator` in the reference's tree and
     at its scales: N(0, 1/fan_in) weights (the experts' w_gate and w_up
     at E^-0.5, as the reference's `_dense` scales by shape[0]; the
     embedding at 1; `conv_w` N(0, 0.01)), unit norms, and the f32 Mamba
     constants (`conv_b` and `dt_bias` 0, `d_skip` 1, `a_log` =
     log(1..d_state), taken in numpy: torch's float32 log rounds log(7)
-    one ulp away from the reference's). Each superblock's layers are drawn one at a time
-    into the model dtype: a whole f32 draw of the experts would be a
-    temporary as large as the bf16 weights twice over."""
+    one ulp away from the reference's). Each superblock's layers are
+    drawn one at a time into the model dtype (`transformer.drawer`;
+    `block` cuts each to a rank's block): a whole f32 draw of the experts
+    would be a temporary as large as the bf16 weights twice over."""
     if cfg.n_layers % SB:
         raise ValueError(f"jamba layers must be a multiple of {SB}, got "
                          f"{cfg.n_layers}")
@@ -80,16 +90,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     di, ds, dtr, dc = _dims(cfg)
     e, fe = cfg.moe.num_experts, cfg.moe.expert_d_ff
 
-    def dense(shape, scale, dt=dtype):
-        return (torch.randn(shape, generator=generator, device=device)
-                * scale).to(dt)
-
-    def stacked(lead, shape, scale, dt=dtype):
-        out = torch.empty(lead + shape, dtype=dt, device=device)
-        layers = out.view((-1,) + shape)
-        for i in range(layers.shape[0]):
-            layers[i] = dense(shape, scale, dt)
-        return out
+    draw = drawer(generator, device, dtype, block)
 
     def f32(shape, value):
         return torch.full(shape, value, dtype=torch.float32, device=device)
@@ -97,10 +98,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     m, h = (nsb, SB - 1), (nsb, SB // 2)
     attn = {
         "ln": f32((nsb, d), 1.0),
-        "wq": stacked((nsb,), (d, cfg.n_heads * hd), d ** -0.5),
-        "wk": stacked((nsb,), (d, cfg.n_kv_heads * hd), d ** -0.5),
-        "wv": stacked((nsb,), (d, cfg.n_kv_heads * hd), d ** -0.5),
-        "wo": stacked((nsb,), (cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5),
+        "wq": draw((nsb,), (d, cfg.n_heads * hd), d ** -0.5,
+                   path="blocks/attn/wq"),
+        "wk": draw((nsb,), (d, cfg.n_kv_heads * hd), d ** -0.5,
+                   path="blocks/attn/wk"),
+        "wv": draw((nsb,), (d, cfg.n_kv_heads * hd), d ** -0.5,
+                   path="blocks/attn/wv"),
+        "wo": draw((nsb,), (cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5,
+                   path="blocks/attn/wo"),
     }
     if cfg.dsa.enabled:
         attn["indexer"] = dsa_mod.indexer_init(
@@ -108,35 +113,81 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             device, layers=nsb)
     mamba = {
         "ln": f32(m + (d,), 1.0),
-        "in_proj": stacked(m, (d, 2 * di), d ** -0.5),
-        "conv_w": stacked(m, (dc, di), 0.1),
+        "in_proj": draw(m, (d, 2 * di), d ** -0.5, "blocks/mamba/in_proj"),
+        "conv_w": draw(m, (dc, di), 0.1),
         "conv_b": f32(m + (di,), 0.0),
-        "x_proj": stacked(m, (di, dtr + 2 * ds), di ** -0.5),
-        "dt_proj": stacked(m, (dtr, di), dtr ** -0.5),
+        "x_proj": draw(m, (di, dtr + 2 * ds), di ** -0.5),
+        "dt_proj": draw(m, (dtr, di), dtr ** -0.5),
         "dt_bias": f32(m + (di,), 0.0),
         "a_log": torch.as_tensor(np.log(np.arange(1, ds + 1, dtype=np.float32)),
                                  device=device).expand(m + (di, ds)).contiguous(),
         "d_skip": f32(m + (di,), 1.0),
-        "out_proj": stacked(m, (di, d), di ** -0.5),
+        "out_proj": draw(m, (di, d), di ** -0.5, "blocks/mamba/out_proj"),
     }
     ffn = {
         "ln": f32(h + (d,), 1.0),
-        "w_gate": stacked(h, (d, f), d ** -0.5),
-        "w_up": stacked(h, (d, f), d ** -0.5),
-        "w_down": stacked(h, (f, d), f ** -0.5),
+        "w_gate": draw(h, (d, f), d ** -0.5, "blocks/dense/w_gate"),
+        "w_up": draw(h, (d, f), d ** -0.5, "blocks/dense/w_up"),
+        "w_down": draw(h, (f, d), f ** -0.5, "blocks/dense/w_down"),
     }
     moe = {
         "ln": f32(h + (d,), 1.0),
-        "router": stacked(h, (d, e), d ** -0.5, torch.float32),
-        "w_gate": stacked(h, (e, d, fe), e ** -0.5),
-        "w_up": stacked(h, (e, d, fe), e ** -0.5),
-        "w_down": stacked(h, (e, fe, d), fe ** -0.5),
+        "router": draw(h, (d, e), d ** -0.5, dt=torch.float32),
+        "w_gate": draw(h, (e, d, fe), e ** -0.5, "blocks/moe/w_gate"),
+        "w_up": draw(h, (e, d, fe), e ** -0.5, "blocks/moe/w_up"),
+        "w_down": draw(h, (e, fe, d), fe ** -0.5, "blocks/moe/w_down"),
     }
     return {
-        "embed": dense((cfg.vocab, d), 1.0),
+        "embed": draw((), (cfg.vocab, d), 1.0, "embed"),
         "blocks": {"attn": attn, "mamba": mamba, "dense": ffn, "moe": moe},
         "final_norm": f32((d,), 1.0),
-        "lm_head": dense((d, cfg.vocab), d ** -0.5),
+        "lm_head": draw((), (d, cfg.vocab), d ** -0.5, "lm_head"),
+    }
+
+
+def param_specs(cfg: ModelConfig, rules: MeshRules) -> Dict[str, Any]:
+    """The reference's specs of `init_params`'s tree under `rules`: the
+    attention by heads, Mamba's `in_proj` by `d_ff` columns and
+    `out_proj` by rows (its other leaves replicated), the dense FFN by
+    `d_ff`, the experts by expert, the embedding and head by vocab."""
+    d, hd = cfg.d_model, cfg.hd
+    di = _dims(cfg)[0]
+    e, f = cfg.moe.num_experts, cfg.moe.expert_d_ff
+    sp = rules.spec
+    attn = {
+        "ln": P(None),
+        "wq": sp("d_model", "heads", sizes=(d, cfg.n_heads * hd)),
+        "wk": sp("d_model", "kv_heads", sizes=(d, cfg.n_kv_heads * hd)),
+        "wv": sp("d_model", "kv_heads", sizes=(d, cfg.n_kv_heads * hd)),
+        "wo": sp("heads", "d_model", sizes=(cfg.n_heads * hd, d)),
+    }
+    if cfg.dsa.enabled:
+        attn["indexer"] = {"wq": P(None, None), "wk": P(None, None),
+                           "w": P(None)}
+    mamba = {
+        "ln": P(None),
+        "in_proj": sp("d_model", "d_ff", sizes=(d, 2 * di)),
+        "conv_w": P(None, None), "conv_b": P(None),
+        "x_proj": P(None, None),
+        "dt_proj": P(None, None), "dt_bias": P(None),
+        "a_log": P(None, None), "d_skip": P(None),
+        "out_proj": sp("d_ff", "d_model", sizes=(di, d)),
+    }
+    dense = {"ln": P(None),
+             "w_gate": sp("d_model", "d_ff", sizes=(d, cfg.d_ff)),
+             "w_up": sp("d_model", "d_ff", sizes=(d, cfg.d_ff)),
+             "w_down": sp("d_ff", "d_model", sizes=(cfg.d_ff, d))}
+    moe = {"ln": P(None), "router": P(None, None),
+           "w_gate": sp("experts", None, None, sizes=(e, d, f)),
+           "w_up": sp("experts", None, None, sizes=(e, d, f)),
+           "w_down": sp("experts", None, None, sizes=(e, f, d))}
+    blocks = {"attn": attn, "mamba": stacked(mamba), "dense": stacked(dense),
+              "moe": stacked(moe)}
+    return {
+        "embed": sp("vocab", "d_model", sizes=(cfg.vocab, d)),
+        "blocks": stacked(blocks),
+        "final_norm": P(None),
+        "lm_head": sp("d_model", "vocab", sizes=(d, cfg.vocab)),
     }
 
 
@@ -170,38 +221,84 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *, device,
     return state
 
 
+def state_specs(cfg: ModelConfig, rules: MeshRules, *, batch: int,
+                max_len: int, seq_sharded: bool = False) -> Dict[str, Any]:
+    """The reference's specs of `init_decode_state`'s leaves: the caches
+    by batch and KV head (and over the sequence under `seq_sharded`), the
+    Mamba state and conv cache by batch and channel (`d_ff`)."""
+    nsb = cfg.n_layers // SB
+    di, ds, _, dc = _dims(cfg)
+    seq_ax = "seq_shard" if seq_sharded else None
+    sp = rules.spec
+    cache = (nsb, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    specs = {
+        "k": sp(None, "batch", seq_ax, "kv_heads", None, sizes=cache),
+        "v": sp(None, "batch", seq_ax, "kv_heads", None, sizes=cache),
+        "h": sp(None, None, "batch", "d_ff", None,
+                sizes=(nsb, SB - 1, batch, di, ds)),
+        "conv": sp(None, None, "batch", None, "d_ff",
+                   sizes=(nsb, SB - 1, batch, dc - 1, di)),
+        "length": P(None),
+    }
+    if cfg.dsa.enabled:
+        specs["idx_k"] = sp(None, "batch", seq_ax, None,
+                            sizes=cache[:3] + (cfg.dsa.indexer_dim,))
+        specs["prev_topk"] = sp(None, "batch", None,
+                                sizes=(nsb, batch, min(cfg.dsa.k, max_len)))
+    return specs
+
+
 def _mamba_step(p, x: torch.Tensor, h: torch.Tensor, conv: torch.Tensor,
-                cfg: ModelConfig):
+                cfg: ModelConfig, tp: Optional["_Layout"] = None):
     """One decode token of a Mamba layer. x: (B, D) normed input; h: (B,
     d_inner, d_state) f32; conv: (B, d_conv - 1, d_inner). Returns (out
-    (B, D), new h, new conv)."""
+    (B, D), new h, new conv).
+
+    Under a mesh (`tp`) h and conv hold the rank's block of channels
+    where `state_specs` shards `d_ff`: `in_proj`'s column block is
+    gathered and the rank keeps its channels of x1 and z, the conv and
+    the scan run on them alone, and the two contractions over channels
+    (`x_proj`, `out_proj`) are summed over the axis."""
     di, ds, dtr, _ = _dims(cfg)
-    xz = x @ p["in_proj"]
-    x1, z = xz[..., :di], xz[..., di:]
+    tp = tp or _plain_layout(cfg)
+    c = tp.channels
+    xz = tp.pl.cols(x, p["in_proj"], tp.mamba["in_proj"][1], gather=True,
+                    tag="in_proj")
+    x1, z = xz[..., :di][..., c], xz[..., di:][..., c]
     window = torch.cat([conv, x1[:, None]], dim=1)          # (B, dc, di)
-    xc = torch.einsum("bcd,cd->bd", window.float(), p["conv_w"].float())
-    xc = F.silu(xc + p["conv_b"]).to(x.dtype)
-    proj = xc @ p["x_proj"]
-    dt = F.softplus(proj[..., :dtr] @ p["dt_proj"] + p["dt_bias"])  # f32
+    xc = torch.einsum("bcd,cd->bd", window.float(), p["conv_w"][:, c].float())
+    xc = F.silu(xc + p["conv_b"][c]).to(x.dtype)
+    proj = tp.pl.rows_in(xc, p["x_proj"][c], tp.mamba["out_proj"][0],
+                         local=True, tag="x_proj")
+    dt = F.softplus(proj[..., :dtr] @ p["dt_proj"][:, c] + p["dt_bias"][c])
     bmat = proj[..., dtr:dtr + ds].float()
     cmat = proj[..., dtr + ds:].float()
-    a = -torch.exp(p["a_log"])
+    a = -torch.exp(p["a_log"][c])
     ad = torch.exp(dt.float()[..., None] * a[None])
     h = ad * h + (dt.float() * xc.float())[..., None] * bmat[:, None, :]
-    y = torch.einsum("bds,bs->bd", h, cmat) + p["d_skip"] * xc.float()
+    y = torch.einsum("bds,bs->bd", h, cmat) + p["d_skip"][c] * xc.float()
     y = y.to(x.dtype) * F.silu(z)
-    return y @ p["out_proj"], h, window[:, 1:]
+    return (tp.pl.rows_in(y, p["out_proj"], tp.mamba["out_proj"][0],
+                          local=True, tag="out_proj"), h, window[:, 1:])
 
 
-def _ffn(p, x: torch.Tensor, cfg: ModelConfig, is_moe: bool) -> torch.Tensor:
+def _ffn(p, x: torch.Tensor, cfg: ModelConfig, is_moe: bool,
+         tp: Optional["_Layout"] = None) -> torch.Tensor:
     """The feed-forward over x normed: the MoE or SwiGLU. x is (B, D), one
     token per row, which the MoE takes in the reference's (B, 1, D) call
-    shape, or the training path's (B, S, D)."""
+    shape, or the training path's (B, S, D). Under a mesh (`tp`) the MoE
+    is `layers.moe_mlp_ep` over the experts' axis and the SwiGLU runs by
+    `d_ff` with a psum; with no mesh they are the dense fallback and the
+    plain SwiGLU."""
+    tp = tp or _plain_layout(cfg)
     if is_moe:
-        return moe_mlp_dense_fallback(
+        return moe_mlp_ep(
             x.reshape(x.shape[0], -1, x.shape[-1]), p["router"], p["w_gate"],
-            p["w_up"], p["w_down"], top_k=cfg.moe.top_k).reshape(x.shape)
-    return swiglu_mlp(x, p["w_gate"], p["w_up"], p["w_down"])
+            p["w_up"], p["w_down"], top_k=cfg.moe.top_k,
+            capacity_factor=cfg.moe.capacity_factor, mesh=tp.pl.mesh,
+            expert_axis=tp.experts).reshape(x.shape)
+    return tp.pl.swiglu(x, p["w_gate"], p["w_up"], p["w_down"],
+                        tp.dense["w_down"][0])
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -288,28 +385,106 @@ def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
     return cross_entropy(forward_train(params, batch["tokens"], cfg), batch)
 
 
-def attention_layer(pa, x: torch.Tensor, state, sb: int, cfg: ModelConfig):
+class _Layout(NamedTuple):
+    """Where a step's arrays live on this rank (see `serve_step`);
+    `_plain_layout(cfg)`, with no mesh, is the identity: all heads and
+    channels, every entry None, no SP-DSA layer."""
+    pl: Placement
+    heads: Heads
+    attn: Dict[str, Any]      # the specs of a superblock's layers
+    mamba: Dict[str, Any]
+    dense: Dict[str, Any]
+    embed: Any                # the vocab entries of the embedding and head
+    head: Any
+    experts: Any              # the experts' axis
+    channels: slice           # the rank's Mamba channels
+    sp_layer: Any             # the SP-DSA layer, or None
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_layout(cfg: ModelConfig) -> _Layout:
+    return _layout(cfg, None, NO_MESH, 0, 0, False, False)
+
+
+def _layout(cfg: ModelConfig, mesh, rules: MeshRules, batch: int,
+            max_len: int, seq_sharded: bool, use_sp: bool) -> _Layout:
+    psp = param_specs(cfg, rules)
+    bsp = psp["blocks"]                         # (nsb[, layers], ...)
+    ssp = state_specs(cfg, rules, batch=batch, max_len=max_len,
+                      seq_sharded=seq_sharded)
+    if mesh is not None:
+        # the batch and the sequence on one axis: refused, as NamedSharding does
+        block_slices(ssp["k"], (cfg.n_layers // SB, batch, max_len,
+                                cfg.n_kv_heads, cfg.hd), mesh, mesh.coords)
+    heads = heads_of(cfg, ssp["k"][3], mesh)
+    if heads.axis is not None and any(
+            axis_of(mesh, bsp["attn"][w][c]) is not heads.axis
+            for w, c in (("wq", 2), ("wk", 2), ("wv", 2), ("wo", 1))):
+        raise NotImplementedError("the cache's KV heads and the attention "
+                                  "weights are sharded over different axes")
+    ax = axis_of(mesh, ssp["h"][3])
+    di = _dims(cfg)[0]
+    channels = (slice(None) if ax is None else
+                slice(ax.rank * di // ax.size, (ax.rank + 1) * di // ax.size))
+    experts = bsp["moe"]["w_gate"][2]
+    if (mesh is not None and cfg.moe.num_experts
+            and axis_of(mesh, experts) is None):
+        raise ValueError(f"{cfg.moe.num_experts} experts do not divide the "
+                         f"expert axis of {mesh.shape}")
+    sp_layer = None
+    if use_sp:
+        from repro_torch.sparse.sp_dsa import make_sp_dsa
+        seq = ssp["k"][2]
+        sp_layer = make_sp_dsa(
+            mesh, k=min(cfg.dsa.k, max_len), scale=cfg.hd ** -0.5,
+            heads=cfg.dsa.indexer_heads, dim=cfg.dsa.indexer_dim,
+            rope_base=cfg.rope_base, seq_axis=seq,
+            head_axis=None if heads.axis is None else heads.axis.name,
+            shard_heads=heads.axis is not None)
+    return _Layout(Placement(mesh, rules, batch), heads,
+                   unstacked(bsp["attn"]), unstacked(bsp["mamba"], 2),
+                   unstacked(bsp["dense"], 2), psp["embed"][0],
+                   psp["lm_head"][1], experts, channels, sp_layer)
+
+
+def attention_layer(pa, x: torch.Tensor, state, sb: int, cfg: ModelConfig,
+                    tp: Optional[_Layout] = None):
     """Superblock `sb`'s attention layer on the residual x (B, D): writes
     the new K/V (and indexer-K) rows in place at `length`, clamped to N-1
     as the reference's `dynamic_update_slice` clamps it, then attends —
     through DSA when N > `dsa.min_n`, densely otherwise. Returns (attn
-    (B, H, hd) f32, the layer's next `prev_topk` (B, K) or None)."""
+    (B, H, hd) f32, the layer's next `prev_topk` (B, K) or None).
+
+    Under a mesh (`tp`): x and the state are the rank's rows, q/k/v its
+    heads (or all heads, gathered); with the SP-DSA layer the rank's cache
+    is its span of the sequence and the layer writes and attends over it
+    (`sparse/sp_dsa.py`)."""
     b = x.shape[0]
-    hd, kvh = cfg.hd, cfg.n_kv_heads
-    positions = state["length"]
+    hd = cfg.hd
+    tp = tp or _plain_layout(cfg)
+    positions = state["length"][tp.pl.rows]
     new_len = positions + 1
     n = state["k"].shape[2]
     rows = torch.arange(b, device=positions.device)
     wpos = positions.clamp(max=n - 1).long()
     pos = positions[:, None]
     h = rms_norm(x, pa["ln"])
-    q = apply_rotary((h @ pa["wq"]).reshape(b, 1, cfg.n_heads, hd), pos,
-                     base=cfg.rope_base)[:, 0]
-    kn = apply_rotary((h @ pa["wk"]).reshape(b, 1, kvh, hd), pos,
-                      base=cfg.rope_base)[:, 0]
+    hl, kvl = tp.heads.hl, tp.heads.kvl
+    q, kn, vn = (tp.pl.cols(h, pa[w], tp.attn[w][1],
+                            gather=tp.heads.axis is None, tag=w)
+                 for w in ("wq", "wk", "wv"))
+    q = apply_rotary(q.reshape(b, 1, hl, hd), pos, base=cfg.rope_base)[:, 0]
+    kn = apply_rotary(kn.reshape(b, 1, kvl, hd), pos, base=cfg.rope_base)[:, 0]
+    vn = vn.reshape(b, kvl, hd)
     kc, vc = state["k"][sb], state["v"][sb]
+    if tp.sp_layer is not None:
+        ik = dsa_mod.indexer_k(pa["indexer"], h, positions,
+                               dim=cfg.dsa.indexer_dim, rope_base=cfg.rope_base)
+        res = tp.sp_layer(q, kc, vc, state["idx_k"][sb], h, pa["indexer"],
+                          state["prev_topk"][sb], new_len, kn, vn, ik)
+        return res.attn_out, res.new_topk.int()
     kc[rows, wpos] = kn.to(kc.dtype)
-    vc[rows, wpos] = (h @ pa["wv"]).reshape(b, kvh, hd).to(vc.dtype)
+    vc[rows, wpos] = vn.to(vc.dtype)
     if cfg.dsa.enabled:
         idx_kc = state["idx_k"][sb]
         idx_kc[rows, wpos] = dsa_mod.indexer_k(
@@ -328,39 +503,68 @@ def attention_layer(pa, x: torch.Tensor, state, sb: int, cfg: ModelConfig):
 
 
 def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
+               mesh=None, rules: Optional[MeshRules] = None,
                seq_sharded: bool = False):
     """One decode step. tokens: (B,) int. Returns (logits (B, V) f32,
     new_state). Per superblock: the attention layer, then the 8 layers in
     the reference's order — Mamba on layers 1-7, then the MoE on odd
-    layers and the dense FFN on even ones."""
-    if seq_sharded:
-        raise NotImplementedError(
-            "seq_sharded serving of the hybrid family needs a "
-            "('data', 'model') mesh, which the port does not build yet "
-            "(ROADMAP item 7)")
+    layers and the dense FFN on even ones.
+
+    Under a `mesh` (`launch.make_mesh`, ("data", "model")) and its `rules`
+    the step runs on one rank, as `transformer.serve_step` does:
+    params and state are the rank's blocks (`bridge.shard_tree` of
+    `param_specs` and `state_specs(seq_sharded=)`), tokens the global
+    batch, the logits those of the rank's rows. With `seq_sharded` and N
+    > `dsa.min_n` the attention layers run SP-DSA: the caches are sharded
+    over the sequence on "data", SP-GVR and the flash-style combine run
+    over that axis, and q's heads are the rank's own over "model" where
+    the cache is sharded by KV head. The reference head-shards by its
+    `ok_heads` rule (n_heads / model % n_kv_heads == 0) over replicated
+    KV heads and groups the rank's query heads over all KV heads, which
+    pairs a query head with another group's keys whenever n_kv_heads > 1;
+    the port keeps each head with its own KV head, so the sharded step
+    equals the unsharded one (ROADMAP Queue C). Without a mesh,
+    `seq_sharded` changes nothing, as in the reference (its SP path needs
+    a mesh)."""
     b = tokens.shape[0]
-    x = params["embed"][tokens.long()]                     # (B, D)
+    nsb = cfg.n_layers // SB
+    tp = _plain_layout(cfg)
+    if mesh is not None:
+        n = state["k"].shape[2]
+        if seq_sharded:
+            n *= mesh.index(rules.axes("seq_shard"))[1]
+        use_sp = (seq_sharded and cfg.dsa.enabled and n > cfg.dsa.min_n)
+        if seq_sharded and not use_sp:
+            raise NotImplementedError(
+                f"a sequence-sharded cache of {n} positions, at or below "
+                f"dsa.min_n = {cfg.dsa.min_n}: the dense attention over a "
+                f"sharded sequence is not ported")
+        tp = _layout(cfg, mesh, rules, b, n, seq_sharded, use_sp)
+    x = tp.pl.embed(params["embed"], tp.embed, tokens[tp.pl.rows])  # (B, D)
+    bl = x.shape[0]
     h_out, conv_out, topk_out = [], [], []
-    for sb in range(cfg.n_layers // SB):
+    for sb in range(nsb):
         p = layer_params(params["blocks"], sb)
         pa = p["attn"]
-        att, topk = attention_layer(pa, x, state, sb, cfg)
+        att, topk = attention_layer(pa, x, state, sb, cfg, tp)
         if topk is not None:
             topk_out.append(topk)
-        x = x + att.reshape(b, -1).to(x.dtype) @ pa["wo"]
+        att = att.reshape(bl, -1).to(x.dtype)
+        x = x + tp.pl.rows_in(att, pa["wo"], tp.attn["wo"][0],
+                              local=tp.heads.axis is not None, tag="wo")
         hs, convs = [], []
         for i in range(SB):
             if i > 0:
                 pm = layer_params(p["mamba"], i - 1)
                 y, hn, cn = _mamba_step(pm, rms_norm(x, pm["ln"]),
                                         state["h"][sb, i - 1],
-                                        state["conv"][sb, i - 1], cfg)
+                                        state["conv"][sb, i - 1], cfg, tp)
                 x = x + y
                 hs.append(hn)
                 convs.append(cn)
             kind = "moe" if i % 2 == 1 else "dense"
             pf = layer_params(p[kind], i // 2)
-            x = x + _ffn(pf, rms_norm(x, pf["ln"]), cfg, kind == "moe")
+            x = x + _ffn(pf, rms_norm(x, pf["ln"]), cfg, kind == "moe", tp)
         h_out.append(torch.stack(hs))
         conv_out.append(torch.stack(convs))
     new_state = dict(state, h=torch.stack(h_out), conv=torch.stack(conv_out),
@@ -368,4 +572,4 @@ def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
     if topk_out:
         new_state["prev_topk"] = torch.stack(topk_out)
     x = rms_norm(x, params["final_norm"])
-    return (x @ params["lm_head"]).float(), new_state
+    return tp.pl.logits(x, params["lm_head"], tp.head), new_state

@@ -229,3 +229,92 @@ def moe_mlp_dense_fallback(x: torch.Tensor, router_w: torch.Tensor,
     sel = torch.take_along_dim(all_down, eidx.reshape(b * s, top_k, 1), dim=1)
     out = gates.reshape(b * s, 1, top_k).to(sel.dtype) @ sel     # (T, 1, D)
     return out.reshape(b, s, d)
+
+
+def _ep_dispatch(xt: torch.Tensor, router_w: torch.Tensor, top_k: int,
+                 num_experts: int, capacity_factor: float):
+    """The reference's expert-parallel routing of one token slice xt (tm,
+    D): each of the tm * top_k assignments gets a rank within its expert
+    in token order (stable), and a slot expert * cap + rank while that
+    rank is below the capacity cap = max(int(a / E * cf), 4), else the
+    drop bucket E * cap. Returns (slot, gates (a,) f32, kept (a,), cap)."""
+    gates, eidx = moe_route(xt, router_w, top_k)           # (tm, K)
+    a = eidx.numel()
+    flat_e = eidx.reshape(a)
+    cap = max(int(a / num_experts * capacity_factor), 4)
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    seg_start = torch.searchsorted(
+        sorted_e, torch.arange(num_experts, device=xt.device))
+    rank = torch.empty_like(flat_e)
+    rank[order] = torch.arange(a, device=xt.device) - seg_start[sorted_e]
+    kept = rank < cap
+    slot = torch.where(kept, flat_e * cap + rank, num_experts * cap)
+    return slot, gates.reshape(a), kept, cap
+
+
+def _ep_slices(x: torch.Tensor, ep: int):
+    """The tokens of x (B, S, D) flattened, padded with zero rows to a
+    multiple of ep, in ep equal slices (the EP ranks' shares)."""
+    dm = x.shape[-1]
+    xt = x.reshape(-1, dm)
+    t_pad = -(-xt.shape[0] // ep) * ep
+    if t_pad != xt.shape[0]:
+        xt = torch.cat([xt, xt.new_zeros(t_pad - xt.shape[0], dm)])
+    return xt.chunk(ep)
+
+
+def moe_ep_drops(x: torch.Tensor, router_w: torch.Tensor, *, top_k: int,
+                 num_experts: int, capacity_factor: float, ep: int) -> int:
+    """How many of x's expert assignments `moe_mlp_ep` drops over an EP
+    extent of ep ranks (every rank's slice, each against its own
+    capacity)."""
+    return sum(int((~_ep_dispatch(xt, router_w, top_k, num_experts,
+                                  capacity_factor)[2]).sum())
+               for xt in _ep_slices(x, ep))
+
+
+def moe_mlp_ep(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
+               w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int,
+               capacity_factor: float = 1.25, mesh=None,
+               expert_axis: str = "model") -> torch.Tensor:
+    """The expert-parallel MoE feed-forward (Switch-style dispatch), the
+    reference's `moe_mlp_ep` on one rank of `mesh`.
+
+    x (B, S, D) is this rank's tokens (the batch rows its data axes give
+    it, or all rows where the batch does not divide them); w_gate, w_up
+    (E/ep, D, F) and w_down (E/ep, F, D) its block of the experts over
+    `expert_axis` (extent ep). The tokens are padded to a multiple of ep
+    and each EP rank routes its slice of them: assignments past an
+    expert's capacity drop; the kept rows go to their expert's owner in
+    one all_to_all, through the local experts as batched products, and
+    back in a second; each token sums its gate-weighted rows in top-k
+    order (the reference's scatter-add order, here deterministic on the
+    card as well), and an all_gather over `expert_axis` joins the slices.
+
+    Without a mesh it is the dense fallback, as in the reference."""
+    if mesh is None:
+        return moe_mlp_dense_fallback(x, router_w, w_gate, w_up, w_down,
+                                      top_k=top_k)
+    axis = mesh.axis(expert_axis)
+    ep = axis.size
+    e = w_gate.shape[0] * ep
+    bl, s, dm = x.shape
+    xt = _ep_slices(x, ep)[axis.rank]
+    tm = xt.shape[0]
+    slot, gates, _, cap = _ep_dispatch(xt, router_w, top_k, e,
+                                       capacity_factor)
+    flat_tok = torch.arange(tm, device=x.device).repeat_interleave(top_k)
+    send = xt.new_zeros(e * cap + 1, dm)
+    send[slot] = xt[flat_tok]
+    send = send[:-1].reshape(e, cap, dm)
+    recv = axis.all_to_all(send, 0, 1, tag="ep_dispatch")  # (E/ep, ep*cap, D)
+    h = F.silu(recv @ w_gate) * (recv @ w_up)
+    back = axis.all_to_all(h @ w_down, 1, 0, tag="ep_return")  # (E, cap, D)
+    back = torch.cat([back.reshape(e * cap, dm), back.new_zeros(1, dm)])
+    rows = (back[slot] * gates[:, None].to(back.dtype)).reshape(tm, top_k, dm)
+    yt = back.new_zeros(tm, dm)
+    for j in range(top_k):
+        yt = yt + rows[:, j]
+    y = axis.all_gather(yt, dim=0, tiled=True, tag="ep_tokens")
+    return y[:bl * s].reshape(bl, s, dm)

@@ -29,25 +29,29 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import MeshRules, P, stacked
+
 from .config import ModelConfig
 from .layers import cross_entropy, remat_call, rms_norm
-from .transformer import layer_params, torch_dtype, unstack_layers
+from .transformer import drawer, layer_params, torch_dtype, unstack_layers
 
 LORA_R = 32
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> Dict[str, Any]:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device,
+                block=None) -> Dict[str, Any]:
     """Random-init parameters from `generator`, the reference's tree
     stacked over layers: N(0, 1/fan_in) weights (the embedding at 1),
-    unit norms, mixes 0.5, `w0` -0.5 and the bonus `u` 0, all f32."""
+    unit norms, mixes 0.5, `w0` -0.5 and the bonus `u` 0, all f32. The
+    weights are drawn one layer at a time (`transformer.drawer`; `block`
+    cuts each to a rank's block)."""
     dtype = torch_dtype(cfg.dtype)
     l, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
     hd = cfg.rwkv_head_dim
+    draw = drawer(generator, device, dtype, block)
 
-    def dense(shape, scale):
-        return (torch.randn(shape, generator=generator, device=device)
-                * scale).to(dtype)
+    def dense(name, shape, scale):
+        return draw((l,), shape, scale, "layers/" + name)
 
     def f32(shape, value):
         return torch.full(shape, value, dtype=torch.float32, device=device)
@@ -57,21 +61,49 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         layers[name] = f32((l, d), 0.5)
     layers.update(
         w0=f32((l, d), -0.5),
-        w_a=dense((l, d, LORA_R), d ** -0.5),
-        w_b=dense((l, LORA_R, d), LORA_R ** -0.5),
+        w_a=dense("w_a", (d, LORA_R), d ** -0.5),
+        w_b=dense("w_b", (LORA_R, d), LORA_R ** -0.5),
         u=f32((l, d // hd, hd), 0.0),
-        wr=dense((l, d, d), d ** -0.5), wk=dense((l, d, d), d ** -0.5),
-        wv=dense((l, d, d), d ** -0.5), wg=dense((l, d, d), d ** -0.5),
-        wo=dense((l, d, d), d ** -0.5),
+        wr=dense("wr", (d, d), d ** -0.5), wk=dense("wk", (d, d), d ** -0.5),
+        wv=dense("wv", (d, d), d ** -0.5), wg=dense("wg", (d, d), d ** -0.5),
+        wo=dense("wo", (d, d), d ** -0.5),
         ln_x=f32((l, d), 1.0),
         mix_ck=f32((l, d), 0.5), mix_cr=f32((l, d), 0.5),
-        ck=dense((l, d, f), d ** -0.5), cv=dense((l, f, d), f ** -0.5),
-        cr=dense((l, d, d), d ** -0.5))
+        ck=dense("ck", (d, f), d ** -0.5), cv=dense("cv", (f, d), f ** -0.5),
+        cr=dense("cr", (d, d), d ** -0.5))
     return {
-        "embed": dense((cfg.vocab, d), 1.0),
+        "embed": draw((), (cfg.vocab, d), 1.0, "embed"),
         "layers": layers,
         "final_norm": f32((d,), 1.0),
-        "lm_head": dense((d, cfg.vocab), d ** -0.5),
+        "lm_head": draw((), (d, cfg.vocab), d ** -0.5, "lm_head"),
+    }
+
+
+def param_specs(cfg: ModelConfig, rules: MeshRules) -> Dict[str, Any]:
+    """The reference's specs of `init_params`'s tree under `rules`."""
+    d = cfg.d_model
+    sp = rules.spec
+    vec = P(None)
+    lp = {
+        "ln1": vec, "ln2": vec, "ln_x": vec,
+        "mix_r": vec, "mix_k": vec, "mix_v": vec, "mix_w": vec, "mix_g": vec,
+        "w0": vec, "u": P(None, None),
+        "w_a": P(None, None), "w_b": P(None, None),
+        "wr": sp("d_model", "d_ff", sizes=(d, d)),
+        "wk": sp("d_model", "d_ff", sizes=(d, d)),
+        "wv": sp("d_model", "d_ff", sizes=(d, d)),
+        "wg": sp("d_model", "d_ff", sizes=(d, d)),
+        "wo": sp("d_ff", "d_model", sizes=(d, d)),
+        "mix_ck": vec, "mix_cr": vec,
+        "ck": sp("d_model", "d_ff", sizes=(d, cfg.d_ff)),
+        "cv": sp("d_ff", "d_model", sizes=(cfg.d_ff, d)),
+        "cr": sp("d_model", None, sizes=(d, d)),
+    }
+    return {
+        "embed": sp("vocab", "d_model", sizes=(cfg.vocab, d)),
+        "layers": stacked(lp),
+        "final_norm": P(None),
+        "lm_head": sp("d_model", "vocab", sizes=(d, cfg.vocab)),
     }
 
 
@@ -181,6 +213,21 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *, device,
     return {"s": zeros(l, batch, d // hd, hd, hd), "x_att": zeros(l, batch, d),
             "x_ffn": zeros(l, batch, d),
             "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def state_specs(cfg: ModelConfig, rules: MeshRules, *, batch: int,
+                max_len: int, seq_sharded: bool = False) -> Dict[str, Any]:
+    """The reference's specs of `init_decode_state`'s leaves (the state
+    does not grow with the sequence, so `seq_sharded` changes nothing)."""
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    sp = rules.spec
+    return {
+        "s": sp(None, "batch", None, None, None,
+                sizes=(cfg.n_layers, batch, d // hd, hd, hd)),
+        "x_att": sp(None, "batch", None, sizes=(cfg.n_layers, batch, d)),
+        "x_ffn": sp(None, "batch", None, sizes=(cfg.n_layers, batch, d)),
+        "length": P(None),
+    }
 
 
 def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig):

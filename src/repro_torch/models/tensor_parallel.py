@@ -1,0 +1,133 @@
+"""The decode steps' placement on one rank of a ("data", "model") mesh.
+
+The JAX package serves a decode cell by placing every array by its spec
+(`param_specs`, `state_specs`) and letting XLA partition the step. The port
+runs SPMD: each rank holds the blocks its specs give it
+(`bridge.shard_tree`) and this module writes out what XLA derives, weight
+by weight, from those specs:
+
+  * the batch rows over the "batch" axes (("pod", "data")), or every row
+    where the batch does not divide them;
+  * a weight whose output columns are sharded (`wq`/`wk`/`wv` by heads,
+    the SwiGLU's `d_ff`, Mamba's `in_proj`) is applied to its column
+    block; one whose input rows are sharded (`wo`, `w_down`, `out_proj`)
+    to the matching slice of its input, and the partial products are
+    summed over the axis (`psum`);
+  * the embedding sharded over vocab is a masked lookup of the rank's
+    rows, then a `psum`; the logits of a vocab-sharded head are gathered
+    (`all_gather`);
+  * a weight that falls back to replication takes no collective.
+
+Attention runs on the rank's own heads where the KV cache is sharded by
+KV head (KVH divides the axis, and so does H): its query heads are those
+of its KV heads, and kernels B5 -> B1 -> B6 run at the local head counts.
+Elsewhere every rank attends all heads over the replicated cache (the
+projections gathered first where they are column-sharded), which is what
+the reference's replicated-heads constraint in the DSA block asks for.
+
+A float `psum` is the rank-order sum of the gathered partials
+(`sharding.SeqGroup`), so the ranks of an axis hold the same bits and
+select the same Top-K.
+
+With no mesh a `Placement()` is the identity: every spec entry is None
+(`NO_MESH`), every product the plain one, so the one-device step runs
+the same lines.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.parallel.sharding import (AbstractMesh, MeshAxis, MeshRules,
+                                         make_rules)
+
+# the rules of no mesh: every logical axis replicated
+NO_MESH = make_rules(AbstractMesh((), ()))
+
+
+def axis_of(mesh, entry) -> Optional[MeshAxis]:
+    """The mesh axis a spec entry shards a dimension over, or None."""
+    if mesh is None or entry is None:
+        return None
+    if isinstance(entry, str):
+        return mesh.axis(entry)
+    raise NotImplementedError(
+        f"a decode weight sharded over several mesh axes {entry}: the "
+        f"decode rules map each dimension to one axis")
+
+
+class Heads(NamedTuple):
+    """The attention heads one rank computes: hl query heads (its block
+    over `axis`, or all) over kvl KV heads (its block, or all)."""
+    axis: Optional[MeshAxis]   # the axis the heads are sharded over
+    hl: int
+    kvl: int
+
+
+def heads_of(cfg, cache_entry, mesh) -> Heads:
+    """The rank's heads: its block where the cache is sharded by KV head
+    (`cache_entry`, the KV-head entry of the cache's spec), else all."""
+    ax = axis_of(mesh, cache_entry)
+    if ax is None or ax.size == 1:
+        return Heads(None, cfg.n_heads, cfg.n_kv_heads)
+    return Heads(ax, cfg.n_heads // ax.size, cfg.n_kv_heads // ax.size)
+
+
+class Placement:
+    """The placement of one decode step of a global batch of `batch` rows
+    on this rank of `mesh` under `rules`; with no mesh, the identity."""
+
+    def __init__(self, mesh=None, rules: MeshRules = NO_MESH, batch: int = 0):
+        self.mesh = mesh
+        self.rows = slice(None)
+        if mesh is not None:
+            idx, ext = mesh.index(rules.spec("batch", sizes=(batch,))[0])
+            n = batch // ext
+            self.rows = slice(idx * n, (idx + 1) * n)
+
+    def embed(self, table: torch.Tensor, entry, tokens: torch.Tensor):
+        """table[tokens] with the table's rows sharded by `entry`: each
+        rank looks up the tokens in its rows (zeros elsewhere) and the
+        ranks' rows are summed."""
+        ax = axis_of(self.mesh, entry)
+        if ax is None:
+            return table[tokens.long()]
+        n = table.shape[0]
+        loc = tokens.long() - ax.rank * n
+        hit = ((loc >= 0) & (loc < n))[:, None]
+        x = torch.where(hit, table[loc.clamp(0, n - 1)], 0)
+        return ax.psum(x, "embed")
+
+    def cols(self, x: torch.Tensor, w: torch.Tensor, entry, *, tag: str,
+             gather: bool = False) -> torch.Tensor:
+        """x @ w for w's columns sharded by `entry`: the rank's column
+        block, or (`gather`) all columns joined in rank order."""
+        y = x @ w
+        ax = axis_of(self.mesh, entry)
+        if gather and ax is not None:
+            y = ax.all_gather(y, dim=-1, tiled=True, tag=tag)
+        return y
+
+    def rows_in(self, x: torch.Tensor, w: torch.Tensor, entry, *,
+                local: bool, tag: str) -> torch.Tensor:
+        """x @ w for w's rows sharded by `entry`, summed over the axis. x
+        holds the rank's slice of the input features (`local`) or all of
+        them (its slice is taken)."""
+        ax = axis_of(self.mesh, entry)
+        if ax is None:
+            return x @ w
+        if not local:
+            n = w.shape[0]
+            x = x[..., ax.rank * n:(ax.rank + 1) * n]
+        return ax.psum(x @ w, tag)
+
+    def swiglu(self, h, w_gate, w_up, w_down, entry) -> torch.Tensor:
+        """The SwiGLU with `d_ff` sharded by `entry` (columns, then rows)."""
+        return self.rows_in(torch.nn.functional.silu(h @ w_gate) * (h @ w_up),
+                            w_down, entry, local=True, tag="ffn")
+
+    def logits(self, x: torch.Tensor, head: torch.Tensor, entry):
+        """f32 logits of x against `head` (D, V) with V sharded by `entry`."""
+        return self.cols(x, head, entry, gather=True, tag="logits").float()

@@ -34,6 +34,11 @@ exceeds `dsa.min_n`, else dense attention over the whole extent.
   the sequence-sharded paged layout, on each rank of a sequence mesh:
   SP-GVR selection and the O(K) row assembly (`sparse/sp_dsa.py`; B2's
   scoring half and B6 on the card), bit-identical to the fused step.
+* `serve_step(..., mesh=, rules=)` — the dense layout on one rank of a
+  ("data", "model") mesh, placed by `param_specs` and `state_specs`
+  (`tensor_parallel`): the rank's heads, `d_ff` or experts
+  (`layers.moe_mlp_ep`) and vocab over "model", its batch rows over
+  "data"; B5/B1/B6 on its rows and heads.
 
 Caches and pools are updated IN PLACE — copying a multi-GB cache per tick
 is what JAX's functional update costs and what this port avoids; a row
@@ -57,19 +62,22 @@ that both bodies round alike.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+import functools
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.temporal import (recycle_slot_arrays, reset_slot_arrays,
                                        seed_slot_idx)
 from repro_torch.kernels import ops
+from repro_torch.parallel.sharding import MeshRules, P, stacked, unstacked
 from repro_torch.sparse import dsa as dsa_mod
 from repro_torch.sparse import sp_dsa as sp_dsa_mod
 from .config import ModelConfig
 from .layers import (apply_rotary, blockwise_causal_attention, cross_entropy,
-                     decode_attention, decode_attention_paged,
-                     moe_mlp_dense_fallback, remat_call, rms_norm, swiglu_mlp)
+                     decode_attention, decode_attention_paged, moe_mlp_ep,
+                     remat_call, rms_norm, swiglu_mlp)
+from .tensor_parallel import NO_MESH, Heads, Placement, axis_of, heads_of
 
 # min_write_pos sentinel larger than any position: the row never writes.
 # Rows whose write is masked (inactive slots, shared-prefix replay over
@@ -81,6 +89,37 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def drawer(generator: torch.Generator, device, dtype: torch.dtype,
+           block=None) -> Callable:
+    """The families' weight draws: `draw(lead, shape, scale, path, dt)` is
+    a (lead + shape) tensor of N(0, scale^2) draws from `generator` in dt
+    (`dtype` by default), one `shape` at a time (so the f32 temporary is
+    one layer's). `block
+    (path, x)`, when given, cuts each drawn layer of the leaf at `path`
+    ("layers/wq") to the block a rank keeps: the draws are those of the
+    whole tree, so the blocks are those of the unsharded parameters, and
+    a rank never holds more than its blocks and one layer's draw."""
+
+    def one(shape, scale, dt, path):
+        x = torch.randn(shape, generator=generator,
+                        device=device).mul_(scale).to(dt)
+        return x if block is None or path is None else block(path, x)
+
+    def draw(lead, shape, scale, path=None, dt=dtype):
+        if not lead:
+            return one(shape, scale, dt, path)
+        kept = shape
+        if block is not None and path is not None:
+            kept = block(path, torch.empty(shape, device="meta")).shape
+        out = torch.empty(tuple(lead) + tuple(kept), dtype=dt, device=device)
+        layers = out.view((-1,) + tuple(kept))
+        for i in range(layers.shape[0]):
+            layers[i] = one(shape, scale, dt, path)
+        return out
+
+    return draw
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -95,27 +134,21 @@ def _check_family(cfg: ModelConfig) -> None:
 # Parameters
 # --------------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> Dict[str, Any]:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device,
+                block=None) -> Dict[str, Any]:
     """Random-init parameters from `generator` (N(0, 1/fan_in) weights,
-    unit norms), stacked over layers. The MoE experts take the reference's
-    scales (`_dense` scales by shape[0] ** -0.5: E^-0.5 for w_gate and
-    w_up, f^-0.5 for w_down, d^-0.5 for the f32 router) and are drawn one
-    layer at a time into bf16 storage: a whole f32 draw of moonshot's
-    w_gate would be a 35 GB temporary."""
+    unit norms), stacked over layers and drawn one layer at a time
+    (`drawer`; `block` cuts each to a rank's block). The MoE experts take
+    the reference's scales (`_dense` scales by shape[0] ** -0.5: E^-0.5
+    for w_gate and w_up, f^-0.5 for w_down, d^-0.5 for the f32 router):
+    a whole f32 draw of moonshot's w_gate would be a 35 GB temporary."""
     _check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
     l, d, hd, f = cfg.n_layers, cfg.d_model, cfg.hd, cfg.d_ff
+    draw = drawer(generator, device, dtype, block)
 
-    def dense(shape, scale, dt=dtype):
-        return (torch.randn(shape, generator=generator, device=device)
-                * scale).to(dt)
-
-    def per_layer(shape, scale):
-        out = torch.empty((l,) + shape, dtype=dtype, device=device)
-        for i in range(l):
-            out[i] = dense(shape, scale)
-        return out
+    def per_layer(name, shape, scale, dt=dtype):
+        return draw((l,), shape, scale, "layers/" + name, dt)
 
     def ones(shape):
         return torch.ones(shape, dtype=torch.float32, device=device)
@@ -123,37 +156,81 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     layers = {
         "ln1": ones((l, d)),
         "ln2": ones((l, d)),
-        "wq": dense((l, d, cfg.n_heads * hd), d ** -0.5),
-        "wk": dense((l, d, cfg.n_kv_heads * hd), d ** -0.5),
-        "wv": dense((l, d, cfg.n_kv_heads * hd), d ** -0.5),
-        "wo": dense((l, cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5),
+        "wq": per_layer("wq", (d, cfg.n_heads * hd), d ** -0.5),
+        "wk": per_layer("wk", (d, cfg.n_kv_heads * hd), d ** -0.5),
+        "wv": per_layer("wv", (d, cfg.n_kv_heads * hd), d ** -0.5),
+        "wo": per_layer("wo", (cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5),
     }
     if cfg.moe.num_experts:
         e, fe = cfg.moe.num_experts, cfg.moe.expert_d_ff
-        layers["router"] = dense((l, d, e), d ** -0.5, torch.float32)
-        layers["w_gate"] = per_layer((e, d, fe), e ** -0.5)
-        layers["w_up"] = per_layer((e, d, fe), e ** -0.5)
-        layers["w_down"] = per_layer((e, fe, d), fe ** -0.5)
+        layers["router"] = per_layer("router", (d, e), d ** -0.5, torch.float32)
+        layers["w_gate"] = per_layer("w_gate", (e, d, fe), e ** -0.5)
+        layers["w_up"] = per_layer("w_up", (e, d, fe), e ** -0.5)
+        layers["w_down"] = per_layer("w_down", (e, fe, d), fe ** -0.5)
     else:
-        layers["w_gate"] = dense((l, d, f), d ** -0.5)
-        layers["w_up"] = dense((l, d, f), d ** -0.5)
-        layers["w_down"] = dense((l, f, d), f ** -0.5)
+        layers["w_gate"] = per_layer("w_gate", (d, f), d ** -0.5)
+        layers["w_up"] = per_layer("w_up", (d, f), d ** -0.5)
+        layers["w_down"] = per_layer("w_down", (f, d), f ** -0.5)
     if cfg.dsa.enabled:
         layers["indexer"] = dsa_mod.indexer_init(
             generator, d, cfg.dsa.indexer_heads, cfg.dsa.indexer_dim, dtype,
             device, layers=l)
     params = {
-        "embed": dense((cfg.vocab, d), 1.0),
+        "embed": draw((), (cfg.vocab, d), 1.0, "embed"),
         "layers": layers,
         "final_norm": ones((d,)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((d, cfg.vocab), d ** -0.5)
+        params["lm_head"] = draw((), (d, cfg.vocab), d ** -0.5, "lm_head")
     if cfg.num_patches:
         # the vlm's stubbed patch-embedding projection: `forward_train`
         # reads it, no serve step does
-        params["patch_proj"] = dense((d, d), d ** -0.5)
+        params["patch_proj"] = draw((), (d, d), d ** -0.5, "patch_proj")
     return params
+
+
+def param_specs(cfg: ModelConfig, rules: MeshRules) -> Dict[str, Any]:
+    """The reference's specs of `init_params`'s tree under `rules`: the
+    attention by heads, the SwiGLU by `d_ff`, the experts by expert, the
+    embedding and head by vocab, the indexer replicated (`indexer` maps
+    to no axis), each falling back to replication where it does not
+    divide."""
+    d, hd = cfg.d_model, cfg.hd
+    sp = rules.spec
+    lp = {
+        "ln1": P(None), "ln2": P(None),
+        "wq": sp("d_model", "heads", sizes=(d, cfg.n_heads * hd)),
+        "wk": sp("d_model", "kv_heads", sizes=(d, cfg.n_kv_heads * hd)),
+        "wv": sp("d_model", "kv_heads", sizes=(d, cfg.n_kv_heads * hd)),
+        "wo": sp("heads", "d_model", sizes=(cfg.n_heads * hd, d)),
+    }
+    if cfg.moe.num_experts:
+        e, f = cfg.moe.num_experts, cfg.moe.expert_d_ff
+        lp["router"] = P(None, None)
+        lp["w_gate"] = sp("experts", None, None, sizes=(e, d, f))
+        lp["w_up"] = sp("experts", None, None, sizes=(e, d, f))
+        lp["w_down"] = sp("experts", None, None, sizes=(e, f, d))
+    else:
+        lp["w_gate"] = sp("d_model", "d_ff", sizes=(d, cfg.d_ff))
+        lp["w_up"] = sp("d_model", "d_ff", sizes=(d, cfg.d_ff))
+        lp["w_down"] = sp("d_ff", "d_model", sizes=(cfg.d_ff, d))
+    if cfg.dsa.enabled:
+        lp["indexer"] = {
+            "wq": sp("d_model", "indexer",
+                     sizes=(d, cfg.dsa.indexer_heads * cfg.dsa.indexer_dim)),
+            "wk": P(None, None),
+            "w": P(None),
+        }
+    specs = {
+        "embed": sp("vocab", "d_model", sizes=(cfg.vocab, d)),
+        "layers": stacked(lp),
+        "final_norm": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = sp("d_model", "vocab", sizes=(d, cfg.vocab))
+    if cfg.num_patches:
+        specs["patch_proj"] = P(None, None)
+    return specs
 
 
 def layer_params(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -291,6 +368,29 @@ def state_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
     return axes
 
 
+def state_specs(cfg: ModelConfig, rules: MeshRules, *, batch: int,
+                max_len: int, seq_sharded: bool = False) -> Dict[str, Any]:
+    """The reference's specs of `init_decode_state`'s leaves: the caches
+    by batch (and KV head), over the sequence too under `seq_sharded`."""
+    seq_ax = "seq_shard" if seq_sharded else None
+    sp = rules.spec
+    cache = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    specs = {
+        "k": sp(None, "batch", seq_ax, "kv_heads", None, sizes=cache),
+        "v": sp(None, "batch", seq_ax, "kv_heads", None, sizes=cache),
+        "length": P(None),
+    }
+    if cfg.dsa.enabled:
+        specs["idx_k"] = sp(None, "batch", seq_ax, None,
+                            sizes=cache[:3] + (cfg.dsa.indexer_dim,))
+        specs["prev_topk"] = sp(None, "batch", None,
+                                sizes=(cfg.n_layers, batch,
+                                       min(cfg.dsa.k, max_len)))
+        specs["topk_valid"] = sp(None, "batch", sizes=(cfg.n_layers, batch))
+        specs["sel_gvr"] = sp(None, "batch", sizes=(cfg.n_layers, batch))
+    return specs
+
+
 def init_paged_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                             num_pages: int, page_size: int, device,
                             dtype=None) -> Dict[str, torch.Tensor]:
@@ -363,19 +463,63 @@ def recycle_slot_state(cfg: ModelConfig, state: Dict[str, torch.Tensor],
 # Decode step
 # --------------------------------------------------------------------------
 
-def _project_qkv(p, h, b, positions, cfg: ModelConfig):
+class _Layout(NamedTuple):
+    """Where a decode step's arrays live on this rank (`tensor_parallel`):
+    its placement, its heads, one layer's parameter specs and the vocab
+    entries of the embedding and the output head. `_layout(cfg)`, with
+    no mesh, is the identity: all heads, every entry None."""
+    pl: Placement
+    heads: Heads
+    layer: Dict[str, Any]
+    embed: Any
+    head: Any
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_layout(cfg: ModelConfig) -> _Layout:
+    return _layout(cfg, None, NO_MESH)
+
+
+def _layout(cfg: ModelConfig, mesh=None, rules: Optional[MeshRules] = None, *,
+            batch: int = 0, max_len: int = 0) -> _Layout:
+    """The layout of a step of `batch` rows over caches of `max_len` on
+    this rank of `mesh` under `rules` (`param_specs`, `state_specs`)."""
+    if mesh is None and rules is None:
+        return _plain_layout(cfg)
+    psp = param_specs(cfg, rules)
+    lsp = unstacked(psp["layers"])
+    heads = heads_of(cfg, state_specs(cfg, rules, batch=batch,
+                                      max_len=max_len)["k"][3], mesh)
+    if heads.axis is not None and any(
+            axis_of(mesh, lsp[w][c]) is not heads.axis
+            for w, c in (("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0))):
+        raise NotImplementedError("the cache's KV heads and the attention "
+                                  "weights are sharded over different axes")
+    if (mesh is not None and cfg.moe.num_experts
+            and axis_of(mesh, lsp["w_gate"][0]) is None):
+        raise ValueError(f"{cfg.moe.num_experts} experts do not divide "
+                         f"the expert axis of {mesh.shape}")
+    head = psp["embed"][0] if cfg.tie_embeddings else psp["lm_head"][1]
+    return _Layout(Placement(mesh, rules, batch), heads, lsp, psp["embed"][0],
+                   head)
+
+
+def _project_qkv(p, h, b, positions, cfg: ModelConfig, lay=None):
     """Decode projections + RoPE. h: (B, D) normed input. Returns q
-    (B,H,HD), kn (B,KVH,HD), vn (B,KVH,HD)."""
+    (B,H,HD), kn (B,KVH,HD), vn (B,KVH,HD) at the layout's head counts:
+    its own heads where they are sharded, else all of them (the
+    column-sharded projections gathered)."""
+    lay = lay or _plain_layout(cfg)
     hd = cfg.hd
-    q = (h @ p["wq"]).reshape(b, 1, cfg.n_heads, hd)
-    kn = (h @ p["wk"]).reshape(b, 1, cfg.n_kv_heads, hd)
-    vn = (h @ p["wv"]).reshape(b, 1, cfg.n_kv_heads, hd)
+    q, kn, vn = (lay.pl.cols(h, p[w], lay.layer[w][1],
+                             gather=lay.heads.axis is None, tag=w)
+                 for w in ("wq", "wk", "wv"))
     pos = positions[:, None]
-    q = apply_rotary(q, pos, kind=cfg.rope_kind, base=cfg.rope_base,
-                     fraction=cfg.rope_fraction)[:, 0]
-    kn = apply_rotary(kn, pos, kind=cfg.rope_kind, base=cfg.rope_base,
-                      fraction=cfg.rope_fraction)[:, 0]
-    return q, kn, vn[:, 0]
+    rope = dict(kind=cfg.rope_kind, base=cfg.rope_base,
+                fraction=cfg.rope_fraction)
+    q = apply_rotary(q.reshape(b, 1, lay.heads.hl, hd), pos, **rope)[:, 0]
+    kn = apply_rotary(kn.reshape(b, 1, lay.heads.kvl, hd), pos, **rope)[:, 0]
+    return q, kn, vn.reshape(b, lay.heads.kvl, hd)
 
 
 def _dsa_kw(cfg: ModelConfig, state, i: int) -> Dict[str, Any]:
@@ -404,48 +548,62 @@ def _attend_views(cfg: ModelConfig, state, i: int, p, h, q, kc, vc, idx_kc,
                             window=cfg.swa_window), None
 
 
-def _mlp(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mlp(p, h: torch.Tensor, cfg: ModelConfig, lay=None) -> torch.Tensor:
     """Layer p's feed-forward: SwiGLU, or the MoE. h is (B, D), one token
     per row, which the MoE takes in the reference's (B, 1, D) call shape,
-    or the training path's (B, S, D)."""
+    or the training path's (B, S, D). Under a mesh (`lay`) the SwiGLU runs
+    by `d_ff` and the MoE through `layers.moe_mlp_ep`; with none, that is
+    the dense fallback, as in the reference."""
+    lay = lay or _plain_layout(cfg)
     if cfg.moe.num_experts:
-        return moe_mlp_dense_fallback(
+        return moe_mlp_ep(
             h.reshape(h.shape[0], -1, h.shape[-1]), p["router"], p["w_gate"],
-            p["w_up"], p["w_down"], top_k=cfg.moe.top_k).reshape(h.shape)
-    return swiglu_mlp(h, p["w_gate"], p["w_up"], p["w_down"])
+            p["w_up"], p["w_down"], top_k=cfg.moe.top_k,
+            capacity_factor=cfg.moe.capacity_factor, mesh=lay.pl.mesh,
+            expert_axis=lay.layer["w_gate"][0]).reshape(h.shape)
+    return lay.pl.swiglu(h, p["w_gate"], p["w_up"], p["w_down"],
+                         lay.layer["w_down"][0])
 
 
-def _lm_head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Final norm and the (tied) output projection: f32 logits (..., V).
-    The one GEMM whose rounding on the CPU depends on the row count M
-    (the tied head is a transposed view): the mq verify body runs it at
-    M = B*(d+1), the per-token step at M = B."""
+def _lm_head(params, x: torch.Tensor, cfg: ModelConfig,
+             lay=None) -> torch.Tensor:
+    """Final norm and the (tied) output projection: f32 logits (..., V),
+    those of the whole vocab under a mesh (gathered). The one GEMM whose
+    rounding on the CPU depends on the row count M (the tied head is a
+    transposed view): the mq verify body runs it at M = B*(d+1), the
+    per-token step at M = B."""
+    lay = lay or _plain_layout(cfg)
     x = rms_norm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ head).float()
+    return lay.pl.logits(x, head, lay.head)
 
 
 def _decode_layers(params, state, tokens: torch.Tensor, cfg: ModelConfig,
-                   attend):
-    """The layer loop shared by both layouts. `attend(i, p, h, q, kn, vn)`
-    writes layer i's new rows and returns (attn, DSA output or None).
-    Returns (logits (B, V) f32, new_state)."""
+                   attend, lay=None):
+    """The layer loop shared by every layout and by the mesh step.
+    `attend(i, p, h, q, kn, vn)` writes layer i's new rows and returns
+    (attn, DSA output or None). Under a mesh (`lay`) tokens are the global
+    batch and the step runs on the rank's rows, heads and blocks. Returns
+    (logits (B, V) f32 of the rank's rows, new_state; `length` stays
+    global)."""
     _check_family(cfg)
-    b = tokens.shape[0]
-    x = params["embed"][tokens.long()]                   # (B, D)
-    positions = state["length"]
+    lay = lay or _plain_layout(cfg)
+    positions = state["length"][lay.pl.rows]
+    b = positions.shape[0]
+    x = lay.pl.embed(params["embed"], lay.embed, tokens[lay.pl.rows])  # (B, D)
     prev_out, sel_out = [], []
     for i in range(cfg.n_layers):
         p = layer_params(params["layers"], i)
         h = rms_norm(x, p["ln1"])
-        q, kn, vn = _project_qkv(p, h, b, positions, cfg)
+        q, kn, vn = _project_qkv(p, h, b, positions, cfg, lay)
         attn, res = attend(i, p, h, q, kn, vn)
         if res is not None:
             prev_out.append(res.topk_idx.int())
             sel_out.append(res.gvr_rows)
-        attn = attn.reshape(b, cfg.n_heads * cfg.hd).to(x.dtype)
-        x = x + attn @ p["wo"]
-        x = x + _mlp(p, rms_norm(x, p["ln2"]), cfg)
+        attn = attn.reshape(b, lay.heads.hl * cfg.hd).to(x.dtype)
+        x = x + lay.pl.rows_in(attn, p["wo"], lay.layer["wo"][0],
+                               local=lay.heads.axis is not None, tag="wo")
+        x = x + _mlp(p, rms_norm(x, p["ln2"]), cfg, lay)
 
     new_state = dict(state)
     if prev_out:
@@ -454,13 +612,14 @@ def _decode_layers(params, state, tokens: torch.Tensor, cfg: ModelConfig,
         new_state["sel_gvr"] = torch.stack(sel_out)
     elif cfg.dsa.enabled:
         new_state["sel_gvr"] = torch.zeros_like(state["sel_gvr"])
-    new_state["length"] = positions + 1
+    new_state["length"] = state["length"] + 1
 
-    return _lm_head(params, x, cfg), new_state
+    return _lm_head(params, x, cfg, lay), new_state
 
 
 def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
-               min_write_pos: Optional[torch.Tensor] = None):
+               min_write_pos: Optional[torch.Tensor] = None, mesh=None,
+               rules: Optional[MeshRules] = None):
     """One decode step over the dense layout. tokens: (B,) int. Returns
     (logits (B, V) f32, new_state).
 
@@ -469,11 +628,24 @@ def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
     it. A row whose position is below `min_write_pos` (B,) keeps its old
     contents: the engine masks inactive slots so, where the reference
     writes every row and restores the inactive ones afterwards.
+
+    Under a `mesh` and its `rules` the step runs on one rank, the
+    reference's decode cell placed by `param_specs` and `state_specs` as
+    `tensor_parallel` sets out: params and state are the rank's blocks,
+    tokens the global batch, and the logits those of the rank's rows. Per
+    layer the rank's heads of q/k/v (or all of them, gathered), its cache
+    rows written, DSA (B5 -> B1 -> B6 on the card) over its batch rows
+    with the replicated indexer, `wo` by rows and a psum; the SwiGLU by
+    `d_ff` and a psum, or the experts through `layers.moe_mlp_ep`.
     """
+    if mesh is not None and min_write_pos is not None:
+        raise ValueError("the mesh step writes every row: the reference "
+                         "takes no min_write_pos there")
     n = state["k"].shape[2]
-    b = tokens.shape[0]
-    positions = state["length"]
+    lay = _layout(cfg, mesh, rules, batch=tokens.shape[0], max_len=n)
+    positions = state["length"][lay.pl.rows]
     new_len = positions + 1
+    b = positions.shape[0]
     use_dsa = cfg.dsa.enabled and n > cfg.dsa.min_n
     rows = torch.arange(b, device=positions.device)
     wpos = positions.clamp(max=n - 1).long()
@@ -499,7 +671,7 @@ def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
         return _attend_views(cfg, state, i, p, h, q, kc, vc, idx_kc, new_len,
                              use_dsa)
 
-    return _decode_layers(params, state, tokens, cfg, attend)
+    return _decode_layers(params, state, tokens, cfg, attend, lay)
 
 
 def check_paged_options(paged_attn: str, gather_granularity: str) -> None:

@@ -1,5 +1,8 @@
-"""Collectives over the port's 1-D sequence mesh (`sharding.SeqGroup`)."""
+"""Sharding of the port: the logical-axis rules and specs, the meshes, and
+the collectives of a mesh axis (`sharding`)."""
 
-from .sharding import SeqGroup
+from .sharding import (DEFAULT_RULES, AbstractMesh, Mesh, MeshAxis, MeshRules,
+                       P, SeqGroup, constrain, make_rules, overrides_for)
 
-__all__ = ["SeqGroup"]
+__all__ = ["DEFAULT_RULES", "AbstractMesh", "Mesh", "MeshAxis", "MeshRules",
+           "P", "SeqGroup", "constrain", "make_rules", "overrides_for"]

@@ -1,12 +1,25 @@
-"""The sequence axis of the port: a 1-D mesh of S ranks over a
-`torch.distributed` process group.
+"""Sharding of the port over `torch.distributed`: the logical-axis rules,
+the meshes, and the collectives of one mesh axis.
 
-The JAX package shard_maps one program over a ("seq",) mesh; the port runs
-S processes (SPMD), one per shard, and `SeqGroup` stands in for the
-mesh axis inside them: `size` and `rank` (`axis_size` / `axis_index`),
-`psum`, `pmax`, `pmin` and `all_gather`. Every rank must call the same
-collectives in the same order, so every data-dependent branch of the
-sharded path tests values that came out of a collective.
+The JAX package maps logical tensor axes to named mesh axes (`DEFAULT_RULES`,
+`MeshRules.spec` with its divisibility fallback: a dimension that does not
+divide its axes' extent is replicated) and lets XLA place each array. The
+port keeps the rules and the specs as they are — `P` is a tuple that
+compares equal to JAX's `PartitionSpec` entry by entry — and runs SPMD: one
+process a rank, each holding the local block of every array that its specs
+give it (`bridge.shard_tree`), and every collective written out.
+
+Meshes:
+  * `AbstractMesh(shape, axes)`: axis sizes only, no process group — what
+    the specs need (the production meshes of 256 and 512 chips).
+  * `Mesh(shape, axes, device=)`: the axes over the default process
+    group in row-major order (rank = data_index · M + model_index on
+    ("data", "model")), one sub-group per line of each axis; `axis(name)`
+    is that axis as a `MeshAxis`. The device is the caller's to name
+    (`launch.make_mesh` takes the rank's GPU unless told otherwise).
+  * `SeqGroup`: one axis over a group, the 1-D ("seq",) mesh of the
+    sequence-sharded path; `MeshAxis` is a `SeqGroup` that knows its name
+    and adds `all_to_all`.
 
 Exactness across ranks: a float sum is taken as an all-gather of the
 per-rank partials summed in rank order on every rank, so each rank (and
@@ -20,14 +33,175 @@ the same device). NCCL takes CUDA tensors directly.
 
 Each collective is counted by tag: calls and the bytes this rank
 contributes (`bill()`, `reset_bill()`), so a caller can read the
-per-tick collective bill.
+per-tick collective bill; a `Mesh` keys its bill by axis, then tag.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+
+# the default logical rules; "batch" spans pod and data for multi-pod DP
+DEFAULT_RULES = {
+    "batch": ("pod", "data"),
+    "seq": None,                 # sequence replicated in train (no SP default)
+    "seq_shard": ("data",),      # SP: long-context decode KV sharding
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "d_model": None,
+    "d_ff": ("model",),
+    "vocab": ("model",),
+    "experts": ("model",),
+    "expert_ff": None,
+    "indexer": None,
+    "state": None,
+}
+
+
+class P(tuple):
+    """A partition spec: per dimension None (replicated), a mesh-axis name,
+    or a tuple of names (sharded over their product, row-major). A tuple,
+    so it equals `tuple(jax.sharding.PartitionSpec(...))`."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return "P(" + ", ".join(repr(a) for a in self) + ")"
+
+
+class AbstractMesh:
+    """Named axis sizes, no devices and no process group."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str]):
+        if len(shape) != len(axes):
+            raise ValueError(f"mesh shape {tuple(shape)} and axes "
+                             f"{tuple(axes)} differ in length")
+        self.axis_names = tuple(axes)
+        self.shape = dict(zip(self.axis_names, (int(n) for n in shape)))
+        self.size = 1
+        for n in self.shape.values():
+            self.size *= n
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self.shape})"
+
+
+def _names(axes) -> Tuple[str, ...]:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+@dataclasses.dataclass
+class MeshRules:
+    mesh: AbstractMesh
+    rules: dict
+
+    def axes(self, logical: Optional[str]) -> Optional[Union[str, tuple]]:
+        """The mesh axes of a logical axis that the mesh has (a name, a
+        tuple of names, or None)."""
+        if logical is None:
+            return None
+        r = self.rules.get(logical)
+        if r is None:
+            return None
+        present = tuple(a for a in _names(r) if a in self.mesh.axis_names)
+        if not present:
+            return None
+        return present if len(present) > 1 else present[0]
+
+    def _extent(self, axes) -> int:
+        e = 1
+        for a in _names(axes):
+            e *= self.mesh.shape[a]
+        return e
+
+    def spec(self, *logical: Optional[str],
+             sizes: Optional[Sequence[int]] = None) -> P:
+        """The spec of logical axes; a dimension whose size does not divide
+        its axes' extent is replicated (the divisibility fallback)."""
+        out = []
+        for i, name in enumerate(logical):
+            axes = self.axes(name)
+            if axes is not None and sizes is not None:
+                if sizes[i] % self._extent(axes) != 0:
+                    axes = None
+            out.append(axes)
+        return P(*out)
+
+
+def make_rules(mesh, overrides: Optional[dict] = None) -> MeshRules:
+    rules = dict(DEFAULT_RULES)
+    if overrides:
+        rules.update(overrides)
+    return MeshRules(mesh=mesh, rules=rules)
+
+
+def overrides_for(cfg, shape_kind: str) -> dict:
+    """The reference's per-(arch, shape) parallelism policy. Train and
+    prefill: MoE models put the experts on "model" and replicate attention
+    and embeddings over it; wide models (d_model >= 6144), the hybrid and
+    the ssm keep the default tensor parallelism; every other model is pure
+    data parallel over (pod, data, model). Decode keeps the defaults."""
+    if shape_kind not in ("train", "prefill"):
+        return {}
+    if cfg.moe.num_experts and not cfg.attn_every:
+        return {"batch": ("pod", "data"), "heads": None, "kv_heads": None,
+                "d_ff": None, "vocab": None}
+    if cfg.d_model >= 6144 or cfg.attn_every or cfg.family == "ssm":
+        return {}
+    return {"batch": ("pod", "data", "model"), "heads": None,
+            "kv_heads": None, "d_ff": None, "vocab": None}
+
+
+def block_slices(spec: Sequence, shape: Sequence[int], mesh,
+                 coords: Dict[str, int]) -> Tuple[slice, ...]:
+    """The slices of a global array of `shape` that the rank at `coords`
+    holds under `spec` (each sharded dimension cut into its axes' extent
+    of equal blocks, the axes row-major). Refuses what JAX's
+    NamedSharding refuses: an axis on two dimensions, a dimension that
+    does not divide."""
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than shape {tuple(shape)}")
+    used, out = set(), []
+    for dim, entry in enumerate(tuple(spec) + (None,) * (len(shape) - len(spec))):
+        names = _names(entry)
+        if used & set(names):
+            raise ValueError(f"spec {spec} puts mesh axis "
+                             f"{sorted(used & set(names))} on two dimensions")
+        used.update(names)
+        idx, ext = 0, 1
+        for a in names:
+            idx, ext = idx * mesh.shape[a] + coords[a], ext * mesh.shape[a]
+        if shape[dim] % ext:
+            raise ValueError(f"dimension {dim} of {tuple(shape)} does not "
+                             f"divide the extent {ext} of {names}")
+        n = shape[dim] // ext
+        out.append(slice(idx * n, (idx + 1) * n))
+    return tuple(out)
+
+
+def constrain(x: torch.Tensor, rules: Optional[MeshRules], *logical,
+              sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """The reference's sharding constraint. The port holds local blocks, so
+    this checks one: with `rules` and the global `sizes`, x must have the
+    shape of a block of those sizes under `rules.spec(*logical, sizes=)`.
+    Returns x."""
+    if rules is None:
+        return x
+    if len(logical) != x.dim():
+        raise ValueError(f"{len(logical)} logical axes for a {x.dim()}-D "
+                         f"tensor")
+    if sizes is not None:
+        spec = rules.spec(*logical, sizes=sizes)
+        want = tuple(s // rules._extent(a) for s, a in zip(sizes, spec))
+        if tuple(x.shape) != want:
+            raise ValueError(f"local block {tuple(x.shape)} is not the "
+                             f"{spec} block {want} of {tuple(sizes)}")
+    return x
 
 
 class SeqGroup:
@@ -134,3 +308,131 @@ class SeqGroup:
             import torch.distributed as dist
             dist.barrier(group=self.group)
 
+
+
+class MeshAxis(SeqGroup):
+    """One named axis of a `Mesh`: the collectives over this rank's line
+    of that axis (a sub-group; None when the axis has one rank)."""
+
+    def __init__(self, name: str, group=None, *, device=None):
+        super().__init__(group, device=device)
+        self.name = name
+        self.axis_names = (name,)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {self.name: self.size}
+
+    def all_to_all(self, t: torch.Tensor, split_axis: int, concat_axis: int,
+                   tiled: bool = True, tag: str = "all_to_all") -> torch.Tensor:
+        """`lax.all_to_all`: `t` is cut into `size` blocks along
+        `split_axis`, block j goes to rank j, and the blocks received are
+        joined in rank order along `concat_axis` (`tiled`), or stacked on a
+        new axis there (`tiled=False`, which drops `split_axis`, of extent
+        `size`). gloo has no all-to-all (the builds of PyTorch it was
+        tried on refuse it, on host and CUDA tensors alike), so under gloo
+        every rank gathers the whole of `t` from every rank and keeps its
+        own blocks: `size` times the bytes, billed to `tag` all the same."""
+        if t.shape[split_axis] % self.size or (
+                not tiled and t.shape[split_axis] != self.size):
+            raise ValueError(f"all_to_all: dimension {split_axis} of "
+                             f"{tuple(t.shape)} does not "
+                             f"{'divide' if tiled else 'equal'} {self.size}")
+        if self.size == 1:
+            return t if tiled else t.movedim(split_axis, concat_axis)
+        import torch.distributed as dist
+        if self.backend == "gloo":
+            whole = self.all_gather(t, dim=0, tiled=False, tag=tag)
+            got = [part.chunk(self.size, split_axis)[self.rank]
+                   for part in whole.unbind(0)]
+        else:
+            self._count(tag, t)
+            src = [c.contiguous() for c in t.chunk(self.size, split_axis)]
+            got = [torch.empty_like(c) for c in src]
+            dist.all_to_all(got, src, group=self.group)
+        if tiled:
+            return torch.cat(got, concat_axis)
+        return torch.stack([g.squeeze(split_axis) for g in got], concat_axis)
+
+
+class Mesh(AbstractMesh):
+    """Named axes over the default process group, row-major: the rank's
+    coordinate on each axis, and `axis(name)` its collectives. Every rank
+    of the group builds the same mesh (the sub-groups are made in the same
+    order on every rank, as `dist.new_group` requires)."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str], *, device):
+        import torch.distributed as dist
+        super().__init__(shape, axes)
+        if not (dist.is_available() and dist.is_initialized()):
+            raise ValueError("a Mesh needs an initialised default process "
+                             "group (launch.init_mesh_group)")
+        world = dist.get_world_size()
+        if world != self.size:
+            raise ValueError(f"mesh {self.shape} needs {self.size} ranks; "
+                             f"the process group holds {world}")
+        self.rank = dist.get_rank()
+        self.backend = str(dist.get_backend())
+        self.device = torch.device(device)
+        sizes = [self.shape[a] for a in self.axis_names]
+        strides = [1] * len(sizes)
+        for i in range(len(sizes) - 2, -1, -1):
+            strides[i] = strides[i + 1] * sizes[i + 1]
+        self.coords = {a: (self.rank // strides[i]) % sizes[i]
+                       for i, a in enumerate(self.axis_names)}
+        self._axes: Dict[str, MeshAxis] = {}
+        for i, a in enumerate(self.axis_names):
+            group = None
+            if sizes[i] > 1:
+                for base in range(world):
+                    if (base // strides[i]) % sizes[i]:
+                        continue
+                    ranks = [base + j * strides[i] for j in range(sizes[i])]
+                    g = dist.new_group(ranks)
+                    if self.rank in ranks:
+                        group = g
+            self._axes[a] = MeshAxis(a, group, device=self.device)
+
+    def axis(self, name: str) -> MeshAxis:
+        """The axis `name`; an axis the mesh lacks is a line of one rank
+        (its collectives are the identity), as JAX sizes it 1."""
+        if name not in self._axes:
+            self._axes[name] = MeshAxis(name, None, device=self.device)
+        return self._axes[name]
+
+    def index(self, axes) -> Tuple[int, int]:
+        """(this rank's index, extent) along `axes` (a name, a tuple of
+        names taken row-major, or None)."""
+        idx, ext = 0, 1
+        for a in _names(axes):
+            n = self.shape.get(a, 1)
+            idx, ext = idx * n + self.coords.get(a, 0), ext * n
+        return idx, ext
+
+    def bill(self) -> Dict[str, Dict[str, Dict[str, int]]]:
+        """{axis: {tag: {"calls": n, "bytes": b}}} since the last reset."""
+        return {a: ax.bill() for a, ax in self._axes.items() if ax.bill()}
+
+    def reset_bill(self) -> None:
+        for ax in self._axes.values():
+            ax.reset_bill()
+
+    def barrier(self) -> None:
+        import torch.distributed as dist
+        dist.barrier()
+
+
+def stacked(specs):
+    """Every spec of a nested dict with a leading replicated axis: the
+    stacked-layer axis of a layer stack, which is never sharded."""
+    if isinstance(specs, dict):
+        return {k: stacked(v) for k, v in specs.items()}
+    return P(None, *specs)
+
+
+def unstacked(specs, n: int = 1):
+    """`stacked`'s inverse: every spec without its n leading entries, the
+    specs of one layer of an n-deep stack."""
+    if isinstance(specs, dict):
+        return {k: unstacked(v, n) for k, v in specs.items()}
+    return P(*specs[n:])

@@ -19,7 +19,9 @@ holds the whole score row:
        bit-identical to the single-device fused step.
      * `sp_dsa_decode_local` (contiguous caches): each rank attends over
        its own selected rows and the partial (numerator, denominator)
-       pairs combine with a pmax and a psum, flash-decoding style.
+       pairs combine with a pmax and a psum, flash-decoding style. On a
+       ("data", "model") mesh (`make_sp_dsa`) the sequence is sharded
+       over "data" and each rank attends its own heads over "model".
 
 On the card the paged form launches kernel B2's scoring half over the
 rank's pool and slice of the block table, and kernel B6 over the
@@ -110,18 +112,36 @@ def sp_dsa_decode_local(q, kc, vc, ikc, h, idx_params, prev_topk, lengths,
     return SPDSAResult(out, kc, vc, ikc, new_topk)
 
 
-def make_sp_dsa(mesh: SeqGroup, *, k: int, scale: float, heads: int,
-                dim: int, rope_base: float, shard_heads: bool = False):
-    """The SP-DSA decode layer over `mesh`'s sequence axis: a callable of
-    `sp_dsa_decode_local`'s positional arguments, each rank passing its
-    own cache shard. Sharding the heads over a "model" axis as well needs
-    a 2-D mesh (ROADMAP item 7)."""
-    if shard_heads:
-        raise NotImplementedError(
-            "shard_heads=True needs a ('seq', 'model') mesh, which the port "
-            "does not build yet (ROADMAP item 7)")
-    return partial(sp_dsa_decode_local, k=k, scale=scale, heads=heads,
-                   dim=dim, rope_base=rope_base, mesh=mesh)
+def make_sp_dsa(mesh, *, k: int, scale: float, heads: int, dim: int,
+                rope_base: float, seq_axis: str = "data",
+                head_axis: Optional[str] = "model", shard_heads: bool = True):
+    """The SP-DSA decode layer: a callable of `sp_dsa_decode_local`'s
+    positional arguments, each rank passing its own blocks.
+
+    `mesh` is a `Mesh` — the sequence over `seq_axis`, and with
+    `shard_heads` the heads over `head_axis` — or a `SeqGroup`, the 1-D
+    sequence mesh (no head axis). SP-GVR and the flash-style combine run
+    over the sequence axis alone. With `shard_heads`, q holds the rank's
+    block of query heads and the caches (and the new rows) the KV heads of
+    those heads, the rank's block of KV heads as `state_specs` shards
+    them: query head j attends KV head j // (H_local / KVH_local), each
+    head with its own group's keys, and the output holds the rank's
+    heads."""
+    seq = mesh if isinstance(mesh, SeqGroup) else mesh.axis(seq_axis)
+    body = partial(sp_dsa_decode_local, k=k, scale=scale, heads=heads,
+                   dim=dim, rope_base=rope_base, mesh=seq)
+    if not shard_heads or isinstance(mesh, SeqGroup):
+        return body
+    hax = mesh.axis(head_axis)
+
+    def layer(q, kc, vc, *rest):
+        if q.shape[1] % kc.shape[2]:
+            raise ValueError(f"{q.shape[1]} query heads of rank "
+                             f"{hax.rank} over {head_axis!r} are not whole "
+                             f"groups of its {kc.shape[2]} KV heads")
+        return body(q, kc, vc, *rest)
+
+    return layer
 
 
 class SPDSAPagedResult(NamedTuple):

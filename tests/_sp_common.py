@@ -133,3 +133,13 @@ def paged_layouts(rng, cfg, b: int, n: int, ps: int, shards: int, lengths):
                   for x in lengths]) for _ in range(l)]).astype(np.int32)
     out["topk_valid"] = np.tile(np.arange(b) == 0, (l, 1))
     return out
+
+
+def run_jax_and_ranks(script: str, task: str, world: int, tmp: Path):
+    """`run_jax(script)` and `run_ranks(task, world)` at once, over the
+    same inputs in `tmp`: (the JAX results, the ranks' results)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:
+        jax_out = pool.submit(run_jax, script, tmp, world)
+        ranks = pool.submit(run_ranks, task, world, tmp)
+        return jax_out.result(), ranks.result()

@@ -144,8 +144,109 @@ def task_engine(mesh, inp):
                        seq_shards=mesh.size, mesh=mesh)
 
 
+def _mesh_run(inp, c, run):
+    """Case c's greedy ticks on the mesh `run` names ("DxM", "DxMsp":
+    sequence-sharded), this rank's blocks from `bridge.shard_tree`: per
+    tick its rows' logits and feedback, the next global tokens (the rows'
+    argmax gathered over the batch axis) and the collective bill; the
+    local shapes of the parameter leaves. A spec the mesh refuses gives
+    its error instead."""
+    import dataclasses
+    from repro_torch.launch import make_mesh
+    from repro_torch.models.tensor_parallel import Placement
+    from repro_torch.parallel.sharding import make_rules
+    d, m = (int(v) for v in run.rstrip("sp").split("x"))
+    seq = run.endswith("sp")
+    cfg = dataclasses.replace(get_config(str(inp[c + "/arch"]), smoke=True),
+                              n_kv_heads=int(inp[c + "/kvh"]))
+    model = build_model(cfg, device="cpu")
+    mesh = make_mesh((d, m), ("data", "model"), backend="gloo", device="cpu")
+    rules = make_rules(mesh)
+    params = bridge.params_from_numpy(unflatten(inp, c + "/params/"))
+    state = bridge.params_from_numpy(unflatten(inp, c + "/state/"))
+    tok = _t(inp[c + "/tokens"])
+    b, n = tok.shape[0], state["k"].shape[2]
+    lp = bridge.shard_tree(params, model.param_specs(rules), mesh)
+    try:
+        st = bridge.shard_tree(state, model.state_specs(
+            rules, batch=b, max_len=n, seq_sharded=seq), mesh)
+    except ValueError as exc:
+        return {"error": str(exc)}
+    rows = Placement(mesh, rules, b).rows
+    entry = rules.spec("batch", sizes=(b,))[0]
+    ticks = []
+    for _ in range(int(inp["ticks"])):
+        mesh.reset_bill()
+        logits, st = model.serve_step(lp, st, tok, mesh=mesh, rules=rules,
+                                      seq_sharded=seq)
+        bill = mesh.bill()
+        tok = logits.argmax(-1).int()
+        if entry is not None:
+            tok = mesh.axis(entry).all_gather(tok, dim=0, tiled=True)
+        ticks.append({"logits": logits, "prev_topk": st["prev_topk"],
+                      "tokens": tok, "bill": bill})
+
+    def shapes(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k2: v2 for k, v in tree.items()
+                    for k2, v2 in shapes(v, f"{prefix}{k}/").items()}
+        return {prefix[:-1]: tuple(tree.shape)}
+
+    return {"rows": (rows.start, rows.stop), "ticks": ticks,
+            "shapes": shapes(lp)}
+
+
+def task_mesh(mesh, inp):
+    """Every case's runs on its meshes over this group of 4 ranks, and
+    `moe_mlp_ep` on (2, 2) where the inputs hold "ep/*"."""
+    out = {}
+    for c in [str(v) for v in inp["cases"]]:
+        for run in [str(v) for v in inp[c + "/runs"] if str(v) != "ref"]:
+            out[f"{c}/{run}"] = _mesh_run(inp, c, run)
+    if "ep/x_drop" in inp:
+        from repro_torch.launch import make_mesh
+        from repro_torch.models import layers
+        from repro_torch.models.tensor_parallel import Placement
+        from repro_torch.parallel.sharding import make_rules
+        m = make_mesh((2, 2), ("data", "model"), backend="gloo", device="cpu")
+        rules = make_rules(m)
+        r = m.coords["model"]
+        w = [_t(inp["ep/" + k]) for k in ("router", "w_gate", "w_up", "w_down")]
+        e = w[1].shape[0]
+        w[1:] = [x[r * e // 2:(r + 1) * e // 2] for x in w[1:]]
+        top_k, cf = int(inp["ep/top_k"]), float(inp["ep/cf"])
+        for name in ("x_drop", "x_dec"):
+            x = _t(inp["ep/" + name])
+            rows = Placement(m, rules, x.shape[0]).rows
+            out[f"ep/{name}"] = (
+                (rows.start, rows.stop),
+                layers.moe_mlp_ep(x[rows], *w, top_k=top_k,
+                                  capacity_factor=cf, mesh=m),
+                layers.moe_ep_drops(x[rows], w[0], top_k=top_k,
+                                    num_experts=e, capacity_factor=cf, ep=2))
+        out["ep/bill"] = m.bill()
+        x = _t(inp["ep/x_drop"]).to(torch.bfloat16)
+        wb = w[:1] + [v.to(torch.bfloat16) for v in w[1:]]
+        rows = Placement(m, rules, x.shape[0]).rows
+        out["ep/x_drop_bf16"] = (
+            (rows.start, rows.stop),
+            layers.moe_mlp_ep(x[rows], *wb, top_k=top_k, capacity_factor=cf,
+                              mesh=m).float(),
+            layers.moe_ep_drops(x[rows], w[0], top_k=top_k, num_experts=e,
+                                capacity_factor=cf, ep=2))
+        ax = m.axis("model")
+        got = {}
+        for split, concat, tiled in ((0, 1, True), (1, 0, True), (2, 0, True),
+                                     (0, 2, False), (0, 0, False)):
+            t = torch.arange(2 * 4 * 6, dtype=torch.float32).reshape(2, 4, 6)
+            got[(split, concat, tiled)] = ax.all_to_all(
+                t * 10 + ax.rank, split, concat, tiled=tiled)
+        out["all_to_all"] = (ax.rank, got)
+    return out
+
+
 TASKS = {"gvr": task_gvr, "dsa": task_dsa, "step": task_step,
-         "engine": task_engine}
+         "engine": task_engine, "mesh": task_mesh}
 
 
 def main(argv) -> int:

@@ -1107,6 +1107,27 @@ def test_family_serve_step_on_card_matches_cpu(dev, arch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("phase", ["tp", "ep"])
+def test_mesh_step_on_card_matches_the_single_device_step(dev, phase):
+    """chip_smoke's [tp] / [ep]: four gloo ranks on the card (llama3.2-1b,
+    8 layers, on (2, 2); moonshot, 4 layers, bf16, on (1, 4)) against the
+    single-device step over the same seeded cache: logits within the
+    phase's tolerance, tokens equal but for near-ties, router flips only
+    as near-ties their margin shows, B5, B1 and B6
+    launched on every rank and equal to their plain versions at the
+    rank's shapes, and ([ep]) the drops of an overflowing `moe_mlp_ep`
+    call equal to the CPU's count."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+    counts, checks = cs.phase_mesh(phase)
+    assert min(counts[k] for k in ("indexer_scores", "gvr_topk",
+                                   "sparse_decode_attn")) > 0
+    assert set(checks) == {"B5 scoring", "B1", "B6"}
+
+
+@pytest.mark.cuda
 def test_sequence_sharded_step_on_card_bit_identical_to_fused(dev, tmp_path):
     """Two gloo ranks on the card (`chip_smoke.py --sp-rank`, llama3.2-1b
     at full width, 2 layers, N = 16384, 3 greedy ticks) against the fused

@@ -310,8 +310,8 @@ def test_engine_and_facade_refuse_the_family_as_jax(kv_layout):
     """Neither package's engine serves the hybrid family (no slot-wise or
     paged state hooks): the same ValueError for each layout; the facade's
     hooks raise the same NotImplementedError or give None, as the
-    reference's; a sequence-sharded step of this family needs the 2-D
-    mesh of ROADMAP item 7."""
+    reference's; without a mesh a sequence-sharded step is the plain step,
+    as the reference's (its SP path needs a mesh)."""
     jm = jax_build(jax_config(ARCH, smoke=True))
     tm = build_model(get_config(ARCH, smoke=True), device="cpu")
     tparams = tm.init_params(seed=0)
@@ -335,6 +335,12 @@ def test_engine_and_facade_refuse_the_family_as_jax(kv_layout):
                 call(m)
             texts.append(str(err.value))
         assert texts[0] == texts[1]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tm.serve_step(tparams, tm.init_decode_state(2, 32),
-                      torch.zeros(2, dtype=torch.int32), seq_sharded=True)
+    tok = torch.tensor([3, 7], dtype=torch.int32)
+    states = [tm.init_decode_state(2, 32) for _ in range(2)]
+    for st in states:
+        st["length"] = torch.tensor([20, 11], dtype=torch.int32)
+    plain, plain_st = tm.serve_step(tparams, states[0], tok)
+    sp, sp_st = tm.serve_step(tparams, states[1], tok, seq_sharded=True)
+    assert torch.equal(plain, sp)
+    for k in plain_st:
+        assert torch.equal(plain_st[k], sp_st[k]), k

@@ -26,15 +26,12 @@ import torch
 from repro.configs.registry import get_config as jax_config
 from repro.kernels import ops as jops
 from repro.models.api import build_model as jax_build
-from repro.serve import DecodeEngine as JaxEngine
-from repro.serve import Request as JaxRequest
 from repro.sparse import dsa as jdsa
 from repro_torch import bridge
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import ops
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import layer_params
-from repro_torch.serve import DecodeEngine, Request
 from repro_torch.sparse import dsa as tdsa
 
 REPORT_FIELDS = ("ticks", "decoded_tokens", "prefill_tokens", "completed",
@@ -423,65 +420,3 @@ def _run(engine_cls, req_cls, model, params, specs, **kw):
     return eng, reqs, eng.run(reqs, max_ticks=3000)
 
 
-@pytest.mark.parametrize("layout,trace", [
-    ("dense", "shared_prefix"), ("dense", "page_pressure"),
-    ("gather", "shared_prefix"), ("gather", "page_pressure")])
-def test_engine_forms_match_jax_engine(models, layout, trace):
-    jm, jparams, tm, tparams = models
-    make = _shared_prefix_specs if trace == "shared_prefix" else _pressure_specs
-    if layout == "dense":
-        kw = dict(kv_layout="dense")
-    else:
-        kw = dict(kv_layout="paged", paged_attn="gather", page_size=8)
-        if trace == "page_pressure":
-            kw.update(num_pages=7, prefix_caching=False)
-    je, jr, jrep = _run(JaxEngine, JaxRequest, jm, jparams,
-                        make(np.random.default_rng(1), 512), **kw)
-    te, tr, trep = _run(DecodeEngine, Request, tm, tparams,
-                        make(np.random.default_rng(1), 512), **kw)
-    for a, b in zip(jr, tr):
-        assert a.generated == b.generated, a.uid
-        assert a.preemptions == b.preemptions, a.uid
-    assert te.method_log == je.method_log
-    for f in REPORT_FIELDS:
-        assert getattr(trep, f) == getattr(jrep, f), f
-    if layout == "dense":
-        assert te.kv is None and trep.prefix_hit_tokens == 0
-    elif trace == "page_pressure":
-        assert trep.preemptions >= 1
-
-
-@pytest.mark.parametrize("form", [
-    dict(kv_layout="dense"),
-    dict(kv_layout="paged", page_size=8, paged_attn="gather"),
-    dict(kv_layout="paged", page_size=8, gather_granularity="page")])
-def test_engine_forms_bit_identical_to_fused_paged(models, form):
-    """On a trace of unique prompts every form equals the fused paged engine
-    in tokens, every logit and the method log."""
-    _, _, tm, tparams = models
-    runs = []
-    for kw in (dict(kv_layout="paged", page_size=8), form):
-        runs.append(_run(DecodeEngine, Request, tm, tparams,
-                         _unique_specs(np.random.default_rng(2), 512),
-                         record_logits=True, **kw))
-    (fe, fr, frep), (oe, orq, orep) = runs
-    for a, b in zip(fr, orq):
-        assert a.generated == b.generated, a.uid
-        assert len(a.logits_log) == len(b.logits_log)
-        for la, lb in zip(a.logits_log, b.logits_log):
-            np.testing.assert_array_equal(la, lb)
-    assert oe.method_log == fe.method_log
-    assert orep.gvr_hit_rate == frep.gvr_hit_rate > 0
-
-
-def test_dense_engine_tokens_equal_paged_on_shared_prefixes(models):
-    """With shared prefixes the paged engine skips the cached prompt tokens
-    and the dense one prefills them: tokens still agree."""
-    _, _, tm, tparams = models
-    (_, dr, _), (_, pr, prep) = [
-        _run(DecodeEngine, Request, tm, tparams,
-             _shared_prefix_specs(np.random.default_rng(7), 512), **kw)
-        for kw in (dict(kv_layout="dense"), dict(kv_layout="paged", page_size=8))]
-    assert prep.prefix_hit_tokens > 0
-    for a, b in zip(dr, pr):
-        assert a.generated == b.generated, a.uid

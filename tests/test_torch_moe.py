@@ -19,7 +19,9 @@ equal — in all four forms (dense layout, paged fused, gather and
 page-granular), through the engine (tokens, method log and report
 counters equal to the JAX engine's) and through the speculative verify
 tick (scan and mq). The port's own invariants hold bit for bit: paged ==
-dense in tokens, logits and method log, and mq == scan.
+dense in tokens, logits and method log, and mq == scan. The engine tests
+are in `test_torch_moe_engine.py` and `test_torch_moe_spec.py` (moved
+there so that no test file runs past the tier-1 budget).
 """
 
 import dataclasses
@@ -33,13 +35,10 @@ import torch
 from repro.configs.registry import get_config as jax_config
 from repro.models import layers as jlayers
 from repro.models.api import build_model as jax_build
-from repro.serve import DecodeEngine as JaxEngine
-from repro.serve import Request as JaxRequest
 from repro_torch import bridge
 from repro_torch.configs.registry import get_config
 from repro_torch.models import layers as tlayers
 from repro_torch.models.api import build_model
-from repro_torch.serve import DecodeEngine, Request
 
 ARCHS = ["granite-moe-1b-a400m", "moonshot-v1-16b-a3b"]
 REPORT_FIELDS = ("ticks", "decoded_tokens", "prefill_tokens", "completed",
@@ -204,30 +203,6 @@ def _engine_run(engine_cls, req_cls, model, params, **kw):
     return eng, reqs, eng.run(reqs, max_ticks=500)
 
 
-def test_engines_match_jax_and_paged_equals_dense(moe):
-    jm, jparams, tm, tparams = moe
-    runs = {}
-    for layout, kw in (("dense", dict(kv_layout="dense")),
-                       ("paged", dict(kv_layout="paged", page_size=8))):
-        je, jr, jrep = _engine_run(JaxEngine, JaxRequest, jm, jparams, **kw)
-        te, tr, trep = _engine_run(DecodeEngine, Request, tm, tparams,
-                                   record_logits=True, **kw)
-        for a, c in zip(jr, tr):
-            assert a.generated == c.generated, (layout, a.uid)
-        assert te.method_log == je.method_log, layout
-        for f in REPORT_FIELDS:
-            assert getattr(trep, f) == getattr(jrep, f), (layout, f)
-        assert trep.completed == 3 and trep.gvr_hit_rate > 0
-        runs[layout] = (te, tr)
-    (de, dr), (pe, pr) = runs["dense"], runs["paged"]
-    assert pe.method_log == de.method_log
-    for a, c in zip(dr, pr):
-        assert a.generated == c.generated, a.uid
-        assert len(a.logits_log) == len(c.logits_log) > 0
-        for la, lc in zip(a.logits_log, c.logits_log):
-            np.testing.assert_array_equal(la, lc)
-
-
 # ----------------------------------------------------- speculative tick ---
 
 def _spec_state(tm, rng, lengths, ps=8):
@@ -300,17 +275,6 @@ def test_serve_step_spec_paged_matches_jax_and_mq_equals_scan(moe):
     for key in ("length", "prev_topk", "topk_valid", "sel_gvr"):
         assert torch.equal(scan[4][key], mq[4][key]), key
     assert bool(scan[3].any())
-
-
-def test_spec_engine_emits_the_nonspec_tokens(moe):
-    """The speculative engine (mq verify, the default n-gram drafter) on
-    the staggered trace emits the tokens of the non-speculative engine."""
-    _, _, tm, tparams = moe
-    base = _engine_run(DecodeEngine, Request, tm, tparams, kv_layout="paged",
-                       page_size=8)[1]
-    spec = _engine_run(DecodeEngine, Request, tm, tparams, kv_layout="paged",
-                       page_size=8, spec_depth=2, verify_kernel="mq")[1]
-    assert [r.generated for r in spec] == [r.generated for r in base]
 
 
 def test_moe_config_widths_are_the_registry_s():

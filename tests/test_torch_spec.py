@@ -36,7 +36,6 @@ from repro.serve import DecodeEngine as JaxEngine
 from repro.serve import NgramDrafter as JaxNgram
 from repro.serve import ReplayDrafter as JaxReplay
 from repro.serve import Request as JaxRequest
-from repro.serve import ScriptedDrafter as JaxScripted
 from repro.sparse import dsa as jdsa
 from repro_torch import bridge
 from repro_torch.configs.registry import get_config
@@ -471,104 +470,6 @@ def nonspec(models):
                 methods=_methods(eng, tr), report=rep)
 
 
-@pytest.fixture(scope="module")
-def jax_spec_engines(models):
-    """One JAX spec engine per verify body, reused across drafters (its
-    jitted verify tick compiles once): no prefix cache, so a run leaves
-    nothing behind for the next."""
-    jm, jparams, _, _ = models
-    return {vk: _engine(JaxEngine, jm, jparams, spec_depth=2, verify_kernel=vk,
-                        prefix_caching=False)
-            for vk in ("scan", "mq")}
-
-
-def _drafter(kind, classes, cont):
-    replay, scripted, ngram = classes
-    if kind == "replay":
-        return replay(cont)
-    if kind == "reject":
-        return scripted(lambda req, d: [(req.generated[-1] + 1) % VOCAB] * d)
-    if kind == "partial":
-        def partial(req, d):
-            draft = list(cont[req.uid][len(req.generated):
-                                       len(req.generated) + d])
-            if len(draft) >= 2:
-                draft[1] = (draft[1] + 1) % VOCAB
-            return draft
-        return scripted(partial)
-    return ngram()
-
-
-_JAX_RUNS = {"uid": 0}
-
-
-@pytest.mark.parametrize("verify_kernel", ["scan", "mq"])
-@pytest.mark.parametrize("kind", ["replay", "reject", "partial", "ngram"])
-def test_spec_engine_matches_jax_and_nonspec(models, nonspec, jax_spec_engines,
-                                             verify_kernel, kind):
-    """Against the JAX spec engine on the same trace and drafts: tokens,
-    the per-tick method log, every report counter and the hit rate by draft
-    position. Against the port's non-speculative run: tokens, the (phase,
-    method) sequence and every recorded logit (bit for bit under scan;
-    under mq within 1e-5, the head test says why), and after every tick
-    each DECODE slot's pages exactly cover [0, length)."""
-    _, _, tm, tparams = models
-    cont = {i: t for i, t in enumerate(nonspec["tokens"])}
-    je = jax_spec_engines[verify_kernel]
-    _JAX_RUNS["uid"] += 100
-    base, t0 = _JAX_RUNS["uid"], je.tick_count
-    je.drafter = _drafter(kind, (JaxReplay, JaxScripted, JaxNgram),
-                          {base + u: c for u, c in cont.items()})
-    jr = _trace(JaxRequest)
-    for r in jr:                   # arrivals count the engine's own ticks
-        r.uid += base
-        r.arrival += t0
-    jrep = je.run(jr, max_ticks=500)
-
-    te = _engine(DecodeEngine, tm, tparams, spec_depth=2,
-                 verify_kernel=verify_kernel, prefix_caching=False,
-                 record_logits=True,
-                 drafter=_drafter(kind, (ReplayDrafter, ScriptedDrafter,
-                                         NgramDrafter), cont))
-    tick = te.tick
-
-    def checked_tick():
-        tick()
-        _assert_nonspec_page_shape(te)
-
-    te.tick = checked_tick
-    tr = _trace(Request)
-    trep = te.run(tr, max_ticks=500)
-
-    assert [r.generated for r in tr] == [r.generated for r in jr]
-    assert te.method_log == {r.uid - base: [(t - t0, ph, m) for t, ph, m
-                                            in je.method_log[r.uid]]
-                             for r in jr}
-    for f in SPEC_REPORT:
-        assert getattr(trep, f) == getattr(jrep, f), f
-    assert trep.spec_acceptance_rate == jrep.spec_acceptance_rate
-    assert trep.prefill_gvr_hit_rate == jrep.prefill_gvr_hit_rate
-
-    assert [r.generated for r in tr] == nonspec["tokens"]
-    assert _methods(te, tr) == nonspec["methods"]
-    assert trep.gvr_hit_rate == nonspec["report"].gvr_hit_rate
-    for r, logits in zip(tr, nonspec["logits"]):
-        assert len(r.logits_log) == len(logits)
-        for la, lb in zip(r.logits_log, logits):
-            if verify_kernel == "scan":
-                np.testing.assert_array_equal(la, lb)
-            else:
-                np.testing.assert_allclose(la, lb, rtol=1e-6, atol=1e-5)
-    assert trep.spec_drafted > 0
-    if kind == "replay":
-        assert trep.spec_accepted == trep.spec_drafted
-        assert trep.ticks < nonspec["report"].ticks
-    elif kind == "reject":
-        assert trep.spec_accepted == 0
-    elif kind == "partial":
-        assert 0 < trep.spec_accepted < trep.spec_drafted
-
-
 def _assert_nonspec_page_shape(eng):
     """tests/test_spec.py:_assert_nonspec_page_shape: after any tick a
     DECODE slot's mapped logical pages are exactly those covering [0,
@@ -582,29 +483,6 @@ def _assert_nonspec_page_shape(eng):
                if eng.kv.tables[s].get(lp) >= 0]
         assert got == want, (s, int(lengths[s]), got, want)
     eng.kv.pool.assert_consistent()
-
-
-@pytest.mark.parametrize("spec_depth,page_size,granularity", [
-    (1, 8, "token"), (2, 8, "token"), (3, 4, "token"), (2, 8, "page")])
-def test_mq_verify_equals_scan_with_model_drafts(models, spec_depth, page_size,
-                                                 granularity):
-    """tests/test_mq_verify.py's pin: a cold and a warm row, drafts from
-    the target model itself; mq (and mq at page granularity) against scan
-    at token granularity."""
-    _, _, tm, tparams = models
-
-    def trace(vk, gran):
-        eng = _engine(DecodeEngine, tm, tparams, spec_depth=spec_depth,
-                      page_size=page_size, verify_kernel=vk,
-                      gather_granularity=gran,
-                      drafter=ModelDrafter(tm, tparams, max_len=MAX_LEN))
-        reqs = _reqs(Request)
-        rep = eng.run(reqs, max_ticks=2000)
-        assert rep.completed == len(reqs)
-        return ({r.uid: list(r.generated) for r in reqs}, _methods(eng, reqs),
-                rep.gvr_hit_rate, rep.spec_acceptance_rate, rep.ticks)
-
-    assert trace("mq", granularity) == trace("scan", "token")
 
 
 def test_spec_eos_truncates_acceptance(models):

@@ -10,9 +10,9 @@ leaf within 1e-4 relative L2 of `jax.value_and_grad`, the indexer's
 leaves exactly zero in both; one AdamW step from JAX's gradients gives
 parameters within 1e-6 relative L2 of JAX's and moments within 2e-5
 (they carry the clip scale, whose grad norm is summed in another
-order); 8 training steps as `_train_common.assert_train_steps_match_jax`
-states (the port's own run within 1e-4 of JAX's losses, falling; each
-step from JAX's state within 1e-5 in the loss, 1e-4 in the state).
+order). The 8-step runs of the ssm and hybrid configs are in
+`test_torch_train_rwkv6.py` and `test_torch_train_jamba.py` (moved there
+so that no test file runs past the tier-1 budget).
 """
 
 import jax
@@ -25,9 +25,7 @@ from repro_torch import bridge
 from repro_torch.optim import adamw
 from repro_torch.tree import flatten_with_paths
 
-from _train_common import (assert_loss_grads_match,
-                           assert_train_steps_match_jax, jax_loss_grads,
-                           setup)
+from _train_common import assert_loss_grads_match, jax_loss_grads, setup
 
 FAMILY_ARCHS = ["whisper-medium", "rwkv6-3b", "jamba-1.5-large-398b"]
 
@@ -75,8 +73,3 @@ def test_adamw_step_matches_jax(arch):
             assert rel <= tol, (path, rel)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
-def test_train_loss_decreases_as_jax(arch):
-    """The JAX package's `test_arch_loss_decreases` on the ssm and hybrid
-    smoke configs, in both packages, step by step."""
-    assert_train_steps_match_jax(arch)
