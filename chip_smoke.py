@@ -116,7 +116,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     processes of a gloo group on the one card (NCCL runs
                     one rank per device), run after phase 9 while this
                     process runs the single-device references:
-                    llama3.2-1b at full width and SP_DEPTH (8) of its 16
+                    llama3.2-1b at full width and SP_DEPTH (4) of its 16
                     layers, B = 2, max_len
                     131072, 8 greedy ticks of `serve_step_sp_paged`
                     (SP-GVR, B2's scoring half per rank, the O(K) row
@@ -146,7 +146,21 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     overflowing call whose drops equal the CPU's count);
                     [hybrid-sp] jamba at one superblock and 4 experts,
                     sequence-sharded on (2, 2) at max_len 524288 (SP-DSA
-                    over "data", the rest over "model");
+                    over "data", the rest over "model"), then a cell at
+                    max_len 4096 = dsa.min_n (the dense attention over
+                    the sequence shards). The same ranks then run:
+                    [train-mesh] ([tp]'s ranks) llama3.2-1b at 2 layers,
+                    f32, (2, 2), B = 4, S = 512, 2 AdamW steps with
+                    ZeRO-1 moments against the one-device steps (loss,
+                    every gradient and parameter leaf; ZeRO-1 bit-equal
+                    to replicated moments); [family-mesh] ([tp]'s)
+                    whisper-medium and rwkv6-3b at 4 layers, bf16, 8
+                    ticks (whisper's B5 / B1 / B6 at a rank's shapes
+                    against their plain versions); [ep-train] ([ep]'s)
+                    moonshot-v1-16b-a3b at 2 layers, f32, (1, 4), at a
+                    token count that drops nothing, against the
+                    one-device steps, and one call under autograd that
+                    drops as `moe_ep_drops` says;
  19. train        — llama3.2-1b trained at full width and depth (16
                     layers, bf16 parameters, f32 moments), B = 4, S = 2048,
                     10 steps of `launch.train.make_train_step` over
@@ -2681,8 +2695,10 @@ SP_SEED = 23
 SP_LOOP_TAGS = ("secant", "hist", "snap", "fallback")
 SP_ENGINE_DEPTH = 2                 # [sp-engine]'s layers (full width)
 # [sp]'s layers (full width): 16 until the training phases joined the
-# script; the ranks and the fused reference init this depth from seed 0
-SP_DEPTH = 8
+# script, 8 until the mesh training cells did (the whole script ran
+# 905.5 s with 8, past its 900 s aim); the ranks and the fused reference
+# init this depth from seed 0
+SP_DEPTH = 4
 SP_BILL_TICKS = 3
 
 
@@ -3674,7 +3690,8 @@ def _mesh_tick(model, params, st, tok, t, feed, mesh, rules, seq, entry):
                                       rules=rules, seq_sharded=seq)
     torch.cuda.synchronize()
     rec = {"wall_ms": (time.perf_counter() - t0) * 1e3,
-           "logits": logits.float().cpu(), "prev_topk": st["prev_topk"].cpu()}
+           "logits": logits.float().cpu(),
+           "prev_topk": st["prev_topk"].cpu() if "prev_topk" in st else None}
     if mesh is not None:
         rec["bill"] = mesh.bill()
     tok = logits.argmax(-1).int()
@@ -3789,6 +3806,355 @@ def _ep_overflow(model, params, mesh, rules, g):
             "finite": bool(torch.isfinite(y).all()), "shape": list(y.shape)}
 
 
+# ---------------------- training and the other families on the mesh ------
+# [train-mesh] and [family-mesh] run in [tp]'s four ranks after its ticks,
+# [ep-train] in [ep]'s, and [hybrid-sp]'s ranks take one more cell, a
+# cache of dsa.min_n positions. The parent runs each one-device reference
+# before it starts the ranks: a family's greedy ticks (the ranks are fed
+# its tokens), or training's loss, first gradients and parameters after
+# the last step, which it leaves f32 on the host in the phase's folder
+# (`train_ref.pt`) for the ranks to read their blocks of (mmap).
+TRAIN_MESH = dict(arch="llama3.2-1b", depth=2, b=4, s=512, steps=2,
+                  deterministic=True, zero1_ab=True)
+# 16 tokens on 4 EP ranks: 4 a rank, each choosing distinct experts, so no
+# expert gets more than 4 of a rank's assignments: below the least
+# capacity (4), nothing drops, and EP is the dense fallback's function
+EP_TRAIN = dict(arch="moonshot-v1-16b-a3b", depth=2, b=1, s=16, steps=2,
+                deterministic=False, zero1_ab=False)
+TRAIN_MESH_LOSS_RTOL = 1e-5
+TRAIN_MESH_TOL = 1e-4        # a leaf's max |error| over its max |reference|
+FAMILY_MESH = {"whisper": "whisper-medium", "rwkv6": "rwkv6-3b"}
+FAMILY_MESH_DEPTH, FAMILY_MESH_N, FAMILY_MESH_TICKS = 4, 8192, 8
+FAMILY_MESH_LENGTHS = [4200, 5301, 6402, 7999]   # past dsa.min_n = 4096
+FAMILY_MESH_TOL = 5e-2
+# [hybrid-sp]'s short cell: max_len = dsa.min_n, the write crossing the
+# two sequence shards' boundary (2048) on the second tick
+HYBRID_SHORT = dict(n=4096, lengths=[2047], ticks=2)
+
+
+def _train_cfg(spec):
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(spec["arch"]),
+                               n_layers=spec["depth"], dtype="float32")
+
+
+def _family_mesh_cfg(arch):
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    kw = {"n_layers": FAMILY_MESH_DEPTH}
+    if cfg.encoder_layers:
+        kw["encoder_layers"] = FAMILY_MESH_DEPTH
+    return dataclasses.replace(cfg, **kw)
+
+
+def family_mesh_state(model, n, lengths, seed):
+    """`mesh_state` for any family: every floating leaf of the decode
+    state (whisper's caches and cross K/V, rwkv6's recurrent state) drawn
+    on the card layer by layer from per-layer seeds, lengths `lengths`."""
+    import torch
+    st = model.init_decode_state(len(lengths), n)
+    for j, key in enumerate(sorted(st)):
+        if not st[key].is_floating_point():
+            continue
+        for i in range(st[key].shape[0]):
+            g = torch.Generator(device=model.device).manual_seed(
+                seed * 1000 + 7 * i + j)
+            st[key][i].copy_(torch.randn(st[key][i].shape, generator=g,
+                                         device=model.device))
+    st["length"] = torch.tensor(lengths, dtype=torch.int32, device=model.device)
+    return st
+
+
+def _counting_moe(stats, ep=None):
+    """Patch the transformer's `moe_mlp_ep` so that each call adds to
+    stats["drops"]: the dispatch's own count under a mesh, or, on one
+    device, what `layers.moe_ep_drops` says `ep` ranks would drop. Returns
+    the undo."""
+    import torch
+    from repro_torch.models import layers, transformer
+    orig = transformer.moe_mlp_ep
+
+    def counted(x, router_w, *w, mesh=None, **kw):
+        if mesh is not None:
+            return orig(x, router_w, *w, mesh=mesh, stats=stats, **kw)
+        with torch.no_grad():
+            stats["drops"] = stats.get("drops", 0) + layers.moe_ep_drops(
+                x, router_w, top_k=kw["top_k"], num_experts=w[0].shape[0],
+                capacity_factor=kw["capacity_factor"], ep=ep)
+        return orig(x, router_w, *w, mesh=mesh, **kw)
+
+    transformer.moe_mlp_ep = counted
+    return lambda: setattr(transformer, "moe_mlp_ep", orig)
+
+
+def _train_steps(model, params, opt, batches, mesh=None, rules=None,
+                 specs=None, twin=None):
+    """The spec's steps: the first in `make_train_step`'s two halves
+    (`loss_and_grads`, kept, then `adamw.update`), the rest through
+    `make_train_step` itself. With `twin` = (params, opt) every step runs
+    in the two halves and each step's gradients also update the twin
+    (moments placed otherwise), whose parameters must then equal these
+    bit for bit. Returns (params, opt, losses, grad norms, the first
+    gradients, each step's host wall in ms, whether the twin's parameters
+    equalled these after every step, or None)."""
+    import torch
+    from repro_torch.launch.train import batch_to, loss_and_grads, make_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+    ocfg = adamw.AdamWConfig()
+    step = make_train_step(model, ocfg, mesh, rules)
+    dev = model.device
+    losses, norms, walls, grads0 = [], [], [], None
+    equal = None if twin is None else True
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0 or twin is not None:
+            loss, grads = loss_and_grads(model, params, batch_to(b, dev),
+                                         mesh=mesh, rules=rules)
+            params, opt, met = adamw.update(grads, opt, params, ocfg,
+                                            mesh=mesh, specs=specs)
+            met["loss"] = loss
+            grads0 = grads if i == 0 else grads0
+        else:
+            params, opt, met = step(params, opt, b)
+            grads = None
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if twin is not None:
+            twin = adamw.update(grads, twin[1], twin[0], ocfg, mesh=mesh,
+                                specs=specs)[:2]
+            equal = equal and all(torch.equal(a, c) for a, c in zip(
+                leaves(params), leaves(twin[0])))
+        del grads
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    return params, opt, losses, norms, grads0, walls, equal
+
+
+def _train_batches(cfg, spec):
+    from repro_torch.data.pipeline import batch_for_step
+    return [batch_for_step(i, vocab=cfg.vocab, batch=spec["b"], seq=spec["s"],
+                           seed=0, family=cfg.family, cfg=cfg)
+            for i in range(spec["steps"])]
+
+
+def train_reference(spec, out_dir: Path, tag):
+    """The one-device train steps of `spec` (f32, TF32 off), saved for the
+    ranks: losses, grad norms, the first gradients and the parameters
+    after the last step (f32 on the host), each leaf's max |value|; and,
+    where the model has experts, what 4 EP ranks would drop."""
+    import torch
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten_with_paths
+    cfg = _train_cfg(spec)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(seed=0)
+    opt = adamw.init(params)
+    stats, undo = {}, None
+    if cfg.moe.num_experts:
+        undo = _counting_moe(stats, ep=MESH_WORLD)
+    try:
+        params, opt, losses, norms, grads0, walls, _ = _train_steps(
+            model, params, opt, _train_batches(cfg, spec))
+    finally:
+        if undo:
+            undo()
+    ref = {"loss": losses, "grad_norm": norms, "ms": walls,
+           "drops": stats.get("drops"), "peak_gib":
+           torch.cuda.max_memory_allocated() / 2 ** 30}
+    for name, tree in (("grads", grads0), ("params", params)):
+        ref[name] = _to_cpu(tree)
+        ref[name + "_scale"] = {p: float(t.abs().max())
+                                for p, t in flatten_with_paths(tree)}
+    torch.save(ref, out_dir / "train_ref.pt")
+    log(f"{tag} the one-device reference: {cfg.name} at full width, "
+        f"{cfg.n_layers} layers, float32 (TF32 off), B = {spec['b']}, S = "
+        f"{spec['s']}, {spec['steps']} AdamW steps: losses {losses}, grad "
+        f"norms {norms}, {np.median(walls):.3f} ms a step"
+        + (f", {stats['drops']} assignments 4 EP ranks would drop"
+           if undo else "")
+        + f"; {time.perf_counter() - t0:.3f} s with the init and the save")
+    if undo and stats["drops"]:
+        fail(f"{tag} {spec['b']} x {spec['s']} tokens: moe_ep_drops reads "
+             f"{stats['drops']}, not 0")
+    del model, params, opt, grads0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _block_errors(local, ref_tree, specs, mesh):
+    """{path: max |local - the reference's block|} over the rank's
+    blocks (the reference read through mmap)."""
+    from repro_torch.parallel.sharding import block_slices
+    from repro_torch.tree import flatten_with_paths, spec_leaves
+    out = {}
+    for (path, a), (_, r), spec in zip(flatten_with_paths(local),
+                                       flatten_with_paths(ref_tree),
+                                       spec_leaves(specs)):
+        blk = r[block_slices(spec, r.shape, mesh, mesh.coords)]
+        out[path] = float((a.float() - blk.to(a.device)).abs().max())
+    return out
+
+
+def train_mesh_child(spec, mesh, rules, out_dir: Path):
+    """This rank's train steps of `spec` on `mesh` with ZeRO-1 moments
+    (`shardings_for`), from the blocks of the one-device reference's
+    parameters; its errors against that reference, its ms a step, bill,
+    peak memory and moment bytes; with zero1_ab the same steps again with
+    moments placed as their parameters (bit-equal parameters)."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.launch.train import shardings_for
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves, spec_map, tree_map
+    cfg = _train_cfg(spec)
+    model = build_model(cfg, device=mesh.device)
+    if spec["deterministic"]:
+        torch.use_deterministic_algorithms(True)
+    try:
+        params = model.init_params(seed=0, mesh=mesh, rules=rules)
+        pspecs = model.param_specs(rules)
+        sizes = spec_map(lambda sp, t: bridge.global_shape(sp, t.shape, mesh),
+                         pspecs, params)
+        pspecs, ospecs = shardings_for(model, mesh, rules, sizes)
+        opt = adamw.init(params, mesh=mesh, specs=pspecs, moment_specs=ospecs.m)
+        moment_bytes = sum(t.numel() * 4 for t in leaves((opt.m, opt.v)))
+        twin, twin_bytes = None, None
+        if spec["zero1_ab"]:
+            tp = tree_map(torch.clone, params)
+            twin = (tp, adamw.init(tp, mesh=mesh, specs=pspecs))
+            twin_bytes = sum(t.numel() * 4 for t in leaves((twin[1].m,
+                                                            twin[1].v)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.reset_bill()
+        stats, undo = {}, None
+        if cfg.moe.num_experts:
+            undo = _counting_moe(stats)
+        try:
+            params, opt, losses, norms, grads0, walls, equal = _train_steps(
+                model, params, opt, _train_batches(cfg, spec), mesh, rules,
+                pspecs, twin)
+        finally:
+            if undo:
+                undo()
+        res = {"loss": losses, "grad_norm": norms, "ms": walls,
+               "bill": mesh.bill(), "drops": stats.get("drops"),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "moment_bytes": moment_bytes, "zero1_equal": equal,
+               "replicated_moment_bytes": twin_bytes}
+        del twin
+        ref = torch.load(out_dir / "train_ref.pt", mmap=True,
+                         weights_only=True)
+        res["grad_err"] = _block_errors(grads0, ref["grads"], pspecs, mesh)
+        res["param_err"] = _block_errors(params, ref["params"], pspecs, mesh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return res
+
+
+def _ep_train_overflow(model, params, mesh, g):
+    """One `moe_mlp_ep` call of layer 0 under autograd at
+    EP_OVERFLOW_TOKENS tokens (inputs whose routing is exact on any
+    device, as `_ep_overflow`'s), and its backward: this rank's dropped
+    assignments as the dispatch counts them, and whether every gradient
+    is finite."""
+    import torch
+    from repro_torch.models import layers
+    cfg = model.cfg
+    x = torch.randint(-1, 2, EP_OVERFLOW_TOKENS + (cfg.d_model,), generator=g,
+                      device=model.device).float().requires_grad_()
+    router = (torch.randint(-127, 128, (cfg.d_model, cfg.moe.num_experts),
+                            generator=g, device=model.device).float()
+              / 256).requires_grad_()
+    p = params["layers"]
+    stats = {}
+    y = layers.moe_mlp_ep(x, router, p["w_gate"][0], p["w_up"][0],
+                          p["w_down"][0], top_k=cfg.moe.top_k,
+                          capacity_factor=cfg.moe.capacity_factor, mesh=mesh,
+                          stats=stats)
+    y.square().sum().backward()
+    return {"x": x.detach().cpu(), "router": router.detach().cpu(),
+            "drops": stats["drops"],
+            "finite": bool(torch.isfinite(x.grad).all()
+                           and torch.isfinite(router.grad).all())}
+
+
+def family_reference(out_dir: Path, flush=None):
+    """[family-mesh]'s one-device greedy ticks of each family, their tokens
+    left for the ranks (feed_{key}.pt). Returns {key: ticks}."""
+    import torch
+    from repro_torch.models.api import build_model
+    refs = {}
+    for key, arch in FAMILY_MESH.items():
+        cfg = _family_mesh_cfg(arch)
+        model = build_model(cfg)
+        params = model.init_params(seed=0)
+        st = family_mesh_state(model, FAMILY_MESH_N, FAMILY_MESH_LENGTHS,
+                               MESH_SEED)
+        refs[key], _ = _mesh_ticks(model, params, st, FAMILY_MESH_TICKS)
+        torch.save([None] + [r["tokens"] for r in refs[key][:-1]],
+                   out_dir / f"feed_{key}.pt")
+        log(f"[family-mesh] {cfg.name} at full width, {cfg.n_layers} layers, "
+            f"{cfg.dtype}, B = {len(FAMILY_MESH_LENGTHS)}, max_len "
+            f"{FAMILY_MESH_N}, lengths {FAMILY_MESH_LENGTHS}: the one-device "
+            f"step first, {np.median([r['wall_ms'] for r in refs[key][1:]]):.3f}"
+            f" ms a step")
+        del model, params, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def family_mesh_child(mesh, rules, out_dir: Path):
+    """This rank's [family-mesh] ticks of each family, fed the one-device
+    tokens; whisper's B5 / B1 / B6 inputs held against the plain versions
+    and its launches counted."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.models.tensor_parallel import Placement
+    from repro_torch.tree import leaves
+    res = {}
+    b = len(FAMILY_MESH_LENGTHS)
+    for key, arch in FAMILY_MESH.items():
+        model = build_model(_family_mesh_cfg(arch), device=mesh.device)
+        params = model.init_params(seed=0, mesh=mesh, rules=rules)
+        full = family_mesh_state(model, FAMILY_MESH_N, FAMILY_MESH_LENGTHS,
+                                 MESH_SEED)
+        st = bridge.shard_tree(full, model.state_specs(
+            rules, batch=b, max_len=FAMILY_MESH_N), mesh)
+        del full
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        seen, restore = _capture(ops, ("indexer_scores", "gvr_topk",
+                                       "sparse_decode_attn"))
+        ops.reset_launch_counts()
+        ticks, _ = _mesh_ticks(model, params, st, FAMILY_MESH_TICKS,
+                               feed=torch.load(out_dir / f"feed_{key}.pt"),
+                               mesh=mesh, rules=rules)
+        restore()
+        r = {"ticks": ticks, "rows": Placement(mesh, rules, b).rows,
+             "counts": ops.launch_counts(),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "param_gib": sum(x.numel() * x.element_size()
+                              for x in leaves(params)) / 2 ** 30}
+        if seen:
+            r["kernels"] = _mesh_kernels_vs_plain(seen)
+        res[key] = r
+        del model, params, st
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
 def mesh_child(argv) -> int:
     """One rank of a mesh phase: PHASE RANK WORLD INIT OUT. Saves its ticks,
     launch counts, kernel checks and memory to OUT/rank{RANK}.pt."""
@@ -3845,6 +4211,34 @@ def mesh_child(argv) -> int:
     if phase == "ep":
         res["overflow"] = _ep_overflow(model, params, mesh, rules, torch.Generator(
             device=mesh.device).manual_seed(MESH_SEED))
+    extra = time.perf_counter()
+    if phase == "hybrid-sp":
+        del st
+        torch.cuda.empty_cache()
+        full = mesh_state(model, HYBRID_SHORT["n"], HYBRID_SHORT["lengths"],
+                          MESH_SEED + 1)
+        st = bridge.shard_tree(full, model.state_specs(
+            rules, batch=len(HYBRID_SHORT["lengths"]), max_len=HYBRID_SHORT["n"],
+            seq_sharded=True), mesh)
+        del full
+        res["short"], _ = _mesh_ticks(
+            model, params, st, HYBRID_SHORT["ticks"], mesh=mesh, rules=rules,
+            seq=True, feed=torch.load(Path(out_dir) / "feed_short.pt"))
+    del model, params, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    if phase == "tp":
+        res["train"] = train_mesh_child(TRAIN_MESH, mesh, rules, Path(out_dir))
+        res["family"] = family_mesh_child(mesh, rules, Path(out_dir))
+    if phase == "ep":
+        res["train"] = train_mesh_child(EP_TRAIN, mesh, rules, Path(out_dir))
+        model = build_model(_train_cfg(EP_TRAIN), device=mesh.device)
+        params = model.init_params(seed=0, mesh=mesh, rules=rules)
+        res["train_overflow"] = _ep_train_overflow(
+            model, params, mesh, torch.Generator(
+                device=mesh.device).manual_seed(MESH_SEED + 2))
+        del model, params
+    res["extra_s"] = time.perf_counter() - extra
     torch.save(res, Path(out_dir) / f"rank{rank}.pt")
     mesh.barrier()
     dist.destroy_process_group()
@@ -3861,7 +4255,8 @@ def start_mesh_children(phase, out_dir: Path):
         rdv.unlink()
     # four ranks' caches share the card: segments that grow and shrink
     # keep each rank's freed draws from pinning memory the next one needs
-    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")   # [train-mesh]'s determinism
     procs = []
     for r in range(MESH_WORLD):
         f = open(out_dir / f"rank{r}.log", "w")
@@ -3897,6 +4292,114 @@ def join_mesh_children(procs, out_dir: Path, tag: str):
             for r in range(MESH_WORLD)]
 
 
+def _hold_ticks(tag, ranks, ref, tol, flips=None):
+    """Each rank's ticks (rows, ticks) against the single-device step's
+    `ref`, row by row: logits within `tol` relative L2, tokens equal or a
+    near-tie the reference's own logits show (its gap between the two
+    tokens at most twice the rank's max |logit difference|), a row left
+    out from its router flip on (`flips`); Top-K agreement by layer on
+    rank 0 where there is a Top-K."""
+    flips = flips or {}
+    worst, agree, same, ties, held = 0.0, [], 0, [], 0
+    for r, (rows, ticks) in enumerate(ranks):
+        for t, (got, want) in enumerate(zip(ticks, ref)):
+            for i, row in enumerate(range(rows.start, rows.stop)):
+                if row in flips and t >= flips[row]["tick"]:
+                    continue
+                held += 1
+                rel = _rel(got["logits"][i], want["logits"][row])
+                worst = max(worst, rel)
+                if rel > tol:
+                    fail(f"{tag} rank {r} tick {t} row {row}: logits rel L2 "
+                         f"{rel} > {tol}")
+                a, w = int(got["tokens"][row]), int(want["tokens"][row])
+                if a == w:
+                    same += 1
+                    continue
+                ref_row = want["logits"][row]
+                gap = float(ref_row[w] - ref_row[a])
+                diff = float((got["logits"][i] - ref_row).abs().max())
+                if gap > 2 * diff:
+                    fail(f"{tag} rank {r} tick {t} row {row}: token {a} against "
+                         f"the single-device step's {w}, whose logits part them "
+                         f"by {gap}, beyond twice this rank's difference {diff}")
+                ties.append((r, t, row, round(gap, 5), round(diff, 5)))
+            if r == 0 and got["prev_topk"] is not None:
+                agree.append(_topk_agreement(got["prev_topk"],
+                                             want["prev_topk"][:, rows]))
+    if not held:
+        fail(f"{tag} every row's router choice flipped before any tick could "
+             f"be held against the single-device step: {flips}")
+    log(f"{tag} every tick fed the single-device step's greedy tokens: "
+        f"{held} (rank, tick, row)s held to it (rows after a router flip "
+        f"left out); the ranks' own argmax equals them on {same} of them, "
+        f"the rest near-ties (rank, tick, row, the reference's logit gap, "
+        f"the rank's max |logit difference|): {ties}; logits rel L2 at most "
+        f"{worst:.3e} (tolerance {tol})"
+        + (f"; Top-K agreement per layer, rank 0, by tick: {agree}"
+           if agree else ""))
+
+
+def _bill_line(bill) -> str:
+    return "; ".join(f"{ax}: " + ", ".join(f"{k} {v['calls']}/{v['bytes']}"
+                                           for k, v in tags.items())
+                     for ax, tags in bill.items())
+
+
+def _check_train(tag, spec, ref, ranks):
+    """A mesh train run's ranks against the one-device reference: losses
+    within TRAIN_MESH_LOSS_RTOL, every gradient leaf after the first step
+    and every parameter after the last within TRAIN_MESH_TOL of the
+    leaf's max |value| (the worst block over the ranks), no drop under
+    experts, ZeRO-1 bit-equal to replicated moments where run; logs ms a
+    step, the bill, peak memory and moment bytes a rank."""
+    for r, res in enumerate(ranks):
+        for i, (a, w) in enumerate(zip(res["loss"], ref["loss"])):
+            if abs(a - w) > TRAIN_MESH_LOSS_RTOL * abs(w):
+                fail(f"{tag} rank {r} step {i}: loss {a} against the one-"
+                     f"device {w}")
+    worst = {}
+    for what in ("grad", "param"):
+        scale = ref[what + "s_scale"]
+        err = {p: max(res[what + "_err"][p] for res in ranks) / max(scale[p], 1e-30)
+               for p in scale}
+        path = max(err, key=err.get)
+        worst[what] = (err[path], path)
+        if err[path] > TRAIN_MESH_TOL:
+            fail(f"{tag} {what} leaf {path}: max |err| / max |ref| "
+                 f"{err[path]:.3e} > {TRAIN_MESH_TOL}")
+    if ref["drops"] is not None:
+        drops = sum(res["drops"] for res in ranks)
+        if drops:
+            fail(f"{tag} the mesh step dropped {drops} assignments")
+    r0 = ranks[0]
+    log(f"{tag} losses {r0['loss']} (one device {ref['loss']}), grad norms "
+        f"{r0['grad_norm']} (one device {ref['grad_norm']}); worst leaf "
+        f"max |err| / max |ref|: gradients {worst['grad'][0]:.3e} "
+        f"({worst['grad'][1]}), parameters after {spec['steps']} steps "
+        f"{worst['param'][0]:.3e} ({worst['param'][1]}) (tolerance "
+        f"{TRAIN_MESH_TOL})" + (f"; drops {ref['drops']} one device, "
+                                f"{sum(res['drops'] for res in ranks)} on "
+                                f"the mesh" if ref["drops"] is not None else ""))
+    log(f"{tag} rank 0: {r0['ms']} ms a step (one device {ref['ms']}); peak "
+        f"GiB by rank {[round(res['peak_gib'], 3) for res in ranks]} (one "
+        f"device {ref['peak_gib']:.3f}); moment bytes a rank "
+        f"{[res['moment_bytes'] for res in ranks]}"
+        + (f" against {r0['replicated_moment_bytes']} replicated "
+           f"({r0['replicated_moment_bytes'] / r0['moment_bytes']:.3f}x)"
+           if r0["replicated_moment_bytes"] else "")
+        + f"; the steps' collectives on rank 0 (calls/bytes): "
+        + _bill_line(r0["bill"]))
+    if spec["zero1_ab"]:
+        if not all(res["zero1_equal"] for res in ranks):
+            fail(f"{tag} ZeRO-1 moments did not give the parameters of "
+                 f"replicated moments bit for bit")
+        log(f"{tag} ZeRO-1 moments and moments placed as their parameters, "
+            f"each step from the same gradients: the same parameters after "
+            f"every one of {spec['steps']} steps, bit for bit, on every rank "
+            f"(deterministic algorithms)")
+
+
 def phase_mesh(phase):
     """[tp] / [ep] / [hybrid-sp]: the single-device step here, then the
     ranks; tokens equal every tick (or a near-tie), logits within the
@@ -3924,13 +4427,29 @@ def phase_mesh(phase):
         f"{spec['lengths']}: the single-device step first ({one_gib:.3f} GiB "
         f"on the card, {time.perf_counter() - t0:.3f} s with the init), "
         f"{np.median([r['wall_ms'] for r in ref[1:]]):.3f} ms a step")
+    out_dir = ROOT / "build" / "chip_smoke" / "mesh" / phase
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if phase == "hybrid-sp":
+        # the short cell: max_len = dsa.min_n, the dense attention over
+        # the sharded sequence on the ranks
+        short = mesh_state(model, HYBRID_SHORT["n"], HYBRID_SHORT["lengths"],
+                           MESH_SEED + 1)
+        short_ref, _ = _mesh_ticks(model, params, short, HYBRID_SHORT["ticks"])
+        torch.save([None] + [r["tokens"] for r in short_ref[:-1]],
+                   out_dir / "feed_short.pt")
+        del short
     del model, params, st
     gc.collect()
     torch.cuda.empty_cache()
-    out_dir = ROOT / "build" / "chip_smoke" / "mesh" / phase
-    out_dir.mkdir(parents=True, exist_ok=True)
     # every tick's input is the single-device step's greedy token
     torch.save([None] + [r["tokens"] for r in ref[:-1]], out_dir / "feed.pt")
+    t_extra = time.perf_counter()
+    if phase == "tp":
+        train_ref = train_reference(TRAIN_MESH, out_dir, "[train-mesh]")
+        family_ref = family_reference(out_dir)
+    if phase == "ep":
+        train_ref = train_reference(EP_TRAIN, out_dir, "[ep-train]")
+    ref_s = time.perf_counter() - t_extra
     ranks = join_mesh_children(start_mesh_children(phase, out_dir), out_dir, tag)
     r0 = ranks[0]
     log(f"{tag} mesh {dict(zip(('data', 'model'), spec['shape']))} over "
@@ -3940,54 +4459,11 @@ def phase_mesh(phase):
                     f"{res['peak_gib']:.3f} GiB" for res in ranks[:1])
         + f"; the ranks' init one at a time {max(res['init_s'] for res in ranks):.3f} s")
     flips = _router_flips(cfg, ref, ranks, tag)
-    worst, agree, same, ties, held = 0.0, [], 0, [], 0
-    for r, res in enumerate(ranks):
-        rows = res["rows"]
-        for t, (got, want) in enumerate(zip(res["ticks"], ref)):
-            for i, row in enumerate(range(rows.start, rows.stop)):
-                if row in flips and t >= flips[row]["tick"]:
-                    continue
-                held += 1
-                rel = _rel(got["logits"][i], want["logits"][row])
-                worst = max(worst, rel)
-                if rel > spec["tol"]:
-                    fail(f"{tag} rank {r} tick {t} row {row}: logits rel L2 "
-                         f"{rel} > {spec['tol']}")
-                # a token may differ only where the reference's own logits
-                # cannot tell the two apart by more than this rank's
-                # measured difference from them (a near-tie under bf16
-                # rounding)
-                a, w = int(got["tokens"][row]), int(want["tokens"][row])
-                if a == w:
-                    same += 1
-                    continue
-                ref_row = want["logits"][row]
-                gap = float(ref_row[w] - ref_row[a])
-                diff = float((got["logits"][i] - ref_row).abs().max())
-                if gap > 2 * diff:
-                    fail(f"{tag} rank {r} tick {t} row {row}: token {a} against "
-                         f"the single-device step's {w}, whose logits part them "
-                         f"by {gap}, beyond twice this rank's difference {diff}")
-                ties.append((r, t, row, round(gap, 5), round(diff, 5)))
-            if r == 0:
-                agree.append(_topk_agreement(got["prev_topk"],
-                                             want["prev_topk"][:, rows]))
-    if not held:
-        fail(f"{tag} every row's router choice flipped before any tick could "
-             f"be held against the single-device step: {flips}")
-    log(f"{tag} every tick fed the single-device step's greedy tokens: "
-        f"{held} (rank, tick, row)s held to it (rows after a router flip "
-        f"left out); the ranks' own argmax equals them on {same} of them, "
-        f"the rest near-ties (rank, tick, row, the reference's logit gap, "
-        f"the rank's max |logit difference|): {ties}; logits rel L2 at most "
-        f"{worst:.3e} (tolerance {spec['tol']}); Top-K agreement per layer, "
-        f"rank 0, by tick: {agree}")
+    _hold_ticks(tag, [(res["rows"], res["ticks"]) for res in ranks], ref,
+                spec["tol"], flips)
     bill = r0["ticks"][-1]["bill"]
     log(f"{tag} the last tick's collectives on rank 0, by axis and tag "
-        f"(calls, bytes): " + "; ".join(
-            f"{ax}: " + ", ".join(f"{k} {v['calls']}/{v['bytes']}"
-                                  for k, v in tags.items())
-            for ax, tags in bill.items())
+        f"(calls, bytes): " + _bill_line(bill)
         + f"; host wall a tick {np.median([t['wall_ms'] for t in r0['ticks'][1:]]):.3f} ms")
     counts = {k: sum(res["counts"][k] for res in ranks) for k in r0["counts"]}
     per_rank = [{k: res["counts"][k] for k in ("indexer_scores", "gvr_topk",
@@ -4012,7 +4488,69 @@ def phase_mesh(phase):
         log(f"{tag} moe_mlp_ep at {EP_OVERFLOW_TOKENS} tokens: {o['drops']} "
             f"assignments dropped past capacity, the CPU's count from the "
             f"same inputs; output {o['shape']} finite")
-    return counts, r0.get("kernels", {})
+    extra_s = ref_s + max(res["extra_s"] for res in ranks)
+    if phase == "hybrid-sp":
+        _hold_ticks("[hybrid-sp short]", [(res["rows"], res["short"])
+                                          for res in ranks], short_ref,
+                    spec["tol"])
+        log(f"[hybrid-sp short] max_len {HYBRID_SHORT['n']} = dsa.min_n, "
+            f"lengths {HYBRID_SHORT['lengths']}, {HYBRID_SHORT['ticks']} ticks: "
+            f"the dense attention over the sequence shards; rank 0's "
+            f"collectives (calls/bytes): {_bill_line(r0['short'][-1]['bill'])}"
+            f"; host wall a tick {r0['short'][-1]['wall_ms']:.3f} ms")
+    if phase in ("tp", "ep"):
+        train_tag = "[train-mesh]" if phase == "tp" else "[ep-train]"
+        _check_train(train_tag, TRAIN_MESH if phase == "tp" else EP_TRAIN,
+                     train_ref, [res["train"] for res in ranks])
+    if phase == "ep":
+        from repro_torch.models import layers
+        o = [res["train_overflow"] for res in ranks]
+        want = layers.moe_ep_drops(o[0]["x"], o[0]["router"],
+                                   top_k=cfg.moe.top_k,
+                                   num_experts=cfg.moe.num_experts,
+                                   capacity_factor=cfg.moe.capacity_factor,
+                                   ep=spec["shape"][1])
+        got = sum(x["drops"] for x in o)
+        if got != want or not want or not all(x["finite"] for x in o):
+            fail(f"[ep-train] moe_mlp_ep under autograd at "
+                 f"{EP_OVERFLOW_TOKENS} tokens: the dispatch dropped {got}, "
+                 f"moe_ep_drops on the CPU {want}; gradients finite "
+                 f"{[x['finite'] for x in o]}")
+        log(f"[ep-train] moe_mlp_ep under autograd at {EP_OVERFLOW_TOKENS} "
+            f"tokens: the ranks' dispatch dropped {got} assignments (by "
+            f"rank {[x['drops'] for x in o]}), the one-device "
+            f"moe_ep_drops' count; the backward's gradients finite")
+    family_counts = {}
+    if phase == "tp":
+        for key in FAMILY_MESH:
+            fr = [res["family"][key] for res in ranks]
+            ftag = f"[family-mesh] {key}"
+            _hold_ticks(ftag, [(x["rows"], x["ticks"]) for x in fr],
+                        family_ref[key], FAMILY_MESH_TOL)
+            log(f"{ftag}: per rank {fr[0]['param_gib']:.3f} GiB of "
+                f"parameters, peak {fr[0]['peak_gib']:.3f} GiB; rank 0's "
+                f"last tick (calls/bytes): "
+                f"{_bill_line(fr[0]['ticks'][-1]['bill'])}; host wall a "
+                f"tick {np.median([t['wall_ms'] for t in fr[0]['ticks'][1:]]):.3f}"
+                f" ms; launches per rank (B5 scoring, B1, B6) "
+                + str([{k: x["counts"][k] for k in ("indexer_scores", "gvr_topk",
+                                                     "sparse_decode_attn")}
+                       for x in fr])
+                + (f"; rank 0's first B5 / B1 / B6 inputs against the plain "
+                   f"versions: {fr[0]['kernels']}" if "kernels" in fr[0] else ""))
+            if key == "whisper":
+                if any(min(x["counts"][k] for k in ("indexer_scores", "gvr_topk",
+                                                    "sparse_decode_attn")) == 0
+                       for x in fr) or "kernels" not in fr[0]:
+                    fail(f"{ftag} a rank launched no B5, B1 or B6")
+                family_counts = {k: sum(x["counts"][k] for x in fr)
+                                 for k in fr[0]["counts"]}
+                family_counts["kernels"] = fr[0]["kernels"]
+    if phase in ("tp", "ep", "hybrid-sp"):
+        log(f"[phase] {phase} new cells: {extra_s:.3f} s (the one-device "
+            f"references {ref_s:.3f} s, the ranks' own at most "
+            f"{max(res['extra_s'] for res in ranks):.3f} s)")
+    return counts, r0.get("kernels", {}), family_counts
 
 
 def main() -> int:
@@ -4284,9 +4822,13 @@ def main() -> int:
                           (kernels[4], "indexer_scores", "B5 scoring"),
                           (kernels[5], "sparse_decode_attn", "B6")):
         for phase in ("tp", "ep"):
-            counts, checks = mesh_counts[phase]
+            counts, checks, _ = mesh_counts[phase]
             r[f"{phase}_launches"] = int(counts[key])
             r[f"{phase}_max_abs_err"] = checks[short]["err"]
+        # [family-mesh]: whisper's step on (2, 2), every rank
+        fam = mesh_counts["tp"][2]
+        r["family_mesh_launches"] = int(fam[key])
+        r["family_mesh_max_abs_err"] = fam["kernels"][short]["err"]
     (a, a_lo, a_hi), (c, c_lo, c_hi) = b7_ab["B7"], b7_ab["index_select"]
     kernels[6].update(ab_ms=a, ab_lo_ms=a_lo, ab_hi_ms=a_hi, ab_library_ms=c,
                       ab_library_lo_ms=c_lo, ab_library_hi_ms=c_hi)

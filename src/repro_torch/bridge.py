@@ -10,7 +10,9 @@ go through float32, which holds every bfloat16 value exactly.
 
 `shard_tree(tree, specs, mesh)` gives a rank the block of every leaf that
 its spec assigns it (what JAX's NamedSharding places on that device);
-`unshard_tree` puts the ranks' blocks back together (tests).
+`unshard_tree` puts the ranks' blocks back together (tests), and
+`gather_tree` does it on a live mesh, every rank gathering every leaf
+over the axes its spec names (a mesh checkpoint's logical arrays).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.parallel.sharding import block_slices
+from repro_torch.parallel.sharding import _names, block_slices
+from repro_torch.tree import spec_map
 
 
 def to_torch(arr, device="cpu") -> torch.Tensor:
@@ -38,22 +41,13 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
     return to_torch(tree, device)
 
 
-def _zip_map(fn, specs: Any, *trees: Any) -> Any:
-    """fn(spec, leaf, ...) over nested dicts whose leaves are specs (which
-    are tuples, so a generic tree walk would descend into them)."""
-    if isinstance(specs, dict):
-        return {k: _zip_map(fn, v, *(t[k] for t in trees))
-                for k, v in specs.items()}
-    return fn(specs, *trees)
-
-
 def shard_tree(tree: Any, specs: Any, mesh,
                coords: Optional[Dict[str, int]] = None) -> Any:
     """The block of every leaf of `tree` that the rank at `coords` (a
     `Mesh`'s own by default; give them for an `AbstractMesh`) holds under
     the same-keyed `specs`, as contiguous tensors."""
     coords = mesh.coords if coords is None else coords
-    return _zip_map(lambda spec, x: x[block_slices(
+    return spec_map(lambda spec, x: x[block_slices(
         spec, x.shape, mesh, coords)].contiguous(), specs, tree)
 
 
@@ -80,4 +74,40 @@ def unshard_tree(blocks: Sequence[Any], specs: Any, mesh) -> Any:
             out[block_slices(spec, full, mesh, c)] = part
         return out
 
-    return _zip_map(join, specs, *blocks)
+    return spec_map(join, specs, *blocks)
+
+
+def gather_tree(tree: Any, specs: Any, mesh) -> Any:
+    """The whole of every leaf of `tree`, this rank's blocks under the
+    same-structured `specs` on the live `mesh`: each sharded dimension
+    gathered over its axes, the innermost first (row-major blocks). Every
+    rank of the mesh must call it; each gets every leaf whole."""
+
+    def one(spec, x):
+        with torch.no_grad():
+            for d, entry in enumerate(spec):
+                for a in reversed(_names(entry)):
+                    x = mesh.axis(a).all_gather(x, dim=d, tiled=True,
+                                                tag="gather")
+        return x
+
+    return spec_map(one, specs, tree)
+
+
+def global_shape(spec, local_shape, mesh) -> tuple:
+    """The shape of the array whose block under `spec` has `local_shape`."""
+    out = list(local_shape)
+    for d, entry in enumerate(spec):
+        for a in _names(entry):
+            out[d] *= mesh.shape.get(a, 1)
+    return tuple(out)
+
+
+def block_shape(spec, shape, mesh) -> tuple:
+    """The shape of a block of an array of `shape` under `spec`."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for a in _names(entry):
+            out[d] //= mesh.shape.get(a, 1)
+    return tuple(out)
+

@@ -18,8 +18,14 @@ The files are the reference's: `arrays.npz` (leaf i as "a{i}") and
 OptState)), bfloat16 leaves stored as the reference stores them (2-byte
 void records of the bf16 bits). So a checkpoint written by either package
 restores into the other, and the structure check means the same in both.
-A mesh-aware `restore(..., shardings=...)` has no meaning without a mesh
-(ROADMAP item 7); restore takes a `device` instead.
+
+Mesh-agnostic, as the reference's: under a mesh, `save(..., mesh=,
+specs=)` gathers every leaf's logical array from the ranks' blocks
+(`bridge.gather_tree`; every rank calls it) and rank 0 alone writes, the
+same files and manifest as a one-device save of those values;
+`restore(..., shardings=, mesh=)` reads the logical arrays and returns
+the rank's blocks under the spec tree `shardings`, so a save on one mesh
+restores on another mesh or on one device (an elastic restart).
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tree import flatten_with_paths, unflatten
+from repro_torch.parallel.sharding import block_slices
+from repro_torch.tree import flatten_with_paths, spec_leaves, unflatten
 
 _MANIFEST = "manifest.json"
 
@@ -57,9 +64,20 @@ def tree_hash(host_flat) -> str:
 
 
 def save(ckpt_dir: str, tree: Any, step: int, *, keep_last: int = 3,
-         block: bool = True) -> Optional[threading.Thread]:
+         block: bool = True, mesh=None,
+         specs: Any = None) -> Optional[threading.Thread]:
     """Atomically persist `tree` at `step`; with block=False the write runs
-    on the returned thread (join it before relying on the files)."""
+    on the returned thread (join it before relying on the files). Under a
+    `mesh`, `tree` holds the rank's blocks under the spec tree `specs`:
+    every rank calls save, rank 0 writes, and with `block` every rank
+    returns once the files are in place."""
+    if mesh is not None:
+        from repro_torch.bridge import gather_tree
+        tree = gather_tree(tree, specs, mesh)
+        if mesh.rank != 0:
+            if block:
+                mesh.barrier()
+            return None
     host = [(p, _to_numpy(t)) for p, t in flatten_with_paths(tree)]
 
     def _write():
@@ -84,6 +102,8 @@ def save(ckpt_dir: str, tree: Any, step: int, *, keep_last: int = 3,
 
     if block:
         _write()
+        if mesh is not None:
+            mesh.barrier()
         return None
     t = threading.Thread(target=_write, daemon=True)
     t.start()
@@ -113,25 +133,37 @@ def _to_torch(a: np.ndarray, ref: torch.Tensor, device) -> torch.Tensor:
                 dtype=ref.dtype)
 
 
-def restore(ckpt_dir: str, step: int, like: Any, device=None) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any, device=None, *,
+            shardings: Any = None, mesh=None) -> Any:
     """Restore into the structure of `like` (the manifest's paths must be
     like's), each leaf in like's dtype on `device`, or on like's leaf's
-    device when None."""
+    device when None. With `shardings` (a spec tree like `like`, e.g.
+    `launch.train.shardings_for`'s) and a `mesh`, each leaf is this
+    rank's block of the stored array (`like` holds the blocks)."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, _MANIFEST)) as f:
         manifest = json.load(f)
     flat_like = flatten_with_paths(like)
     if manifest["leaves"] != [p for p, _ in flat_like]:
         raise ValueError("checkpoint/manifest structure mismatch")
+    specs = ([None] * len(flat_like) if shardings is None
+             else spec_leaves(shardings))
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        return unflatten(like, [_to_torch(data[f"a{i}"], ref, device)
-                                for i, (_, ref) in enumerate(flat_like)])
+        out = []
+        for i, ((_, ref), spec) in enumerate(zip(flat_like, specs)):
+            a = data[f"a{i}"]
+            if spec is not None:
+                a = a[block_slices(spec, a.shape, mesh, mesh.coords)]
+            out.append(_to_torch(a, ref, device))
+        return unflatten(like, out)
 
 
-def restore_latest(ckpt_dir: str, like: Any,
-                   device=None) -> Optional[Tuple[Any, int]]:
+def restore_latest(ckpt_dir: str, like: Any, device=None, *,
+                   shardings: Any = None,
+                   mesh=None) -> Optional[Tuple[Any, int]]:
     steps = all_steps(ckpt_dir)
     if not steps:
         return None
     step = steps[-1]
-    return restore(ckpt_dir, step, like, device), step
+    return restore(ckpt_dir, step, like, device, shardings=shardings,
+                   mesh=mesh), step

@@ -22,6 +22,7 @@ from repro_torch.parallel.sharding import block_slices
 from repro_torch.tree import tree_map
 from . import encdec, hybrid, ssm, transformer
 from .config import ModelConfig
+from .tensor_parallel import require_live
 
 _FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
              "audio": encdec, "ssm": ssm, "hybrid": hybrid}
@@ -121,15 +122,21 @@ class Model:
                                            s["seq_len"], device="meta")
         return tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype), state)
 
-    def loss_fn(self, params, batch):
+    def loss_fn(self, params, batch, *, mesh=None, rules=None):
         """Mean next-token cross-entropy of `batch`, a dict of tensors on
         the model's device (tokens, targets, optional mask; frames for
-        the audio family, patch_embeds for the vlm)."""
-        return self.mod.loss_fn(params, batch, self.cfg)
+        the audio family, patch_embeds for the vlm). Under a `mesh` and
+        its `rules`: params the rank's blocks, the batch global, and the
+        loss this rank's share (`parallel/sharding.py`'s convention;
+        `launch.train.loss_and_grads` sums it)."""
+        return self.mod.loss_fn(params, batch, self.cfg, mesh=mesh,
+                                rules=rules)
 
     def forward_train(self, params, tokens, **kw):
         """Training-path logits (B, S, V) under autograd; `kw` is the
-        family's (`remat`, `frames`, `patch_embeds`)."""
+        family's (`remat`, `frames`, `patch_embeds`, `mesh`, `rules`:
+        under a mesh the logits of the rank's rows and vocabulary
+        block)."""
         return self.mod.forward_train(params, tokens, self.cfg, **kw)
 
     def init_decode_state(self, batch, max_len, *, dtype=None):
@@ -181,16 +188,13 @@ class Model:
         """One dense-layout decode step (see transformer.serve_step; the
         enc-dec, ssm and hybrid steps take no `min_write_pos`, as the
         reference's). Under a `mesh` (`launch.make_mesh`) and its `rules`
-        each rank passes the blocks `bridge.shard_tree` gives it of the
-        parameters and state and the global tokens, and gets the logits of
-        its own batch rows. `seq_sharded` reaches the hybrid step alone, as
-        in the reference's facade."""
+        each rank of every family passes the blocks `bridge.shard_tree`
+        gives it of the parameters and state and the global tokens, and
+        gets the logits of its own batch rows. `seq_sharded` reaches the
+        hybrid step alone, as in the reference's facade."""
         kw = {} if min_write_pos is None else {"min_write_pos": min_write_pos}
         if mesh is not None:
-            if self.mod in (encdec, ssm):
-                raise NotImplementedError(
-                    f"the {self.cfg.family} family's step under a mesh is "
-                    f"not ported yet (ROADMAP item 7)")
+            require_live(mesh)
             kw.update(mesh=mesh, rules=rules)
         if self.cfg.family == "hybrid":
             kw["seq_sharded"] = seq_sharded

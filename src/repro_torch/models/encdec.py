@@ -30,17 +30,19 @@ step returns `length` and, under DSA, `prev_topk` anew.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.temporal import seed_slot_idx
-from repro_torch.parallel.sharding import MeshRules, P, stacked
+from repro_torch.parallel.sharding import MeshRules, P, stacked, unstacked
 from repro_torch.sparse import dsa as dsa_mod
 from .config import ModelConfig
-from .layers import (apply_rotary, blockwise_causal_attention, cross_entropy,
-                     decode_attention, gelu_mlp, remat_call, rms_norm)
-from .transformer import drawer, layer_params, torch_dtype, unstack_layers
+from .layers import apply_rotary, decode_attention, remat_call, rms_norm
+from .tensor_parallel import NO_MESH, Heads, Placement, heads_of
+from .transformer import (attention_train, drawer, layer_params, torch_dtype,
+                          train_loss, unstack_layers)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device,
@@ -126,83 +128,144 @@ def _full_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         v.float())
 
 
-def _self_attn(p, x: torch.Tensor, cfg: ModelConfig,
+class _Layout(NamedTuple):
+    """Where a step's arrays live on this rank: `transformer._Layout`'s
+    fields (one attention block's specs as `layer`, the same for every
+    attention block of both stacks) and the GELU MLP's `d_ff` entry."""
+    pl: Placement
+    heads: Heads
+    layer: Dict[str, Any]
+    embed: Any
+    head: Any
+    mlp: Any
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_layout(cfg: ModelConfig) -> _Layout:
+    return _layout(cfg, None, NO_MESH, 0, 0)
+
+
+def _layout(cfg: ModelConfig, mesh, rules: MeshRules, batch: int,
+            max_len: int) -> _Layout:
+    """The layout of a `batch`-row step on this rank of `mesh`: the
+    rank's heads where the cache's KV heads are sharded (`state_specs`),
+    `d_ff` and the vocabulary by their specs."""
+    psp = param_specs(cfg, rules)
+    dec = unstacked(psp["decoder"])
+    heads = heads_of(cfg, state_specs(cfg, rules, batch=batch,
+                                      max_len=max_len)["k"][3], mesh)
+    return _Layout(Placement(mesh, rules, batch), heads, dec["self_attn"],
+                   psp["embed"][0], psp["lm_head"][1], dec["mlp"]["w_down"][0])
+
+
+def _qkv(p, x: torch.Tensor, kv_in: torch.Tensor, lay: _Layout):
+    """q from x, k and v from kv_in, at the layout's heads."""
+    gather = lay.heads.axis is None
+    return tuple(lay.pl.cols(inp, p[w], lay.layer[w][1], gather=gather, tag=w)
+                 for inp, w in ((x, "wq"), (kv_in, "wk"), (kv_in, "wv")))
+
+
+def _out(p, att: torch.Tensor, dtype, lay: _Layout) -> torch.Tensor:
+    """The attention output (B, ..., heads, hd) through `wo`."""
+    att = att.reshape(att.shape[:-2] + (-1,)).to(dtype)
+    return lay.pl.rows_in(att, p["wo"], lay.layer["wo"][0],
+                          local=lay.heads.axis is not None, tag="wo")
+
+
+def _mlp(p, x: torch.Tensor, lay: _Layout) -> torch.Tensor:
+    return lay.pl.gelu(x, entry=lay.mlp, **p)
+
+
+def _self_attn(p, x: torch.Tensor, cfg: ModelConfig, lay: _Layout,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self-attention over x (B, S, D) normed: bidirectional (the
     encoder) without `positions`, else the decoder's training form, RoPE
     at `positions` and the blockwise causal attention. Returns (B, S, D)
     in x's dtype."""
+    if positions is not None:
+        return attention_train(p, x, cfg, positions, lay,
+                               rope=dict(base=cfg.rope_base))
     b, s, _ = x.shape
-    hd = cfg.hd
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
-    if positions is None:
-        out = _full_attn(q, k, v, hd)
-    else:
-        q = apply_rotary(q, positions, base=cfg.rope_base)
-        k = apply_rotary(k, positions, base=cfg.rope_base)
-        out = blockwise_causal_attention(q, k, v, scale=hd ** -0.5)
-    return out.reshape(b, s, -1).to(x.dtype) @ p["wo"]
+    q, k, v = (t.reshape(b, s, -1, cfg.hd) for t in _qkv(p, x, x, lay))
+    return _out(p, _full_attn(q, k, v, cfg.hd), x.dtype, lay)
 
 
 def _cross_attn(p, x: torch.Tensor, enc_out: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
+                cfg: ModelConfig, lay: _Layout) -> torch.Tensor:
     """The decoder's training-form cross-attention: queries from x (B, S,
     D) normed, keys and values from the encoder output (B, F, D)."""
-    b, s, _ = x.shape
-    hd, se = cfg.hd, enc_out.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (enc_out @ p["wk"]).reshape(b, se, cfg.n_kv_heads, hd)
-    v = (enc_out @ p["wv"]).reshape(b, se, cfg.n_kv_heads, hd)
-    return _full_attn(q, k, v, hd).reshape(b, s, -1).to(x.dtype) @ p["wo"]
+    b = x.shape[0]
+    q, k, v = (t.reshape(b, t.shape[1], -1, cfg.hd)
+               for t in _qkv(p, x, enc_out, lay))
+    return _out(p, _full_attn(q, k, v, cfg.hd), x.dtype, lay)
 
 
-def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def encode(params, frames: torch.Tensor, cfg: ModelConfig,
+           lay: Optional[_Layout] = None) -> torch.Tensor:
     """frames: (B, encoder_frames, D) precomputed frame embeddings (the
-    stubbed frontend). Returns the normed encoder output (B, F, D)."""
+    stubbed frontend). Returns the normed encoder output (B, F, D). Under
+    a mesh (`lay`) frames are the rank's rows and the heads and `d_ff`
+    its own."""
+    lay = lay or _plain_layout(cfg)
     x = frames.to(torch_dtype(cfg.dtype)) + params["enc_pos"][None]
     for p in unstack_layers(params["encoder"], cfg.encoder_layers or cfg.n_layers):
-        x = x + _self_attn(p["attn"], rms_norm(x, p["ln1"]), cfg)
-        x = x + gelu_mlp(rms_norm(x, p["ln2"]), **p["mlp"])
+        x = x + _self_attn(p["attn"], rms_norm(x, p["ln1"]), cfg, lay)
+        x = x + _mlp(p["mlp"], rms_norm(x, p["ln2"]), lay)
     return rms_norm(x, params["enc_norm"])
 
 
 def _decoder_layer(p, x: torch.Tensor, enc_out: torch.Tensor,
-                   positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = x + _self_attn(p["self_attn"], rms_norm(x, p["ln1"]), cfg, positions)
-    x = x + _cross_attn(p["cross_attn"], rms_norm(x, p["ln2"]), enc_out, cfg)
-    return x + gelu_mlp(rms_norm(x, p["ln3"]), **p["mlp"])
+                   positions: torch.Tensor, cfg: ModelConfig,
+                   lay: _Layout) -> torch.Tensor:
+    x = x + _self_attn(p["self_attn"], rms_norm(x, p["ln1"]), cfg, lay,
+                       positions)
+    x = x + _cross_attn(p["cross_attn"], rms_norm(x, p["ln2"]), enc_out, cfg,
+                        lay)
+    return x + _mlp(p["mlp"], rms_norm(x, p["ln3"]), lay)
+
+
+def _forward_train(params, tokens, cfg, frames, mesh, rules, remat):
+    b, s = tokens.shape
+    lay = (_plain_layout(cfg) if mesh is None
+           else _layout(cfg, mesh, rules, b, s))
+    if frames is None:
+        frames = torch.zeros((b, cfg.encoder_frames, cfg.d_model),
+                             dtype=torch_dtype(cfg.dtype),
+                             device=params["enc_pos"].device)
+    enc_out = encode(params, frames[lay.pl.rows], cfg, lay)
+    tokens = tokens[lay.pl.rows]
+    x = lay.pl.embed(params["embed"], lay.embed, tokens)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(tokens.shape[0], s)
+    for p in unstack_layers(params["decoder"], cfg.n_layers):
+        x = remat_call(_decoder_layer, remat, p, x, enc_out, positions, cfg,
+                       lay)
+    x = rms_norm(x, params["final_norm"])
+    return (*lay.pl.vocab_logits(x, params["lm_head"], lay.head), lay)
 
 
 def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig, *,
-                  frames: Optional[torch.Tensor] = None,
+                  frames: Optional[torch.Tensor] = None, mesh=None,
+                  rules: Optional[MeshRules] = None,
                   patch_embeds=None, remat: bool = True) -> torch.Tensor:
     """tokens (B, S) → logits (B, S, V), under autograd: the encoder over
     `frames` (zeros in the config dtype when None, as in the reference),
     then the decoder layers, each recomputed in the backward pass under
     `remat` (the encoder is not, as in the reference). `patch_embeds` is
-    taken and ignored, as the reference's is."""
-    b, s = tokens.shape
-    if frames is None:
-        frames = torch.zeros((b, cfg.encoder_frames, cfg.d_model),
-                             dtype=torch_dtype(cfg.dtype),
-                             device=params["embed"].device)
-    enc_out = encode(params, frames, cfg)
-    x = params["embed"][tokens.long()]
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device)[None].expand(b, s)
-    for p in unstack_layers(params["decoder"], cfg.n_layers):
-        x = remat_call(_decoder_layer, remat, p, x, enc_out, positions, cfg)
-    return rms_norm(x, params["final_norm"]) @ params["lm_head"]
+    taken and ignored, as the reference's is. Under a `mesh` and its
+    `rules` (frames and tokens global): the logits of the rank's rows and
+    vocabulary block, both stacks on the rank's heads and `d_ff`."""
+    return _forward_train(params, tokens, cfg, frames, mesh, rules, remat)[0]
 
 
-def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(params, batch, cfg: ModelConfig, *, mesh=None,
+            rules: Optional[MeshRules] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of `batch` (tokens, targets, optional
-    mask and frames)."""
-    logits = forward_train(params, batch["tokens"], cfg,
-                           frames=batch.get("frames"))
-    return cross_entropy(logits, batch)
+    mask and frames); under a mesh this rank's share (see
+    `transformer.loss_fn`)."""
+    return train_loss(*_forward_train(params, batch["tokens"], cfg,
+                                      batch.get("frames"), mesh, rules, True),
+                      batch)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *, device,
@@ -257,35 +320,48 @@ def state_specs(cfg: ModelConfig, rules: MeshRules, *, batch: int,
     return specs
 
 
-def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig):
+def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
+               mesh=None, rules: Optional[MeshRules] = None):
     """One decode step. tokens: (B,) int. Returns (logits (B, V) f32,
     new_state). The new K/V (and indexer-K) rows are written in place at
     `length`, clamped to N-1 as the reference's `dynamic_update_slice`
-    clamps it; DSA runs when N > `dsa.min_n`, decided from the shape."""
-    b = tokens.shape[0]
-    hd, h, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    positions = state["length"]
-    new_len = positions + 1
+    clamps it; DSA runs when N > `dsa.min_n`, decided from the shape.
+
+    Under a `mesh` and its `rules` the step runs on one rank, as
+    `transformer.serve_step` does (params and state the rank's blocks,
+    tokens global, the logits of the rank's rows): the self-attention's
+    DSA (B5 -> B1 -> B6 on the card) on the rank's KV heads, the
+    cross-attention on its heads of `ck`/`cv`, the GELU MLP by `d_ff`,
+    the embedding and head by vocabulary (replicated where it does not
+    divide)."""
+    hd = cfg.hd
     n = state["k"].shape[2]
+    lay = (_plain_layout(cfg) if mesh is None
+           else _layout(cfg, mesh, rules, tokens.shape[0], n))
+    positions = state["length"][lay.pl.rows]
+    b = positions.shape[0]
+    new_len = positions + 1
     use_dsa = cfg.dsa.enabled and n > cfg.dsa.min_n
     rows = torch.arange(b, device=positions.device)
     wpos = positions.clamp(max=n - 1).long()
     enc_len = torch.full((b,), state["ck"].shape[2], dtype=torch.int32,
                          device=positions.device)
     pos = positions[:, None]
-    x = params["embed"][tokens.long()]                    # (B, D)
+    hl, kvl = lay.heads.hl, lay.heads.kvl
+    x = lay.pl.embed(params["embed"], lay.embed, tokens[lay.pl.rows])  # (B, D)
     topk_out = []
     for i in range(cfg.n_layers):
         p = layer_params(params["decoder"], i)
         pa = p["self_attn"]
         hs = rms_norm(x, p["ln1"])
-        q = apply_rotary((hs @ pa["wq"]).reshape(b, 1, h, hd), pos,
+        q, kn, vn = _qkv(pa, hs, hs, lay)
+        q = apply_rotary(q.reshape(b, 1, hl, hd), pos,
                          base=cfg.rope_base)[:, 0]
-        kn = apply_rotary((hs @ pa["wk"]).reshape(b, 1, kvh, hd), pos,
+        kn = apply_rotary(kn.reshape(b, 1, kvl, hd), pos,
                           base=cfg.rope_base)[:, 0]
         kc, vc = state["k"][i], state["v"][i]
         kc[rows, wpos] = kn.to(kc.dtype)
-        vc[rows, wpos] = (hs @ pa["wv"]).reshape(b, kvh, hd).to(vc.dtype)
+        vc[rows, wpos] = vn.reshape(b, kvl, hd).to(vc.dtype)
         if cfg.dsa.enabled:
             idx_kc = state["idx_k"][i]
             idx_kc[rows, wpos] = dsa_mod.indexer_k(
@@ -303,16 +379,17 @@ def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig):
             topk_out.append(res.topk_idx.int())
         else:
             att = decode_attention(q, kc, vc, new_len, scale=hd ** -0.5)
-        x = x + att.reshape(b, -1).to(x.dtype) @ pa["wo"]
+        x = x + _out(pa, att, x.dtype, lay)
         # cross-attention over the precomputed encoder K/V (exact)
         pc = p["cross_attn"]
-        qc = (rms_norm(x, p["ln2"]) @ pc["wq"]).reshape(b, h, hd)
-        attc = decode_attention(qc, state["ck"][i], state["cv"][i], enc_len,
-                                scale=hd ** -0.5)
-        x = x + attc.reshape(b, -1).to(x.dtype) @ pc["wo"]
-        x = x + gelu_mlp(rms_norm(x, p["ln3"]), **p["mlp"])
-    new_state = dict(state, length=new_len)
+        qc = lay.pl.cols(rms_norm(x, p["ln2"]), pc["wq"], lay.layer["wq"][1],
+                         gather=lay.heads.axis is None, tag="wq")
+        attc = decode_attention(qc.reshape(b, hl, hd), state["ck"][i],
+                                state["cv"][i], enc_len, scale=hd ** -0.5)
+        x = x + _out(pc, attc, x.dtype, lay)
+        x = x + _mlp(p["mlp"], rms_norm(x, p["ln3"]), lay)
+    new_state = dict(state, length=state["length"] + 1)
     if topk_out:
         new_state["prev_topk"] = torch.stack(topk_out)
     x = rms_norm(x, params["final_norm"])
-    return (x @ params["lm_head"]).float(), new_state
+    return lay.pl.logits(x, params["lm_head"], lay.head), new_state

@@ -55,8 +55,8 @@ from repro_torch.parallel.sharding import (MeshRules, P, block_slices, stacked,
                                          unstacked)
 from repro_torch.sparse import dsa as dsa_mod
 from .config import ModelConfig
-from .layers import (apply_rotary, blockwise_causal_attention, cross_entropy,
-                     decode_attention, moe_mlp_ep, remat_call, rms_norm)
+from .layers import (apply_rotary, decode_attention, moe_mlp_ep, remat_call,
+                     rms_norm)
 from .tensor_parallel import NO_MESH, Heads, Placement, axis_of, heads_of
 from .transformer import drawer, layer_params, torch_dtype, unstack_layers
 
@@ -308,81 +308,107 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.to(dt) @ w.to(dt)
 
 
-def _mamba_train(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _mamba_train(p, x: torch.Tensor, cfg: ModelConfig,
+                 tp: Optional["_Layout"] = None) -> torch.Tensor:
     """A Mamba layer over (B, S, D) normed, the reference's training form:
     the causal depthwise conv summed in x's dtype (the step form sums it
     in f32), the SiLU after the f32 `conv_b` in f32, and the selective
-    scan over S in f32 from a zero state."""
+    scan over S in f32 from a zero state. Under a mesh (`tp`) on the
+    rank's channels as `_mamba_step`: `in_proj` gathered, each
+    per-channel parameter cut to the rank's channels (its gradient
+    summed over the axis), `x_proj` and `out_proj` summed over it."""
     b, s, _ = x.shape
     di, ds, dtr, dc = _dims(cfg)
-    xz = x @ p["in_proj"]
-    x1, z = xz[..., :di], xz[..., di:]
+    tp = tp or _plain_layout(cfg)
+    c, entry = tp.channels, tp.mamba["out_proj"][0]
+    ax = axis_of(tp.pl.mesh, entry)
+
+    def mine(t, tag):           # a value every rank holds, cut to channels
+        return t if ax is None else ax.enter(t, tag)
+
+    xz = mine(tp.pl.cols(x, p["in_proj"], tp.mamba["in_proj"][1],
+                         gather=True, tag="in_proj"), "in_proj")
+    x1, z = xz[..., :di][..., c], xz[..., di:][..., c]
+    conv_w = mine(p["conv_w"], "conv_w")[:, c]
     xp = F.pad(x1, (0, 0, dc - 1, 0))
-    x1 = sum(xp[:, i:i + s] * p["conv_w"][i][None, None] for i in range(dc))
-    x1 = F.silu(x1 + p["conv_b"])
-    proj = _mm(x1, p["x_proj"])
-    dt = F.softplus(_mm(proj[..., :dtr], p["dt_proj"]) + p["dt_bias"]).float()
+    x1 = sum(xp[:, i:i + s] * conv_w[i][None, None] for i in range(dc))
+    x1 = F.silu(x1 + mine(p["conv_b"], "conv_b")[c])
+    proj = _mm(x1, mine(p["x_proj"], "x_proj")[c])
+    if ax is not None:
+        proj = ax.enter(ax.psum(proj, "x_proj"), "x_proj")
+    dt = F.softplus(_mm(proj[..., :dtr], mine(p["dt_proj"], "dt_proj")[:, c])
+                    + mine(p["dt_bias"], "dt_bias")[c]).float()
     bmat = proj[..., dtr:dtr + ds].float()
     cmat = proj[..., dtr + ds:].float()
-    a = -torch.exp(p["a_log"])
+    a = -torch.exp(mine(p["a_log"], "a_log")[c])
     xf = x1.float()
-    h = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
+    h = torch.zeros((b, xf.shape[-1], ds), dtype=torch.float32,
+                    device=x.device)
     ys = []
     for t in range(s):
         h = (torch.exp(dt[:, t, :, None] * a[None]) * h
              + (dt[:, t] * xf[:, t])[..., None] * bmat[:, t, None, :])
         ys.append(torch.einsum("bds,bs->bd", h, cmat[:, t]))
-    y = torch.stack(ys, dim=1) + p["d_skip"] * xf
-    return (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    y = torch.stack(ys, dim=1) + mine(p["d_skip"], "d_skip")[c] * xf
+    return tp.pl.rows_in(y.to(x.dtype) * F.silu(z), p["out_proj"], entry,
+                         local=True, tag="out_proj")
 
 
 def _superblock_train(p, x: torch.Tensor, positions: torch.Tensor,
-                      cfg: ModelConfig) -> torch.Tensor:
+                      cfg: ModelConfig, tp: "_Layout") -> torch.Tensor:
     """One superblock over (B, S, D): the attention layer (RoPE, the
     blockwise causal attention), then the 8 layers' Mamba (i > 0) and
     feed-forward (MoE on odd i, dense on even) in the reference's order."""
-    b, s, _ = x.shape
-    hd = cfg.hd
+    from .transformer import _Layout as AttnLayout, attention_train
     pa = p["attn"]
-    h = rms_norm(x, pa["ln"])
-    q = apply_rotary((h @ pa["wq"]).reshape(b, s, cfg.n_heads, hd), positions,
-                     base=cfg.rope_base)
-    k = apply_rotary((h @ pa["wk"]).reshape(b, s, cfg.n_kv_heads, hd),
-                     positions, base=cfg.rope_base)
-    v = (h @ pa["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
-    att = blockwise_causal_attention(q, k, v, scale=hd ** -0.5)
-    x = x + att.reshape(b, s, -1).to(x.dtype) @ pa["wo"]
+    x = x + attention_train(pa, rms_norm(x, pa["ln"]), cfg, positions,
+                            AttnLayout(tp.pl, tp.heads, tp.attn, None, None),
+                            rope=dict(base=cfg.rope_base))
     mamba = unstack_layers(p["mamba"], SB - 1)
     ffn = {kind: unstack_layers(p[kind], SB // 2) for kind in ("dense", "moe")}
     for i in range(SB):
         if i > 0:
             pm = mamba[i - 1]
-            x = x + _mamba_train(pm, rms_norm(x, pm["ln"]), cfg)
+            x = x + _mamba_train(pm, rms_norm(x, pm["ln"]), cfg, tp)
         kind = "moe" if i % 2 == 1 else "dense"
         pf = ffn[kind][i // 2]
-        x = x + _ffn(pf, rms_norm(x, pf["ln"]), cfg, kind == "moe")
+        x = x + _ffn(pf, rms_norm(x, pf["ln"]), cfg, kind == "moe", tp)
     return x
 
 
+def _forward_train(params, tokens, cfg, mesh, rules, remat):
+    b, s = tokens.shape
+    tp = (_plain_layout(cfg) if mesh is None
+          else _layout(cfg, mesh, rules, b, s, False, False))
+    tokens = tokens[tp.pl.rows]
+    x = tp.pl.embed(params["embed"], tp.embed, tokens)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(tokens.shape[0], s)
+    for p in unstack_layers(params["blocks"], cfg.n_layers // SB):
+        x = remat_call(_superblock_train, remat, p, x, positions, cfg, tp)
+    x = rms_norm(x, params["final_norm"])
+    return (*tp.pl.vocab_logits(x, params["lm_head"], tp.head), tp)
+
+
 def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  mesh=None, rules: Optional[MeshRules] = None,
                   patch_embeds=None, remat: bool = True) -> torch.Tensor:
     """tokens (B, S) → logits (B, S, V), under autograd; each superblock
     is recomputed in the backward pass under `remat` (the reference's
     `jax.checkpoint` of the superblock). No DSA: the indexer weights get
-    a zero gradient."""
-    b, s = tokens.shape
-    x = params["embed"][tokens.long()]
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device)[None].expand(b, s)
-    for p in unstack_layers(params["blocks"], cfg.n_layers // SB):
-        x = remat_call(_superblock_train, remat, p, x, positions, cfg)
-    return rms_norm(x, params["final_norm"]) @ params["lm_head"]
+    a zero gradient. Under a `mesh` and its `rules`: the logits of the
+    rank's rows and vocabulary block; the heads, Mamba channels, `d_ff`
+    and experts (`layers.moe_mlp_ep`: capacity drops) over "model"."""
+    return _forward_train(params, tokens, cfg, mesh, rules, remat)[0]
 
 
-def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(params, batch, cfg: ModelConfig, *, mesh=None,
+            rules: Optional[MeshRules] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of `batch` (tokens, targets, optional
-    mask)."""
-    return cross_entropy(forward_train(params, batch["tokens"], cfg), batch)
+    mask); under a mesh this rank's share (see `transformer.loss_fn`)."""
+    from .transformer import train_loss
+    return train_loss(*_forward_train(params, batch["tokens"], cfg, mesh,
+                                      rules, True), batch)
 
 
 class _Layout(NamedTuple):
@@ -440,7 +466,8 @@ def _layout(cfg: ModelConfig, mesh, rules: MeshRules, batch: int,
             heads=cfg.dsa.indexer_heads, dim=cfg.dsa.indexer_dim,
             rope_base=cfg.rope_base, seq_axis=seq,
             head_axis=None if heads.axis is None else heads.axis.name,
-            shard_heads=heads.axis is not None)
+            shard_heads=heads.axis is not None,
+            dense=max_len <= cfg.dsa.min_n)
     return _Layout(Placement(mesh, rules, batch), heads,
                    unstacked(bsp["attn"]), unstacked(bsp["mamba"], 2),
                    unstacked(bsp["dense"], 2), psp["embed"][0],
@@ -514,11 +541,13 @@ def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
     the step runs on one rank, as `transformer.serve_step` does:
     params and state are the rank's blocks (`bridge.shard_tree` of
     `param_specs` and `state_specs(seq_sharded=)`), tokens the global
-    batch, the logits those of the rank's rows. With `seq_sharded` and N
-    > `dsa.min_n` the attention layers run SP-DSA: the caches are sharded
-    over the sequence on "data", SP-GVR and the flash-style combine run
-    over that axis, and q's heads are the rank's own over "model" where
-    the cache is sharded by KV head. The reference head-shards by its
+    batch, the logits those of the rank's rows. With `seq_sharded` the
+    caches are sharded over the sequence on "data" and q's heads are the
+    rank's own over "model" where the cache is sharded by KV head; past
+    `dsa.min_n` the attention layers run SP-DSA (SP-GVR and the
+    flash-style combine over the sequence axis), at or below it a dense
+    attention over the rank's span with the same combine, where the
+    reference falls back to its unsharded step. The reference head-shards by its
     `ok_heads` rule (n_heads / model % n_kv_heads == 0) over replicated
     KV heads and groups the rank's query heads over all KV heads, which
     pairs a query head with another group's keys whenever n_kv_heads > 1;
@@ -533,13 +562,10 @@ def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
         n = state["k"].shape[2]
         if seq_sharded:
             n *= mesh.index(rules.axes("seq_shard"))[1]
-        use_sp = (seq_sharded and cfg.dsa.enabled and n > cfg.dsa.min_n)
-        if seq_sharded and not use_sp:
-            raise NotImplementedError(
-                f"a sequence-sharded cache of {n} positions, at or below "
-                f"dsa.min_n = {cfg.dsa.min_n}: the dense attention over a "
-                f"sharded sequence is not ported")
-        tp = _layout(cfg, mesh, rules, b, n, seq_sharded, use_sp)
+        if seq_sharded and not cfg.dsa.enabled:
+            raise NotImplementedError("a sequence-sharded step without the "
+                                      "DSA indexer's cache")
+        tp = _layout(cfg, mesh, rules, b, n, seq_sharded, seq_sharded)
     x = tp.pl.embed(params["embed"], tp.embed, tokens[tp.pl.rows])  # (B, D)
     bl = x.shape[0]
     h_out, conv_out, topk_out = [], [], []

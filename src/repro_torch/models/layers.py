@@ -125,7 +125,8 @@ def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return torch.stack(outs, dim=1).reshape(b, s, h, d)
 
 
-def cross_entropy(logits: torch.Tensor, batch) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, batch, *, vocab=None,
+                  batch_sum=None) -> torch.Tensor:
     """Every family's `loss_fn` tail: mean over the masked positions of
     f32 logsumexp minus the gold logit, divided by max(sum(mask), 1).
     logits (B, S, V); batch["targets"] (B, S), optional batch["mask"].
@@ -136,17 +137,40 @@ def cross_entropy(logits: torch.Tensor, batch) -> torch.Tensor:
     backward takes exp(x - result) instead, whose error is that of the
     result, an ulp at the logits' size (~1e-5 at |x| ~ 100); once the
     loss is near 0, the gradient p - onehot is of that size and it
-    loses most of its digits."""
+    loses most of its digits.
+
+    Under a mesh the logits are the rank's rows and, with `vocab` (the
+    `MeshAxis` the head's vocabulary is sharded over), its block of the
+    vocabulary: the max is a pmax of the blocks' maxima, the sum of exps
+    and the gold logit are psums of the blocks' (the vocab-parallel
+    form; the sum's order differs from one device's by that split).
+    `batch_sum` sums the mask over the batch axes, so that every rank
+    divides its rows' sum by the global mask sum (the loss convention of
+    `parallel/sharding.py`)."""
     logits = logits.float()
     targets = batch["targets"].long()
     amax = logits.detach().amax(dim=-1, keepdim=True)
+    if vocab is not None:
+        amax = vocab.pmax(amax, "ce_max")
     amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
-    logz = torch.log(torch.sum(torch.exp(logits - amax), dim=-1)) + amax[..., 0]
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    sumexp = torch.sum(torch.exp(logits - amax), dim=-1)
+    if vocab is None:
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    else:
+        sumexp = vocab.psum(sumexp, "ce_sum")
+        n = logits.shape[-1]
+        loc = targets - vocab.rank * n
+        hit = (loc >= 0) & (loc < n)
+        gold = torch.gather(logits, -1, loc.clamp(0, n - 1)[..., None])[..., 0]
+        gold = vocab.psum(torch.where(hit, gold, 0.0), "ce_gold")
+    logz = torch.log(sumexp) + amax[..., 0]
     mask = batch.get("mask")
     mask = (torch.ones_like(targets, dtype=torch.float32) if mask is None
             else mask.float())
-    return torch.sum((logz - gold) * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    den = torch.sum(mask)
+    if batch_sum is not None:
+        den = batch_sum(den, "ce_mask")
+    return torch.sum((logz - gold) * mask) / torch.clamp_min(den, 1.0)
 
 
 def decode_attention(q: torch.Tensor, kcache: torch.Tensor, vcache: torch.Tensor,
@@ -277,7 +301,8 @@ def moe_ep_drops(x: torch.Tensor, router_w: torch.Tensor, *, top_k: int,
 def moe_mlp_ep(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
                w_up: torch.Tensor, w_down: torch.Tensor, *, top_k: int,
                capacity_factor: float = 1.25, mesh=None,
-               expert_axis: str = "model") -> torch.Tensor:
+               expert_axis: str = "model",
+               stats: Optional[dict] = None) -> torch.Tensor:
     """The expert-parallel MoE feed-forward (Switch-style dispatch), the
     reference's `moe_mlp_ep` on one rank of `mesh`.
 
@@ -292,7 +317,15 @@ def moe_mlp_ep(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     order (the reference's scatter-add order, here deterministic on the
     card as well), and an all_gather over `expert_axis` joins the slices.
 
-    Without a mesh it is the dense fallback, as in the reference."""
+    Without a mesh it is the dense fallback, as in the reference.
+
+    Under autograd (training) the tokens and the router enter the
+    rank's slice through `enter` (each rank routes its own tokens with
+    the replicated router, so their cotangents are summed over the
+    axis), the two exchanges run backwards as the reverse all_to_all and
+    the tokens' all_gather gives back the rank's slice. `stats`, when
+    given, has this rank's dropped assignments added to stats["drops"]
+    (an int: one host sync a call)."""
     if mesh is None:
         return moe_mlp_dense_fallback(x, router_w, w_gate, w_up, w_down,
                                       top_k=top_k)
@@ -300,10 +333,12 @@ def moe_mlp_ep(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
     ep = axis.size
     e = w_gate.shape[0] * ep
     bl, s, dm = x.shape
-    xt = _ep_slices(x, ep)[axis.rank]
+    xt = _ep_slices(axis.enter(x, "ep_tokens"), ep)[axis.rank]
     tm = xt.shape[0]
-    slot, gates, _, cap = _ep_dispatch(xt, router_w, top_k, e,
-                                       capacity_factor)
+    slot, gates, kept, cap = _ep_dispatch(
+        xt, axis.enter(router_w, "ep_router"), top_k, e, capacity_factor)
+    if stats is not None:
+        stats["drops"] = stats.get("drops", 0) + int((~kept).sum())
     flat_tok = torch.arange(tm, device=x.device).repeat_interleave(top_k)
     send = xt.new_zeros(e * cap + 1, dm)
     send[slot] = xt[flat_tok]

@@ -24,16 +24,18 @@ slot-wise or paged hooks, so `DecodeEngine` refuses it.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.sharding import MeshRules, P, stacked
+from repro_torch.parallel.sharding import MeshRules, P, stacked, unstacked
 
 from .config import ModelConfig
-from .layers import cross_entropy, remat_call, rms_norm
-from .transformer import drawer, layer_params, torch_dtype, unstack_layers
+from .layers import remat_call, rms_norm
+from .tensor_parallel import Placement
+from .transformer import (drawer, layer_params, torch_dtype, train_loss,
+                          unstack_layers)
 
 LORA_R = 32
 
@@ -112,38 +114,81 @@ def _mix(x: torch.Tensor, x_prev: torch.Tensor, mix: torch.Tensor) -> torch.Tens
     return x * mix + x_prev * (1 - mix)
 
 
+class _Layout(NamedTuple):
+    """Where a step's arrays live on this rank: its placement, one
+    layer's parameter specs and the vocabulary entries of the embedding
+    and head. With no mesh the identity."""
+    pl: Placement
+    layer: Dict[str, Any]
+    embed: Any
+    head: Any
+
+
+# no mesh: every weight whole
+_PLAIN = _Layout(Placement(), {w: P(None, None) for w in (
+    "wr", "wk", "wv", "wg", "wo", "w_a", "ck", "cv")}, None, None)
+
+
+def _layout(cfg: ModelConfig, mesh, rules: MeshRules, batch: int) -> _Layout:
+    psp = param_specs(cfg, rules)
+    return _Layout(Placement(mesh, rules, batch), unstacked(psp["layers"]),
+                   psp["embed"][0], psp["lm_head"][1])
+
+
+def _time_mix(p, x: torch.Tensor, x_prev: torch.Tensor, lay: _Layout):
+    """The time-mix projections of x normed against its shifted input:
+    (r, k, v, g, w) with the trailing dimension D whole. Under a mesh
+    `wr`/`wk`/`wv`/`wg` give the rank's columns and are gathered, so the
+    recurrence runs on every head (the state spec keeps them whole)."""
+
+    def proj(mix, w):
+        return lay.pl.cols(_mix(x, x_prev, p[mix]).to(p[w].dtype), p[w],
+                           lay.layer[w][1], gather=True, tag=w)
+
+    r, k, v = (proj(f"mix_{n}", f"w{n}") for n in "rkv")
+    g = F.silu(proj("mix_g", "wg"))
+    # Finch: data-dependent per-channel decay
+    lora = torch.tanh(proj("mix_w", "w_a")) @ p["w_b"]
+    return r, k, v, g, torch.exp(-torch.exp(p["w0"] + lora))
+
+
+def _time_mix_out(p, att: torch.Tensor, g: torch.Tensor,
+                  lay: _Layout) -> torch.Tensor:
+    """rms_norm(att) gated by g, through `wo` (its rows by the rank's
+    slice of the channels, then a psum)."""
+    att = rms_norm(att, p["ln_x"])
+    return lay.pl.rows_in((att * g.to(att.dtype)).to(p["wo"].dtype), p["wo"],
+                          lay.layer["wo"][0], local=False, tag="wo")
+
+
 def _time_mix_step(p, x: torch.Tensor, x_prev: torch.Tensor, s: torch.Tensor,
-                   cfg: ModelConfig):
+                   cfg: ModelConfig, lay: Optional[_Layout] = None):
     """One token of the WKV6 recurrence. x: (B, D) normed input; x_prev:
     (B, D) f32; s: (B, H, hd, hd) f32. Returns (out (B, D) in the weight
     dtype, new s)."""
+    lay = lay or _PLAIN
     d = cfg.d_model
     hd = cfg.rwkv_head_dim
     h = d // hd
     b = x.shape[0]
-
-    def proj(mix, w):
-        return _mix(x, x_prev, p[mix]).to(p[w].dtype) @ p[w]
-
-    r = proj("mix_r", "wr").reshape(b, h, hd).float()
-    k = proj("mix_k", "wk").reshape(b, h, hd).float()
-    v = proj("mix_v", "wv").reshape(b, h, hd).float()
-    g = F.silu(proj("mix_g", "wg"))
-    # Finch: data-dependent per-channel decay
-    lora = torch.tanh(proj("mix_w", "w_a")) @ p["w_b"]
-    w = torch.exp(-torch.exp(p["w0"] + lora)).reshape(b, h, hd).float()
+    r, k, v, g, w = _time_mix(p, x, x_prev, lay)
+    r, k, v, w = (t.reshape(b, h, hd).float() for t in (r, k, v, w))
     kv = torch.einsum("bhk,bhv->bhkv", k, v)
     out = torch.einsum("bhk,bhkv->bhv", r, s + p["u"][None, :, :, None] * kv)
     s_new = w[..., None] * s + kv
-    out = rms_norm(out.reshape(b, d), p["ln_x"])
-    return (out * g.to(out.dtype)).to(p["wo"].dtype) @ p["wo"], s_new
+    return _time_mix_out(p, out.reshape(b, d), g, lay), s_new
 
 
-def _channel_mix_step(p, x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
-    """Token-shifted squared-ReLU FFN with a sigmoid receptance gate."""
-    k = torch.relu(_mix(x, x_prev, p["mix_ck"]).to(p["ck"].dtype) @ p["ck"]).square()
+def _channel_mix_step(p, x: torch.Tensor, x_prev: torch.Tensor,
+                      lay: Optional[_Layout] = None) -> torch.Tensor:
+    """Token-shifted squared-ReLU FFN with a sigmoid receptance gate
+    (`ck` by columns, `cv` by rows and a psum, `cr` whole)."""
+    lay = lay or _PLAIN
+    k = torch.relu(lay.pl.cols(_mix(x, x_prev, p["mix_ck"]).to(p["ck"].dtype),
+                               p["ck"], lay.layer["ck"][1], tag="ck")).square()
     r = torch.sigmoid(_mix(x, x_prev, p["mix_cr"]).to(p["cr"].dtype) @ p["cr"])
-    return r * (k @ p["cv"])
+    return r * lay.pl.rows_in(k, p["cv"], lay.layer["cv"][0], local=True,
+                              tag="cv")
 
 
 def _shifted(x: torch.Tensor) -> torch.Tensor:
@@ -151,7 +196,8 @@ def _shifted(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, 0, 1, 0))[:, :-1]
 
 
-def _layer_train(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _layer_train(p, x: torch.Tensor, cfg: ModelConfig,
+                 lay: _Layout) -> torch.Tensor:
     """One layer over (B, S, D), the reference's training form: the
     projections run over all S positions at once, only the WKV state
     update steps through time, in f32 from a zero state."""
@@ -159,16 +205,8 @@ def _layer_train(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     hd = cfg.rwkv_head_dim
     h = d // hd
     xa = rms_norm(x, p["ln1"])
-    xa_prev = _shifted(xa)
-
-    def proj(mix, w):
-        return _mix(xa, xa_prev, p[mix]).to(p[w].dtype) @ p[w]
-
-    r, k, v = (proj(f"mix_{n}", f"w{n}").reshape(b, s, h, hd).float()
-               for n in "rkv")
-    g = F.silu(proj("mix_g", "wg"))
-    lora = torch.tanh(proj("mix_w", "w_a")) @ p["w_b"]
-    w = torch.exp(-torch.exp(p["w0"] + lora)).reshape(b, s, h, hd).float()
+    r, k, v, g, w = _time_mix(p, xa, _shifted(xa), lay)
+    r, k, v, w = (t.reshape(b, s, h, hd).float() for t in (r, k, v, w))
     st = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
     outs = []
     for t in range(s):
@@ -176,27 +214,38 @@ def _layer_train(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
                                  st + p["u"][None, :, :, None] * kv))
         st = w[:, t, ..., None] * st + kv
-    att = rms_norm(torch.stack(outs, dim=1).reshape(b, s, d), p["ln_x"])
-    att = (att * g.reshape(b, s, d).to(att.dtype)).to(p["wo"].dtype) @ p["wo"]
+    att = _time_mix_out(p, torch.stack(outs, dim=1).reshape(b, s, d), g, lay)
     x = x + att.to(x.dtype)
     xc = rms_norm(x, p["ln2"])
-    return x + _channel_mix_step(p, xc, _shifted(xc)).to(x.dtype)
+    return x + _channel_mix_step(p, xc, _shifted(xc), lay).to(x.dtype)
+
+
+def _forward_train(params, tokens, cfg, mesh, rules, remat):
+    lay = _PLAIN if mesh is None else _layout(cfg, mesh, rules,
+                                              tokens.shape[0])
+    x = lay.pl.embed(params["embed"], lay.embed, tokens[lay.pl.rows])
+    for p in unstack_layers(params["layers"], cfg.n_layers):
+        x = remat_call(_layer_train, remat, p, x, cfg, lay)
+    x = rms_norm(x, params["final_norm"])
+    return (*lay.pl.vocab_logits(x, params["lm_head"], lay.head), lay)
 
 
 def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  mesh=None, rules: Optional[MeshRules] = None,
                   patch_embeds=None, remat: bool = True) -> torch.Tensor:
     """tokens (B, S) → logits (B, S, V), under autograd; each layer is
-    recomputed in the backward pass under `remat`."""
-    x = params["embed"][tokens.long()]
-    for p in unstack_layers(params["layers"], cfg.n_layers):
-        x = remat_call(_layer_train, remat, p, x, cfg)
-    return rms_norm(x, params["final_norm"]) @ params["lm_head"]
+    recomputed in the backward pass under `remat`. Under a `mesh` and its
+    `rules`: the logits of the rank's rows and vocabulary block (the
+    time-mix projections gathered, the recurrence on every head)."""
+    return _forward_train(params, tokens, cfg, mesh, rules, remat)[0]
 
 
-def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(params, batch, cfg: ModelConfig, *, mesh=None,
+            rules: Optional[MeshRules] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of `batch` (tokens, targets, optional
-    mask)."""
-    return cross_entropy(forward_train(params, batch["tokens"], cfg), batch)
+    mask); under a mesh this rank's share (see `transformer.loss_fn`)."""
+    return train_loss(*_forward_train(params, batch["tokens"], cfg, mesh,
+                                      rules, True), batch)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *, device,
@@ -230,22 +279,30 @@ def state_specs(cfg: ModelConfig, rules: MeshRules, *, batch: int,
     }
 
 
-def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig):
+def serve_step(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
+               mesh=None, rules: Optional[MeshRules] = None):
     """One decode step. tokens: (B,) int. Returns (logits (B, V) f32,
-    new_state); the state's tensors are not modified."""
-    x = params["embed"][tokens.long()]                    # (B, D)
+    new_state); the state's tensors are not modified. Under a `mesh` and
+    its `rules` (params and state the rank's blocks, tokens global, the
+    logits of the rank's rows): `wr`/`wk`/`wv`/`wg` and `ck` by columns,
+    `wo` and `cv` by rows, the WKV state of the rank's rows with every
+    head (its spec), the embedding and head by vocabulary."""
+    lay = _PLAIN if mesh is None else _layout(cfg, mesh, rules,
+                                              tokens.shape[0])
+    x = lay.pl.embed(params["embed"], lay.embed, tokens[lay.pl.rows])  # (B, D)
     s_out, xa_out, xf_out = [], [], []
     for i in range(cfg.n_layers):
         p = layer_params(params["layers"], i)
         xa = rms_norm(x, p["ln1"])
-        att, s_new = _time_mix_step(p, xa, state["x_att"][i], state["s"][i], cfg)
+        att, s_new = _time_mix_step(p, xa, state["x_att"][i], state["s"][i],
+                                    cfg, lay)
         x = x + att.to(x.dtype)
         xf = rms_norm(x, p["ln2"])
-        x = x + _channel_mix_step(p, xf, state["x_ffn"][i]).to(x.dtype)
+        x = x + _channel_mix_step(p, xf, state["x_ffn"][i], lay).to(x.dtype)
         s_out.append(s_new)
         xa_out.append(xa.float())
         xf_out.append(xf.float())
     new_state = dict(state, s=torch.stack(s_out), x_att=torch.stack(xa_out),
                      x_ffn=torch.stack(xf_out), length=state["length"] + 1)
     x = rms_norm(x, params["final_norm"])
-    return (x @ params["lm_head"]).float(), new_state
+    return lay.pl.logits(x, params["lm_head"], lay.head), new_state

@@ -253,32 +253,69 @@ def unstack_layers(layers: Dict[str, Any], n: int) -> list:
 # Train forward
 # --------------------------------------------------------------------------
 
-def _attention_train(p, x: torch.Tensor, cfg: ModelConfig,
-                     positions: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention of the training path over (B, S, D): RoPE
-    (M-RoPE for the vlm, on half the dims for chatglm) and the blockwise
-    attention under the config's sliding window."""
+def attention_train(p, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor, lay, *,
+                    rope: Optional[dict] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Causal self-attention of the training path over (B, S, D) normed:
+    RoPE (`apply_rotary`'s keywords `rope`, by default the config's:
+    M-RoPE for the vlm, half the dims for chatglm) and the blockwise
+    attention under `window`. Under a
+    mesh (`lay`, a `_layout`) on the rank's heads, or on all of them
+    (the projections gathered) where the KV heads do not divide the
+    axis; `wo` by rows and a psum. Shared with the hybrid and enc-dec
+    families, whose layer dicts hold the same four weights."""
     b, s, _ = x.shape
     hd = cfg.hd
-    rope = dict(kind=cfg.rope_kind, base=cfg.rope_base,
-                fraction=cfg.rope_fraction)
-    q = apply_rotary((x @ p["wq"]).reshape(b, s, cfg.n_heads, hd), positions,
-                     **rope)
-    k = apply_rotary((x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd),
-                     positions, **rope)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
-    out = blockwise_causal_attention(q, k, v, scale=hd ** -0.5,
-                                     window=cfg.swa_window)
-    return out.reshape(b, s, cfg.n_heads * hd).to(x.dtype) @ p["wo"]
+    hl, kvl = lay.heads.hl, lay.heads.kvl
+    gather = lay.heads.axis is None
+    q, k, v = (lay.pl.cols(x, p[w], lay.layer[w][1], gather=gather, tag=w)
+               for w in ("wq", "wk", "wv"))
+    if rope is None:
+        rope = dict(kind=cfg.rope_kind, base=cfg.rope_base,
+                    fraction=cfg.rope_fraction)
+    q = apply_rotary(q.reshape(b, s, hl, hd), positions, **rope)
+    k = apply_rotary(k.reshape(b, s, kvl, hd), positions, **rope)
+    out = blockwise_causal_attention(q, k, v.reshape(b, s, kvl, hd),
+                                     scale=hd ** -0.5, window=window)
+    return lay.pl.rows_in(out.reshape(b, s, hl * hd).to(x.dtype), p["wo"],
+                          lay.layer["wo"][0], local=not gather, tag="wo")
 
 
 def _train_layer(p, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
-    x = x + _attention_train(p, rms_norm(x, p["ln1"]), cfg, positions)
-    return x + _mlp(p, rms_norm(x, p["ln2"]), cfg)
+                 cfg: ModelConfig, lay) -> torch.Tensor:
+    x = x + attention_train(p, rms_norm(x, p["ln1"]), cfg, positions, lay,
+                            window=cfg.swa_window)
+    return x + _mlp(p, rms_norm(x, p["ln2"]), cfg, lay)
+
+
+def _forward_train(params, tokens, cfg, mesh, rules, patch_embeds, remat):
+    """(logits of the rank's rows and vocabulary block, that block's axis
+    or None, the layout: a B-row decode step's, whose heads are the
+    rank's where the KV heads divide their axis)."""
+    _check_family(cfg)
+    lay = (_plain_layout(cfg) if mesh is None else
+           _layout(cfg, mesh, rules, batch=tokens.shape[0],
+                   max_len=tokens.shape[1]))
+    tokens = tokens[lay.pl.rows]
+    b, s = tokens.shape
+    x = lay.pl.embed(params["embed"], lay.embed, tokens)
+    if cfg.num_patches and patch_embeds is not None:
+        proj = params["patch_proj"]
+        dt = torch.promote_types(patch_embeds.dtype, proj.dtype)
+        pe = (patch_embeds[lay.pl.rows].to(dt) @ proj.to(dt)).to(x.dtype)
+        x = torch.cat([pe, x[:, cfg.num_patches:]], dim=1)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    for p in unstack_layers(params["layers"], cfg.n_layers):
+        x = remat_call(_train_layer, remat, p, x, positions, cfg, lay)
+    x = rms_norm(x, params["final_norm"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (*lay.pl.vocab_logits(x, head, lay.head), lay)
 
 
 def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                  mesh=None, rules: Optional[MeshRules] = None,
                   patch_embeds: Optional[torch.Tensor] = None,
                   remat: bool = True) -> torch.Tensor:
     """tokens (B, S) → logits (B, S, V) in the parameter dtype, under
@@ -287,29 +324,38 @@ def forward_train(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     input against bf16 weights) in place of the token embeddings.
     `remat` recomputes each layer in the backward pass (the reference's
     `jax.checkpoint`). The indexer weights take no part: their gradient
-    is zero, as in the reference."""
-    _check_family(cfg)
-    b, s = tokens.shape
-    x = params["embed"][tokens.long()]
-    if cfg.num_patches and patch_embeds is not None:
-        proj = params["patch_proj"]
-        dt = torch.promote_types(patch_embeds.dtype, proj.dtype)
-        pe = (patch_embeds.to(dt) @ proj.to(dt)).to(x.dtype)
-        x = torch.cat([pe, x[:, cfg.num_patches:]], dim=1)
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device)[None].expand(b, s)
-    for p in unstack_layers(params["layers"], cfg.n_layers):
-        x = remat_call(_train_layer, remat, p, x, positions, cfg)
-    x = rms_norm(x, params["final_norm"])
-    return x @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    is zero, as in the reference.
+
+    Under a `mesh` and its `rules` (params the rank's blocks, tokens the
+    global batch) the logits are those of the rank's batch rows and of
+    its block of the vocabulary, never gathered: the attention on the
+    rank's heads, the SwiGLU by `d_ff`, the MoE through
+    `layers.moe_mlp_ep` (capacity drops: not the one-device function),
+    the embedding and head by vocabulary (`tensor_parallel`)."""
+    return _forward_train(params, tokens, cfg, mesh, rules, patch_embeds,
+                          remat)[0]
 
 
-def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(params, batch, cfg: ModelConfig, *, mesh=None,
+            rules: Optional[MeshRules] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of `batch` (tokens, targets, optional
-    mask and, for the vlm, patch_embeds): a 0-dim f32 tensor."""
-    logits = forward_train(params, batch["tokens"], cfg,
-                           patch_embeds=batch.get("patch_embeds"))
-    return cross_entropy(logits, batch)
+    mask and, for the vlm, patch_embeds): a 0-dim f32 tensor. Under a
+    mesh: this rank's rows' share, their sum over the global mask sum
+    (`parallel/sharding.py`'s loss convention)."""
+    logits, vocab, lay = _forward_train(
+        params, batch["tokens"], cfg, mesh, rules, batch.get("patch_embeds"),
+        True)
+    return train_loss(logits, vocab, lay, batch)
+
+
+def train_loss(logits, vocab, lay, batch) -> torch.Tensor:
+    """`layers.cross_entropy` of the rank's rows of `batch` (every
+    family's `loss_fn` tail, under a mesh or not)."""
+    rows = {k: batch[k][lay.pl.rows] for k in ("targets", "mask")
+            if k in batch}
+    return cross_entropy(logits, rows, vocab=vocab,
+                         batch_sum=None if lay.pl.mesh is None
+                         else lay.pl.batch_sum)
 
 
 # --------------------------------------------------------------------------

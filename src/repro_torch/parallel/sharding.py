@@ -34,6 +34,23 @@ the same device). NCCL takes CUDA tensors directly.
 Each collective is counted by tag: calls and the bytes this rank
 contributes (`bill()`, `reset_bill()`), so a caller can read the
 per-tick collective bill; a `Mesh` keys its bill by axis, then tag.
+
+Training under a mesh (the loss convention). Every rank computes the
+loss of its batch rows divided by the GLOBAL mask sum, a psum over the
+batch axes (`rules.spec("batch")`'s, ("pod", "data") by default); the
+loss is replicated over "model". After the backward pass each leaf's
+gradient is summed over the batch axes its spec does not name. The
+collectives carry gradients for that, each the adjoint of its forward
+(Megatron's conjugate pairs):
+  * `psum` of partial products whose sum the ranks use alike: identity
+    backward (every rank already holds the whole cotangent);
+  * `all_gather(tiled=True)` into a value the ranks use alike: backward
+    takes the rank's own slice of the cotangent;
+  * `all_to_all`: backward is the reverse all_to_all;
+  * `enter`, where a value the ranks hold alike enters a computation
+    that differs by rank (a column block of a weight, a slice of
+    tokens or channels): identity forward, psum backward.
+Without autograd (decode) each is its plain forward, bit for bit.
 """
 
 from __future__ import annotations
@@ -262,19 +279,33 @@ class SeqGroup:
     def psum(self, t: torch.Tensor, tag: str = "psum") -> torch.Tensor:
         """Sum over the ranks, the same bits on every rank: integers and
         booleans (as int32) by all_reduce, floats as the rank-order sum of
-        the gathered partials."""
+        the gathered partials. Under autograd its backward is the
+        identity (see the module docstring)."""
         if self.size == 1:
             return t
         if t.dtype == torch.bool:
             t = t.int()
         if t.is_floating_point():
-            parts = self.all_gather(t, dim=0, tiled=False, tag=tag)
-            out = parts[0]
-            for i in range(1, self.size):
-                out = out + parts[i]
-            return out
+            if _tracks(t):
+                return _Psum.apply(t, self, tag)
+            return self._psum_float(t, tag)
         import torch.distributed as dist
         return self._reduce(t, dist.ReduceOp.SUM, tag)
+
+    def _psum_float(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+        parts = self._gather(t, 0, False, tag)
+        out = parts[0]
+        for i in range(1, self.size):
+            out = out + parts[i]
+        return out
+
+    def enter(self, t: torch.Tensor, tag: str = "enter") -> torch.Tensor:
+        """t itself; under autograd its gradient is summed over the ranks
+        (`psum`), as a value the ranks hold alike takes a cotangent from
+        each rank's own part of the computation."""
+        if self.size == 1 or not _tracks(t):
+            return t
+        return _Enter.apply(t, self, tag)
 
     def pmax(self, t: torch.Tensor, tag: str = "pmax") -> torch.Tensor:
         if self.size == 1:
@@ -294,6 +325,15 @@ class SeqGroup:
         `tiled`, else stacked on a new axis `dim` (`lax.all_gather`)."""
         if self.size == 1:
             return t if tiled else t.unsqueeze(dim)
+        if _tracks(t):
+            if not tiled:
+                raise NotImplementedError("the untiled all_gather has no "
+                                          "backward")
+            return _AllGather.apply(t, self, dim, tag)
+        return self._gather(t, dim, tiled, tag)
+
+    def _gather(self, t: torch.Tensor, dim: int, tiled: bool,
+                tag: str) -> torch.Tensor:
         import torch.distributed as dist
         self._count(tag, t)
         src = self._host(t)
@@ -340,9 +380,17 @@ class MeshAxis(SeqGroup):
                              f"{'divide' if tiled else 'equal'} {self.size}")
         if self.size == 1:
             return t if tiled else t.movedim(split_axis, concat_axis)
+        if _tracks(t):
+            if not tiled:
+                raise NotImplementedError("the untiled all_to_all has no "
+                                          "backward")
+            return _AllToAll.apply(t, self, split_axis, concat_axis, tag)
+        return self._all_to_all(t, split_axis, concat_axis, tiled, tag)
+
+    def _all_to_all(self, t, split_axis, concat_axis, tiled, tag):
         import torch.distributed as dist
         if self.backend == "gloo":
-            whole = self.all_gather(t, dim=0, tiled=False, tag=tag)
+            whole = self._gather(t, 0, False, tag)
             got = [part.chunk(self.size, split_axis)[self.rank]
                    for part in whole.unbind(0)]
         else:
@@ -353,6 +401,58 @@ class MeshAxis(SeqGroup):
         if tiled:
             return torch.cat(got, concat_axis)
         return torch.stack([g.squeeze(split_axis) for g in got], concat_axis)
+
+
+def _tracks(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, tag):
+        return axis._psum_float(t, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, tag):
+        ctx.axis, ctx.tag = axis, tag
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.axis._psum_float(g.contiguous(), ctx.tag + "_grad"), None,
+                None)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, dim, tag):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, t.shape[dim]
+        return axis._gather(t, dim, True, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.axis.rank * ctx.n, ctx.n), None, None,
+                None)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, split_axis, concat_axis, tag):
+        ctx.axis, ctx.tag = axis, tag
+        ctx.split, ctx.concat = split_axis, concat_axis
+        return axis._all_to_all(t, split_axis, concat_axis, True, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.axis._all_to_all(g.contiguous(), ctx.concat, ctx.split,
+                                     True, ctx.tag + "_grad"),
+                None, None, None, None)
 
 
 class Mesh(AbstractMesh):

@@ -72,10 +72,7 @@ def sp_dsa_decode_local(q, kc, vc, ikc, h, idx_params, prev_topk, lengths,
 
     # -- 1. sequence-local cache write -----------------------------------
     pos = lengths.long() - 1
-    rel = pos - off
-    rows = ((rel >= 0) & (rel < nl)).nonzero()[:, 0]
-    for cache, new in ((kc, knew), (vc, vnew), (ikc, iknew)):
-        cache[rows, rel[rows]] = new[rows].to(cache.dtype)
+    _write_owned(((kc, knew), (vc, vnew), (ikc, iknew)), pos, off)
 
     # -- 2. shard-local indexer scores (Eq. 1) ---------------------------
     qi = (h @ idx_params["wq"]).reshape(b, 1, heads, dim)
@@ -112,9 +109,51 @@ def sp_dsa_decode_local(q, kc, vc, ikc, h, idx_params, prev_topk, lengths,
     return SPDSAResult(out, kc, vc, ikc, new_topk)
 
 
+def _write_owned(pairs, pos: torch.Tensor, off: int) -> None:
+    """Write each new row (B, ...) into its cache (B, Nl, ...) at global
+    position pos (B,), in place, on the rank whose span [off, off + Nl)
+    holds it."""
+    nl = pairs[0][0].shape[1]
+    rel = pos - off
+    rows = ((rel >= 0) & (rel < nl)).nonzero()[:, 0]
+    for cache, new in pairs:
+        cache[rows, rel[rows]] = new[rows].to(cache.dtype)
+
+
+def sp_dense_decode_local(q, kc, vc, ikc, h, idx_params, prev_topk, lengths,
+                          knew, vnew, iknew, *, scale: float,
+                          mesh: SeqGroup) -> SPDSAResult:
+    """The dense counterpart of `sp_dsa_decode_local` for a cache of at
+    most `dsa.min_n` positions, sharded over the sequence as that
+    layer's: the new rows (the indexer key too) written on the rank that
+    owns position length-1, then every query head attends all positions
+    below `lengths` of the rank's span, and the partial (numerator,
+    denominator) pairs combine with a pmax and a psum. The feedback is
+    `prev_topk` unchanged (no selection ran), as the reference's
+    unsharded step carries it. Same arguments and result."""
+    b, hl, hd = q.shape
+    nl, kvh = kc.shape[1], kc.shape[2]
+    off = mesh.rank * nl
+    _write_owned(((kc, knew), (vc, vnew), (ikc, iknew)),
+                 lengths.long() - 1, off)
+    logits = torch.einsum(
+        "bkgd,bskd->bkgs", q.reshape(b, kvh, hl // kvh, hd).to(kc.dtype).float(),
+        kc.float()) * scale
+    gpos = torch.arange(nl, device=q.device) + off
+    valid = (gpos[None, :] < lengths[:, None])[:, None, None, :]
+    logits = torch.where(valid, logits, NEG)
+    m_glob = mesh.pmax(logits.amax(-1), "combine")
+    p = torch.where(valid, torch.exp(logits - m_glob[..., None]), 0.0)
+    num = mesh.psum(torch.einsum("bkgs,bskd->bkgd", p, vc.float()), "combine")
+    den = mesh.psum(p.sum(-1), "combine")
+    out = (num / den.clamp(min=1e-30)[..., None]).reshape(b, hl, hd)
+    return SPDSAResult(out, kc, vc, ikc, prev_topk)
+
+
 def make_sp_dsa(mesh, *, k: int, scale: float, heads: int, dim: int,
                 rope_base: float, seq_axis: str = "data",
-                head_axis: Optional[str] = "model", shard_heads: bool = True):
+                head_axis: Optional[str] = "model", shard_heads: bool = True,
+                dense: bool = False):
     """The SP-DSA decode layer: a callable of `sp_dsa_decode_local`'s
     positional arguments, each rank passing its own blocks.
 
@@ -126,10 +165,14 @@ def make_sp_dsa(mesh, *, k: int, scale: float, heads: int, dim: int,
     those heads, the rank's block of KV heads as `state_specs` shards
     them: query head j attends KV head j // (H_local / KVH_local), each
     head with its own group's keys, and the output holds the rank's
-    heads."""
+    heads. `dense` takes `sp_dense_decode_local` (a cache of at most
+    `dsa.min_n` positions) in place of the selection."""
     seq = mesh if isinstance(mesh, SeqGroup) else mesh.axis(seq_axis)
-    body = partial(sp_dsa_decode_local, k=k, scale=scale, heads=heads,
-                   dim=dim, rope_base=rope_base, mesh=seq)
+    if dense:
+        body = partial(sp_dense_decode_local, scale=scale, mesh=seq)
+    else:
+        body = partial(sp_dsa_decode_local, k=k, scale=scale, heads=heads,
+                       dim=dim, rope_base=rope_base, mesh=seq)
     if not shard_heads or isinstance(mesh, SeqGroup):
         return body
     hax = mesh.axis(head_axis)

@@ -66,3 +66,44 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if any(len(c) != len(cols[0]) for c in cols):
         raise ValueError("trees of different structure")
     return unflatten(tree, [fn(*xs) for xs in zip(*cols)])
+
+
+def spec_map(fn: Callable, specs: Any, *trees: Any) -> Any:
+    """fn(spec, leaf, ...) over a tree of partition specs and trees of
+    the same structure. A spec (`parallel.sharding.P`) is a tuple, so
+    it is the leaf here where a generic walk would descend into it."""
+    from repro_torch.parallel.sharding import P
+    if isinstance(specs, P):
+        return fn(specs, *trees)
+    if isinstance(specs, dict):
+        return {k: spec_map(fn, v, *(t[k] for t in trees))
+                for k, v in specs.items()}
+    if _is_namedtuple(specs) or isinstance(specs, (tuple, list)):
+        out = [spec_map(fn, v, *(t[i] for t in trees))
+               for i, v in enumerate(specs)]
+        return type(specs)(*out) if _is_namedtuple(specs) else type(specs)(out)
+    raise TypeError(f"not a spec tree node: {specs!r}")
+
+
+def spec_leaves(specs: Any) -> list:
+    """The specs of a spec tree in the JAX package's leaf order (that of
+    `leaves` over the tree they describe)."""
+    out = []
+
+    def walk(t, path=""):
+        from repro_torch.parallel.sharding import P
+        if isinstance(t, P):
+            out.append((path, t))
+        elif isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{path}[{k!r}]")
+        elif _is_namedtuple(t):
+            for f in t._fields:
+                walk(getattr(t, f), f"{path}.{f}")
+        else:
+            for i, v in enumerate(t):
+                walk(v, f"{path}[{i}]")
+
+    walk(specs)
+    return [spec for _, spec in out]
+

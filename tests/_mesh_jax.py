@@ -52,7 +52,8 @@ for c in [str(v) for v in inp["cases"]]:
                 logits, state = step(params, state, tok)
                 tok = jnp.argmax(logits, -1).astype(jnp.int32)
                 out[f"{c}/{run}/logits{t}"] = np.asarray(logits)
-                out[f"{c}/{run}/prev_topk{t}"] = np.asarray(state["prev_topk"])
+                if "prev_topk" in state:
+                    out[f"{c}/{run}/prev_topk{t}"] = np.asarray(state["prev_topk"])
                 out[f"{c}/{run}/tokens{t}"] = np.asarray(tok)
         except Exception as exc:  # recorded: the test names what it expects
             out[f"{c}/{run}/error"] = np.asarray(type(exc).__name__)

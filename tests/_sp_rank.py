@@ -165,7 +165,8 @@ def _mesh_run(inp, c, run):
     params = bridge.params_from_numpy(unflatten(inp, c + "/params/"))
     state = bridge.params_from_numpy(unflatten(inp, c + "/state/"))
     tok = _t(inp[c + "/tokens"])
-    b, n = tok.shape[0], state["k"].shape[2]
+    b = tok.shape[0]
+    n = state["k"].shape[2] if "k" in state else 1   # ssm: no cache
     lp = bridge.shard_tree(params, model.param_specs(rules), mesh)
     try:
         st = bridge.shard_tree(state, model.state_specs(
@@ -183,7 +184,7 @@ def _mesh_run(inp, c, run):
         tok = logits.argmax(-1).int()
         if entry is not None:
             tok = mesh.axis(entry).all_gather(tok, dim=0, tiled=True)
-        ticks.append({"logits": logits, "prev_topk": st["prev_topk"],
+        ticks.append({"logits": logits, "prev_topk": st.get("prev_topk"),
                       "tokens": tok, "bill": bill})
 
     def shapes(tree, prefix=""):
@@ -247,6 +248,8 @@ def task_mesh(mesh, inp):
 
 TASKS = {"gvr": task_gvr, "dsa": task_dsa, "step": task_step,
          "engine": task_engine, "mesh": task_mesh}
+from _mesh_train_tasks import TASKS as _TRAIN_TASKS  # noqa: E402
+TASKS.update(_TRAIN_TASKS)
 
 
 def main(argv) -> int:

@@ -1116,12 +1116,14 @@ def test_mesh_step_on_card_matches_the_single_device_step(dev, phase):
     as near-ties their margin shows, B5, B1 and B6
     launched on every rank and equal to their plain versions at the
     rank's shapes, and ([ep]) the drops of an overflowing `moe_mlp_ep`
-    call equal to the CPU's count."""
+    call equal to the CPU's count. The same ranks then run the cells the
+    phase carries ([tp]: [train-mesh] and [family-mesh]; [ep]:
+    [ep-train]), each failing the phase on its own checks."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import chip_smoke as cs
-    counts, checks = cs.phase_mesh(phase)
+    counts, checks, _ = cs.phase_mesh(phase)
     assert min(counts[k] for k in ("indexer_scores", "gvr_topk",
                                    "sparse_decode_attn")) > 0
     assert set(checks) == {"B5 scoring", "B1", "B6"}

@@ -213,10 +213,12 @@ def test_sharded_init_gives_the_blocks_of_the_init(arch):
 
 @pytest.mark.parametrize("arch", ["whisper-medium", "rwkv6-3b"])
 def test_enc_dec_and_ssm_steps_under_a_mesh_are_refused(arch):
-    """Their specs are ported; their steps under a mesh are not yet
-    (ROADMAP item 7): the facade says so rather than failing inside."""
+    """Their steps run on a rank of a live mesh
+    (`tests/test_torch_mesh_family_step.py`); under an abstract mesh,
+    which has axis sizes and no rank, the step is refused with the
+    reason, rather than failing inside."""
     model = api.build_model(get_config(arch, smoke=True), device="cpu")
     mesh = sharding.AbstractMesh((2, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="AbstractMesh"):
         model.serve_step({}, {}, torch.zeros(2, dtype=torch.int32), mesh=mesh,
                          rules=sharding.make_rules(mesh))
