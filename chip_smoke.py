@@ -116,7 +116,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     processes of a gloo group on the one card (NCCL runs
                     one rank per device), run after phase 9 while this
                     process runs the single-device references:
-                    llama3.2-1b at full width and SP_DEPTH (4) of its 16
+                    llama3.2-1b at full width and SP_DEPTH (2) of its 16
                     layers, B = 2, max_len
                     131072, 8 greedy ticks of `serve_step_sp_paged`
                     (SP-GVR, B2's scoring half per rank, the O(K) row
@@ -183,6 +183,19 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     straight against 3 + save + restore_latest + 3,
                     parameters and moments bit for bit; the train CLI on
                     the card resuming from its checkpoint at step 4;
+ 21b. dryrun      — `launch.dryrun_all`'s sweep of every production cell
+                    on the meta device (a CPU child started before phase
+                    19): every cell "ok" or "skipped", a line a cell (GiB
+                    a rank by kind against 80, the bill by axis); then
+                    llama3.2-1b decode_32k (full depth) and train_4k (2
+                    layers) as rank 0 of 16 x 16 on the card under a
+                    `ShadowMesh`: the argument blocks held against the dry
+                    run's bytes and the allocator's rule, one step, the
+                    peak over them, B5 / B1 / B6 against their plain
+                    versions, the bill equal to the meta run's;
+ 21c. examples    — the four `examples/torch/` scripts at their defaults,
+                    in child processes beside phase 21b: each exits 0 and
+                    prints its check line;
  22. summary      — each kernel's device time lost against its bound
                     over its path at llama's 16 layers (launches x (ms -
                     bound_ms), the launches of phases 3, 4, 7, 8 and 10
@@ -198,6 +211,7 @@ non-zero before printing any result.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
@@ -2228,9 +2242,11 @@ MOE_DEPTH = 12
 # llama3.2-1b's layers (of 16) in [main] and [dense-layout], which run
 # beside h2o-danube's child processes and take most of their host wall
 # from that contention: 4 since the mesh phases joined the script, for its
-# time limit; [gather]/[page], [spec] and [dense] run ENGINE_DEPTH
+# time limit; [gather]/[page], [spec] and [dense] run ENGINE_DEPTH (8
+# until the dry run and the examples joined the script, which then ran
+# past 1200 s on a slow host)
 MAIN_DEPTH = 4
-ENGINE_DEPTH = 8
+ENGINE_DEPTH = 4
 
 
 def phase_family_step(model, params, rng, flush, tag):
@@ -2696,9 +2712,10 @@ SP_LOOP_TAGS = ("secant", "hist", "snap", "fallback")
 SP_ENGINE_DEPTH = 2                 # [sp-engine]'s layers (full width)
 # [sp]'s layers (full width): 16 until the training phases joined the
 # script, 8 until the mesh training cells did (the whole script ran
-# 905.5 s with 8, past its 900 s aim); the ranks and the fused reference
-# init this depth from seed 0
-SP_DEPTH = 4
+# 905.5 s with 8, past its 900 s aim), 4 until the dry run and the
+# examples did; the ranks and the fused reference init this depth from
+# seed 0
+SP_DEPTH = 2
 SP_BILL_TICKS = 3
 
 
@@ -3175,22 +3192,6 @@ RESUME_CHILD_TIMEOUT_S = 600
 F32_FLOPS = 67e12                  # H100 SXM f32 CUDA-core peak (no TF32)
 
 
-def _train_flops(cfg, b, s) -> tuple:
-    """(total, attention) model FLOPs of one train step: 6 x the weights a
-    token uses x tokens (the tied head counted, the indexer and the
-    embedding gather not), the remat forward of the layers (2 x layer
-    weights x tokens), and the blockwise attention's two einsums over
-    every block pair (the reference skips none): 4 B S^2 H hd a layer
-    for each of the forward, the remat forward and the backward's two."""
-    d, hd, l = cfg.d_model, cfg.hd, cfg.n_layers
-    layer = (2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
-             + 3 * d * cfg.d_ff)
-    tokens = b * s
-    attn = 4 * 4 * b * s * s * cfg.n_heads * hd * l
-    return (6 * (l * layer + d * cfg.vocab) * tokens
-            + 2 * l * layer * tokens + attn), attn
-
-
 def _indexer_leaves(tree):
     from repro_torch.tree import flatten_with_paths
     return [(p, t) for p, t in flatten_with_paths(tree) if "['indexer']" in p]
@@ -3258,7 +3259,8 @@ def phase_train():
                      f"gradient was not")
     wall = statistics.median(walls[2:])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    flops, attn = _train_flops(cfg, TRAIN_B, TRAIN_S)
+    from repro_torch.launch.dryrun import train_flops
+    flops, attn = train_flops(cfg, TRAIN_B, TRAIN_S)
     log(f"[train] indexer gradients exactly zero (moments 0 after "
         f"{TRAIN_STEPS} steps), every update decay-only bit for bit "
         f"({moved} of {n_idx} indexer elements x {TRAIN_STEPS} steps moved "
@@ -3544,6 +3546,349 @@ def join_train_resume_child(child, out_dir: Path) -> dict:
     return res
 
 
+# ------------------------------------------------------------ the dry run --
+# [dryrun]: the sweep of `launch.dryrun_all` (every arch x shape x mesh
+# cell, one rank's step on the meta device), run in a child process beside
+# the card phases; then two cells' rank 0 on the card at its real blocks
+
+DRYRUN_JOBS = 2
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_CELLS = 64                  # ok cells: 8 archs x 3 shapes + 2 x 4, x 2
+DRYRUN_SKIPPED = 16                # long_500k outside the ssm and hybrid
+DRYRUN_TRAIN_DEPTH = 2             # train_4k on the card: 2 of 16 layers
+ALLOC_BLOCK = 512                  # the caching allocator's rounding
+H100_GIB = 80
+
+
+def start_dryrun_sweep(out_dir: Path):
+    """The sweep as a child process on the CPU alone (it runs on the meta
+    device and is kept off the card)."""
+    import os
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    f = open(out_dir / "sweep.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun_all", "--mesh",
+         "both", "--jobs", str(DRYRUN_JOBS), "--outdir", str(out_dir)],
+        stdout=f, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT),
+        start_new_session=True)
+    atexit.register(stop_dryrun_sweep, proc)
+    return proc, f, time.perf_counter()
+
+
+def stop_dryrun_sweep(proc) -> None:
+    """The sweep and its worker processes (one process group), if alive."""
+    import os
+    import signal
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _gib(n: float) -> str:
+    return f"{n / 2 ** 30:.3f}"
+
+
+def join_dryrun_sweep(child, out_dir: Path) -> dict:
+    """Wait for the sweep; every cell must be "ok" or "skipped". One line
+    a cell: GiB a rank of each argument kind, the arguments against the
+    card's 80 GiB, and the bill's bytes by axis."""
+    proc, f, t0 = child
+    try:
+        rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"[dryrun] the sweep ran past {DRYRUN_TIMEOUT_S} s")
+    finally:
+        f.close()
+    wall = time.perf_counter() - t0
+    text = (out_dir / "sweep.log").read_text()
+    cells = {}
+    for path in sorted(out_dir.glob("*__*__pod*.json")):
+        cells[path.stem] = json.loads(path.read_text())
+    status = [c["status"] for c in cells.values()]
+    if (rc != 0 or status.count("ok") != DRYRUN_CELLS
+            or status.count("skipped") != DRYRUN_SKIPPED):
+        fail(f"[dryrun] sweep exit {rc}, {status.count('ok')} ok, "
+             f"{status.count('skipped')} skipped: {text[-3000:]}")
+    for name, c in cells.items():
+        if c["status"] != "ok":
+            continue
+        pr, mem = c["per_rank"], c["memory"]["argument_size_in_bytes"]
+        bill = ", ".join(f"{a} {sum(t['bytes'] for t in tags.values()) / 2 ** 20:.3f}"
+                         for a, tags in sorted(c["bill"].items()))
+        log(f"[dryrun] {name}: GiB a rank params {_gib(pr['params'])} / "
+            f"moments {_gib(pr['moments'])} / state {_gib(pr['state'])} / "
+            f"inputs {_gib(pr['inputs'])}; arguments {_gib(mem)} of "
+            f"{H100_GIB} GiB; bill MiB by axis: {bill or 'none'} "
+            f"({c['lower_s']} s on meta)")
+    log(f"[dryrun] sweep: {DRYRUN_CELLS} ok, {DRYRUN_SKIPPED} skipped, "
+        f"{DRYRUN_JOBS} worker processes, {wall:.3f} s from its start")
+    return cells
+
+
+def _alloc_bytes(nbytes: int) -> int:
+    """A tensor of `nbytes` rounded as the caching allocator rounds a
+    request: a multiple of 512 bytes, at least 512, none when empty."""
+    if nbytes == 0:
+        return 0
+    return max(ALLOC_BLOCK, -(-nbytes // ALLOC_BLOCK) * ALLOC_BLOCK)
+
+
+ALLOC_SPLIT = 1 << 20     # a large-pool block keeps a remainder up to this
+
+
+def _hold_allocation(tag, tensors, alloc):
+    """The allocator's rule, held block by block: each tensor's block was
+    requested for exactly its bytes and holds them rounded up to 512 B,
+    but a block of the large pool (requests over 1 MiB) also keeps the
+    rest of its segment when that rest is 1 MiB or less (the allocator
+    splits off only larger remainders); the blocks' sizes sum to what
+    `memory_allocated` grew by. Returns (sum of 512-rounded sizes,
+    remainders kept, large blocks that kept one)."""
+    import torch
+    want = {t.data_ptr(): t.numel() * t.element_size() for t in tensors
+            if t.numel()}
+    got = {}
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            if blk["state"] == "active_allocated" and addr in want:
+                got[addr] = (blk["size"], blk.get("requested_size"))
+            addr += blk["size"]
+    if set(got) != set(want):
+        fail(f"{tag}: {len(want) - len(got)} argument tensors share or lack "
+             f"an allocator block")
+    rounded = kept = n_kept = 0
+    for ptr, nbytes in want.items():
+        size, req = got[ptr]
+        r = _alloc_bytes(nbytes)
+        if req is not None and req != nbytes:
+            fail(f"{tag}: a block requested {req} bytes for {nbytes}")
+        if size != r and not (nbytes > ALLOC_SPLIT
+                              and 0 < size - r <= ALLOC_SPLIT):
+            fail(f"{tag}: a block of {size} bytes for {nbytes}")
+        rounded, kept, n_kept = rounded + r, kept + size - r, n_kept + (size != r)
+    if rounded + kept != alloc:
+        fail(f"{tag}: {alloc} bytes allocated for the arguments, their "
+             f"blocks hold {rounded + kept}")
+    return rounded, kept, n_kept
+
+
+def _fill_state(state, n, g):
+    """Values for a rank's decode-state blocks (llama's leaves): caches
+    N(0, 1), lengths in the cache's second half, the feedback an even
+    spread below the shortest length, every row warm."""
+    import torch
+    for name, t in state.items():
+        if name in ("k", "v", "idx_k"):
+            for layer in t:
+                layer.normal_(generator=g)
+        elif name == "length":
+            t.copy_(torch.randint(n // 2, n - 1, t.shape, generator=g,
+                                  device=t.device))
+        elif name == "prev_topk":
+            kk = t.shape[-1]
+            t.copy_(torch.arange(kk, device=t.device) * ((n // 2) // kk))
+        else:
+            t.fill_(name == "topk_valid")
+
+
+def dryrun_card_cell(arch, shape, depth=None):
+    """Rank 0 of `shape` on the 16 x 16 mesh on the card, under a
+    `ShadowMesh`: its argument blocks allocated from an empty cache and
+    held against the dry run's bytes under the allocator's rule, then one
+    step (the decode step, or the train step with its AdamW update); the
+    peak over the arguments is the step's temporaries. Values under a
+    ShadowMesh are not the mesh's: shapes, bytes, the bill and the
+    kernels are checked, not the outputs' values."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, make_production_mesh
+    from repro_torch.models.api import SHAPES, build_model
+    from repro_torch.parallel.sharding import ShadowMesh, make_rules, overrides_for
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    kind = SHAPES[shape]["kind"]
+    mesh = make_production_mesh()
+    rules = make_rules(mesh, overrides=overrides_for(cfg, kind))
+    meta_model = build_model(cfg, device="meta")
+    want = dryrun.cell_bytes(meta_model, shape, mesh, rules)
+    meta_run = dryrun.shadow_step(meta_model, shape, mesh, rules)
+    dims = [mesh.shape[a] for a in mesh.axis_names]
+    meta_args = dryrun.shadow_args(
+        meta_model, shape, ShadowMesh(dims, mesh.axis_names), rules)
+    tag = f"[dryrun] {cfg.name} {shape} rank 0 of 16 x 16"
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="cuda"), meta_args)
+    alloc = torch.cuda.memory_allocated() - base
+    rounded, kept, n_kept = _hold_allocation(tag, leaves(args), alloc)
+    exact = {k: sum(t.numel() * t.element_size() for t in leaves(v))
+             for k, v in args.items()}
+    pr = want["per_rank"]
+    held = {"params": exact["params"] == pr["params"],
+            "moments": exact.get("opt_state", 0) == pr["moments"],
+            "state": exact.get("state", 0) == pr["state"]}
+    if not all(held.values()):
+        fail(f"{tag}: argument bytes {exact} against the dry run's {pr}")
+    inputs = exact.get("tokens", exact.get("batch"))
+
+    # values: the parameters' seed-0 blocks, zero moments, a filled state
+    shadow = ShadowMesh(dims, mesh.axis_names, device="cuda")
+    model = build_model(cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for dst, src in zip(leaves(args["params"]),
+                            leaves(model.init_params(seed=0, mesh=shadow,
+                                                     rules=rules))):
+            dst.copy_(src)
+        if "opt_state" in args:
+            for t in leaves(args["opt_state"]):
+                t.zero_()
+        if "state" in args:
+            _fill_state(args["state"], SHAPES[shape]["seq_len"], g)
+        for t in leaves(args.get("batch", {})) + [args.get("tokens")]:
+            if t is not None:
+                t.copy_(torch.randint(0, cfg.vocab, t.shape, generator=g,
+                                      device="cuda"))
+    torch.cuda.synchronize()
+    gc.collect()
+    # what the process holds beside the arguments when the step starts
+    # (a library's workspace kept after the values were written)
+    other = torch.cuda.memory_allocated() - base - alloc
+    torch.cuda.reset_peak_memory_stats()
+    names = ("indexer_scores", "gvr_topk", "sparse_decode_attn")
+    ops.reset_launch_counts()
+    shadow.reset_bill()
+    t0 = time.perf_counter()
+    out = dryrun.run_shadow(model, shape, shadow, rules, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base - other
+    counts = ops.launch_counts()
+    if shadow.bill() != meta_run["bill"]:
+        fail(f"{tag}: the card's bill differs from the meta run's")
+    res = {"arguments": alloc, "rounded": rounded, "kept": kept,
+           "other": other, "exact": exact, "peak": peak,
+           "temp_measured_bytes": peak - alloc, "wall_s": wall,
+           "launches": {k: counts[k] for k in names},
+           "dry_run": want["memory"]}
+    if kind == "decode":
+        logits = out[0]
+        if tuple(logits.shape) != (SHAPES[shape]["global_batch"] // 16,
+                                   cfg.vocab):
+            fail(f"{tag}: logits {tuple(logits.shape)}")
+        if any(counts[k] != cfg.n_layers for k in names):
+            fail(f"{tag}: launches {counts}, want {cfg.n_layers} of each")
+        # a second step with the kernels' first inputs kept (their copies
+        # would count in the peak above), each against its plain version
+        del out, logits
+        seen, restore = _capture(ops, names)
+        try:
+            dryrun.run_shadow(model, shape, shadow, rules, args)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        res["kernels"] = _mesh_kernels_vs_plain(seen, tag)
+        del seen
+    elif not bool(torch.isfinite(out[2]["loss"])):
+        fail(f"{tag}: loss {float(out[2]['loss'])}")
+    log(f"{tag}{'' if depth is None else f' ({depth} layers)'}: arguments "
+        f"{alloc} bytes allocated == {rounded} (each block's request "
+        f"rounded to 512 B) + {kept} (segment remainders of 1 MiB or less "
+        f"kept by {n_kept} large blocks), block by block; params {exact['params']}, moments "
+        f"{exact.get('opt_state', 0)}, state {exact.get('state', 0)} bytes "
+        f"== the dry run's; the step takes the global inputs ({inputs} "
+        f"bytes) where the dry run counts the rank's block "
+        f"({pr['inputs']}); dry-run argument_size_in_bytes "
+        f"{want['memory']['argument_size_in_bytes']}")
+    log(f"{tag}: one step in {wall:.3f} s host wall; peak {peak} bytes "
+        f"({_gib(peak)} GiB) allocated over the arguments and what was "
+        f"held before them ({other} bytes held beside them at the step's "
+        f"start, left out), temp_measured_bytes "
+        f"{peak - alloc} ({_gib(peak - alloc)} GiB); launches "
+        f"{res['launches']}; bill == the meta run's "
+        + (f"; B5/B1/B6 vs plain {res['kernels']}" if kind == "decode"
+           else ""))
+    del args, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_dryrun(child, out_dir: Path) -> dict:
+    cells = join_dryrun_sweep(child, out_dir)
+    decode = dryrun_card_cell("llama3.2-1b", "decode_32k")
+    train = dryrun_card_cell("llama3.2-1b", "train_4k",
+                             depth=DRYRUN_TRAIN_DEPTH)
+    return {"cells": len(cells), "decode": decode, "train": train}
+
+
+# ------------------------------------------------------------- examples ----
+
+EXAMPLES = (("quickstart.py", "kernel B1 (on the card) EXACT"),
+            ("serve_longcontext.py", "paged serve OK"),
+            ("sp_gvr_500k.py", "SP-GVR exact over 8 sequence shards"),
+            ("train_dsa.py", "done"))
+EXAMPLE_TIMEOUT_S = 600
+
+
+def start_examples(out_dir: Path) -> dict:
+    """The port's four examples at their defaults, as four processes at
+    once on the card (train_dsa's checkpoints under `out_dir`)."""
+    import os
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for name, _ in EXAMPLES:
+        f = open(out_dir / f"{name}.log", "w")
+        extra = (["--checkpoint-dir", str(out_dir / "ckpt")]
+                 if name == "train_dsa.py" else [])
+        procs[name] = (subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / "torch" / name), *extra],
+            stdout=f, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT)), f,
+            time.perf_counter())
+    return procs
+
+
+def join_examples(procs, out_dir: Path) -> dict:
+    """Each example must exit 0 and print its check line."""
+    res = {}
+    for name, check in EXAMPLES:
+        proc, f, t0 = procs[name]
+        try:
+            rc = proc.wait(timeout=EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"[examples] {name} ran past {EXAMPLE_TIMEOUT_S} s")
+        f.close()
+        text = (out_dir / f"{name}.log").read_text()
+        if rc != 0 or check not in text:
+            fail(f"[examples] {name}: exit {rc}, no {check!r}: "
+                 f"{text[-3000:]}")
+        line = next(ln for ln in text.splitlines() if check in ln)
+        res[name] = time.perf_counter() - t0
+        log(f"[examples] {name}: exit 0 in {res[name]:.3f} s (from its "
+            f"start): {line}")
+    return res
+
+
+def stop_examples(procs) -> None:
+    for proc, f, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        f.close()
+
+
 def run_llama_phases(model, params, cpu_params, rng, specs, timed):
     """The llama3.2-1b engine phases, [main] through [dense], which run
     beside h2o-danube's child processes (their host walls with them);
@@ -3752,7 +4097,7 @@ def _router_flips(cfg, ref, ranks, tag):
     return flips
 
 
-def _mesh_kernels_vs_plain(seen):
+def _mesh_kernels_vs_plain(seen, tag="[mesh]"):
     """B5's scoring, B1 and B6 on the first inputs a rank gave them (its
     rows, its heads), each against its plain version."""
     import torch
@@ -3762,22 +4107,22 @@ def _mesh_kernels_vs_plain(seen):
     s_ker, s_ref = ops.indexer_scores(*args, **kw), ref.indexer_scores_ref(*args, **kw)
     live = s_ref > -1e38
     if not torch.equal(live, s_ker > -1e38):
-        fail("[mesh] B5 scoring at a rank's shapes: NEG mask differs")
+        fail(f"{tag} B5 scoring at a rank's shapes: NEG mask differs")
     err = float((s_ker - s_ref)[live].abs().max())
     if err > 1e-4 * float(s_ref[live].abs().max()):
-        fail(f"[mesh] B5 scoring at a rank's shapes: max |err| {err}")
+        fail(f"{tag} B5 scoring at a rank's shapes: max |err| {err}")
     res["B5 scoring"] = {"err": err, "shape": list(args[1].shape)}
     args, kw = seen["gvr_topk"]
     got, want = ops.gvr_topk(*args, **kw), ref.gvr_topk_ref(*args, **kw)
     if not torch.equal(got[1], want[1]):
-        fail("[mesh] B1 at a rank's shapes: indices differ from the plain "
+        fail(f"{tag} B1 at a rank's shapes: indices differ from the plain "
              "version")
     res["B1"] = {"err": 0.0, "shape": list(args[0].shape)}
     args, kw = seen["sparse_decode_attn"]
     o, o_ref = ops.sparse_decode_attn(*args, **kw), ref.sparse_attn_ref(*args, **kw)
     err = float((o - o_ref).abs().max())
     if not torch.allclose(o, o_ref, atol=1e-4, rtol=1e-4):
-        fail(f"[mesh] B6 at a rank's heads: max |err| {err} beyond 1e-4")
+        fail(f"{tag} B6 at a rank's heads: max |err| {err} beyond 1e-4")
     res["B6"] = {"err": err, "shape": list(args[0].shape)}
     return res
 
@@ -4700,9 +5045,13 @@ def main() -> int:
     timed("temporal", phase_temporal, flush)
     # training: llama3.2-1b at full width and depth with the card to this
     # process alone, then the 2-layer cuts against the CPU while the
-    # deterministic resume check runs in a child process
+    # deterministic resume check runs in a child process; the dry-run
+    # sweep (CPU work, kept off the card) runs from here to [dryrun],
+    # beside the device-bound [train]
     gc.collect()
     torch.cuda.empty_cache()
+    dryrun_dir = ROOT / "build" / "chip_smoke" / "dryrun"
+    dryrun_child = start_dryrun_sweep(dryrun_dir)
     timed("train", phase_train)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4714,6 +5063,15 @@ def main() -> int:
               resume_dir)
     finally:
         stop_family_children({"train-resume": resume_child})
+    # the port's four examples in child processes, while this process
+    # reads the sweep's cells and runs two production cells' rank 0
+    examples_dir = ROOT / "build" / "chip_smoke" / "examples"
+    examples = start_examples(examples_dir)
+    try:
+        timed("dryrun", phase_dryrun, dryrun_child, dryrun_dir)
+        timed("examples (join)", join_examples, examples, examples_dir)
+    finally:
+        stop_examples(examples)
 
     rows = [("B1 gvr_topk", "gvr_topk.cu", "src/repro/kernels/gvr_topk.py:334",
              main_counts["gvr_topk"]),

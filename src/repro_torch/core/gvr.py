@@ -14,7 +14,10 @@ A line-for-line port of the JAX package's `core/gvr.py` (paper §4.2):
 
 The data-dependent loops run on the host (`while ... .any()`), so this form
 is the reference and the CPU path; on the card the selection runs in the
-hand-written kernel behind `repro_torch.kernels.ops.gvr_topk`.
+hand-written kernel behind `repro_torch.kernels.ops.gvr_topk`. On the meta
+device (the dry run, `launch.dryrun`) no value can be tested: each loop
+runs to its iteration cap and the fallback is taken (`loop_on`,
+`branch_on`), here and in `sp_gvr`.
 
 Exactness is unconditional: if the phase budgets run out, the row falls back
 to a direct exact selection and is flagged (the paper's `done=2` net).
@@ -33,6 +36,23 @@ from .temporal import linspace_i32
 # the secant/bisection arithmetic finite.
 NEG_SENTINEL = -3.4028234663852886e38
 FMAX = 3.4028234663852886e38
+
+
+def loop_on(cond: torch.Tensor, done_iters: int, cap: int) -> bool:
+    """A data-dependent loop's test, on the host once per iteration:
+    whether any row of `cond` holds. On the meta device there is no value
+    to test, and the loop runs `cap` iterations, as the JAX package's dry
+    run bills a while body at its iteration cap."""
+    if cond.is_meta:
+        return done_iters < cap
+    return bool(cond.any())
+
+
+def branch_on(cond: torch.Tensor) -> bool:
+    """A data-dependent branch's test (any row of `cond`); taken on the
+    meta device."""
+    return cond.is_meta or bool(cond.any())
+
 
 DEFAULT_K = 2048
 DEFAULT_CAND_FACTOR = 3
@@ -125,7 +145,9 @@ def _phase2_secant(x, t0, p_lo, p_hi, k, cmax, f_target, max_iters, m):
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     it = torch.zeros((b,), dtype=torch.int32, device=dev)
 
-    while bool((~done & (it < max_iters)).any()):
+    rounds = 0
+    while loop_on(~done & (it < max_iters), rounds, max_iters):
+        rounds += 1
         active = ~done & (it < max_iters)
         n_ge, _, _, _ = _fused_pass(x, t)
         row_max = torch.maximum(row_max, x.amax(-1))
@@ -191,7 +213,9 @@ def _phase4_histogram(x, t_init, k, nbins, max_levels):
     it = torch.zeros((b,), dtype=torch.int32, device=dev)
     one = torch.tensor(1.0, dtype=torch.float32, device=dev)
 
-    while bool((~done & (it < max_levels)).any()):
+    rounds = 0
+    while loop_on(~done & (it < max_levels), rounds, max_levels):
+        rounds += 1
         active = ~done & (it < max_levels)
         width = (hi - lo) / nbins
         degenerate = ~(width > 0) | ~torch.isfinite(width)
@@ -225,7 +249,9 @@ def _phase4_snap(x, t_init, k, max_iters):
     n_gt = torch.zeros((b,), dtype=torch.int32, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     it = torch.zeros((b,), dtype=torch.int32, device=dev)
-    while bool((~done & (it < max_iters)).any()):
+    rounds = 0
+    while loop_on(~done & (it < max_iters), rounds, max_iters):
+        rounds += 1
         active = ~done & (it < max_iters)
         ge, gt, up, dn = _fused_pass(x, t)
         converged = (gt < k) & (ge >= k)
@@ -274,7 +300,7 @@ def gvr_threshold(scores: torch.Tensor, prev_idx: torch.Tensor,
         x, t_hist, k, max_snap_iters)
 
     fallback = ~snap_done
-    if bool(fallback.any()):
+    if branch_on(fallback):
         kth = torch.topk(x, k, dim=-1).values[:, -1]
         t2 = torch.where(fallback, kth, t_star)
         ge2, gt2, _, _ = _fused_pass(x, t2)

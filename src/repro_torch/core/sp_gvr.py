@@ -21,7 +21,10 @@ collective results, so every rank takes the same branch of every
 data-dependent loop (which is what keeps the ranks' collective sequences
 aligned). The result is the unique exact Top-K with the lowest global
 indices among ties, as the single-device selector's. The loops test their
-conditions on the host, once per iteration, as `core.gvr` does.
+conditions on the host, once per iteration, as `core.gvr` does; on the
+meta device (the dry run) each loop runs to its cap and the fallback
+gather is taken (`gvr.loop_on`, `gvr.branch_on`), so the dry run bills
+the collectives of every round a row may take.
 
 `sp_gvr_topk_local` runs on each rank over its slice; `sp_canonical_topk`
 turns the per-rank winners into the replicated ascending buffer of the
@@ -37,7 +40,8 @@ import torch
 
 from repro_torch.parallel.sharding import SeqGroup
 
-from .gvr import DEFAULT_MAX_SECANT, DEFAULT_MAX_SNAP, FMAX
+from .gvr import (DEFAULT_MAX_SECANT, DEFAULT_MAX_SNAP, FMAX, branch_on,
+                  loop_on)
 
 
 class SPGVRResult(NamedTuple):
@@ -135,7 +139,9 @@ def sp_gvr_topk_local(scores_local: torch.Tensor, prev_idx: torch.Tensor,
     prev_over = torch.zeros_like(hi_probed)
     done = torch.zeros_like(hi_probed)
     it = torch.zeros_like(cnt)
-    while bool((~done & (it < max_secant_iters)).any()):
+    rounds = 0
+    while loop_on(~done & (it < max_secant_iters), rounds, max_secant_iters):
+        rounds += 1
         active = ~done & (it < max_secant_iters)
         n_ge = gcount(t, "secant")
         in_window = (n_ge >= k) & (n_ge <= cmax)
@@ -186,7 +192,9 @@ def sp_gvr_topk_local(scores_local: torch.Tensor, prev_idx: torch.Tensor,
     done = torch.zeros_like(hi_probed)
     it = torch.zeros_like(cnt)
     one = torch.tensor(1.0, device=dev)
-    while bool((~done & (it < max_hist_levels)).any()):
+    rounds = 0
+    while loop_on(~done & (it < max_hist_levels), rounds, max_hist_levels):
+        rounds += 1
         active = ~done & (it < max_hist_levels)
         width = (hi - lo) / hist_bins
         degenerate = ~(width > 0) | ~torch.isfinite(width)
@@ -215,7 +223,9 @@ def sp_gvr_topk_local(scores_local: torch.Tensor, prev_idx: torch.Tensor,
     t = lo
     done = torch.zeros_like(hi_probed)
     it = torch.zeros_like(cnt)
-    while bool((~done & (it < max_snap_iters)).any()):
+    rounds = 0
+    while loop_on(~done & (it < max_snap_iters), rounds, max_snap_iters):
+        rounds += 1
         active = ~done & (it < max_snap_iters)
         tb = t[:, None]
         ge, gt = x >= tb, x > tb
@@ -237,7 +247,7 @@ def sp_gvr_topk_local(scores_local: torch.Tensor, prev_idx: torch.Tensor,
     # (k floats a rank; rare, and every rank takes it together)
     fb = ~done
     kk = min(k, n_local)
-    if bool(fb.any()):
+    if branch_on(fb):
         loc_top = torch.topk(x, kk, dim=-1).values
         all_top = mesh.all_gather(loc_top, dim=1, tiled=True, tag="fallback")
         kth = torch.topk(all_top, k, dim=-1).values[:, -1]

@@ -22,6 +22,13 @@ here, never in a kernel.
 
 Each wrapper's `launches` attribute is a plain integer; `launch_counts()`
 reads them all and `reset_launch_counts()` zeroes them.
+
+The dry run (`launch.dryrun`) runs a step on the meta device. When every
+input of `gvr_topk`, `indexer_scores` (and so `indexer_topk`) or
+`sparse_decode_attn` lies on meta, the wrapper checks the shapes and
+returns empty outputs of the kernel's shapes and dtypes, as a
+`pallas_call`'s `out_shape` gives them: nothing is launched or counted.
+Inputs on meta and on another device raise, as any mix does.
 """
 
 from __future__ import annotations
@@ -52,6 +59,11 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
         return False
     raise ValueError(f"kernel inputs must all lie on the CPU or all on one "
                      f"CUDA device, got {sorted(devs)}")
+
+
+def _on_meta(*tensors: torch.Tensor) -> bool:
+    """Every input on the meta device: the shapes-only result."""
+    return all(t.device.type == "meta" for t in tensors)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -192,6 +204,16 @@ def gvr_topk(scores: torch.Tensor, prev_idx: torch.Tensor, k: int, *,
     a row lies in one cluster's shared memory (`gvr_schedule`): up to
     ~680K positions where the device runs a cluster of 16, ~377K where it
     does not; a longer row raises ValueError."""
+    if _on_meta(scores, prev_idx):
+        _check(scores.dim() == 2 and prev_idx.dim() == 2
+               and prev_idx.shape[0] == scores.shape[0]
+               and 1 <= k <= scores.shape[1],
+               f"gvr_topk: scores (B, N), prev_idx (B, M), 1 <= k <= N; got "
+               f"{tuple(scores.shape)}, {tuple(prev_idx.shape)}, k={k}")
+        b = scores.shape[0]
+        return (scores.new_empty((b, k)), prev_idx.new_empty((b, k),
+                                                             dtype=torch.int32),
+                scores.new_empty((b, 8), dtype=torch.float32))
     if _on_cpu(scores, prev_idx):
         return ref.gvr_topk_ref(scores, prev_idx, k,
                                 max_candidates=max_candidates,
@@ -458,6 +480,16 @@ def indexer_scores(q: torch.Tensor, kcache: torch.Tensor, w: torch.Tensor,
     score row, NEG at or beyond length and below length - window; bit-equal
     on the card to `paged_indexer_scores` over pages holding the same
     keys."""
+    if _on_meta(q, kcache, w, lengths):
+        b, h, d = q.shape
+        _check(kcache.dim() == 3 and kcache.shape[0] == b
+               and kcache.shape[2] == d and lengths.shape == (b,)
+               and w.shape in ((h,), (b, h)),
+               f"indexer_scores: q (B, H, D), kcache (B, N, D), w (H,) or "
+               f"(B, H), lengths (B,); got {tuple(q.shape)}, "
+               f"{tuple(kcache.shape)}, {tuple(w.shape)}, "
+               f"{tuple(lengths.shape)}")
+        return q.new_empty((b, kcache.shape[1]), dtype=torch.float32)
     if _on_cpu(q, kcache, w, lengths):
         return ref.indexer_scores_ref(q, kcache, w, lengths, window)
     _check(kcache.dim() == 3 and kcache.shape[0] == q.shape[0],
@@ -725,6 +757,17 @@ def sparse_decode_attn(q: torch.Tensor, kcache: torch.Tensor,
     with no valid entry); bit-equal on the card to
     `paged_sparse_decode_attn` over pages holding the same rows."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if _on_meta(q, kcache, vcache, idx, lengths):
+        b, h, hd = q.shape
+        _check(kcache.dim() == 4 and kcache.shape == vcache.shape
+               and kcache.shape[0] == b and kcache.shape[3] == hd
+               and h % kcache.shape[2] == 0 and idx.dim() == 2
+               and idx.shape[0] == b and lengths.shape == (b,),
+               f"sparse_decode_attn: q (B, H, hd), caches (B, N, KVH, hd) "
+               f"with KVH | H, idx (B, K), lengths (B,); got "
+               f"{tuple(q.shape)}, {tuple(kcache.shape)}, "
+               f"{tuple(idx.shape)}, {tuple(lengths.shape)}")
+        return q.new_empty((b, h, hd), dtype=torch.float32)
     if _on_cpu(q, kcache, vcache, idx, lengths):
         return ref.sparse_attn_ref(q, kcache, vcache, idx, lengths,
                                    scale=scale)

@@ -66,8 +66,10 @@ class Model:
         `torch.Generator` on that device seeded with `seed`. Under a `mesh`
         and its `rules`: this rank's blocks of those same parameters (the
         blocks `bridge.shard_tree` of `param_specs` gives), each layer cut
-        as it is drawn, so a rank never holds its whole tree."""
-        generator = torch.Generator(device=self.device).manual_seed(seed)
+        as it is drawn, so a rank never holds its whole tree. On the meta
+        device (the dry run's shapes) nothing is drawn."""
+        generator = (None if self.device.type == "meta" else
+                     torch.Generator(device=self.device).manual_seed(seed))
         if mesh is None:
             return self.mod.init_params(self.cfg, generator, self.device)
         specs = self.param_specs(rules)
@@ -92,12 +94,13 @@ class Model:
         return self.mod.state_specs(self.cfg, rules, batch=batch,
                                     max_len=max_len, seq_sharded=seq_sharded)
 
-    def input_specs(self, shape: str) -> Dict[str, ShapeDtype]:
-        """The inputs of a shape cell as shapes and dtypes: tokens and
-        targets (frames for the audio family, patch embeddings for the
-        vlm) for train and prefill; one token a row for decode, whose
-        cache is `decode_state_specs`."""
-        s = SHAPES[shape]
+    def input_specs(self, shape) -> Dict[str, ShapeDtype]:
+        """The inputs of a shape cell (a `SHAPES` name, or a dict of the
+        same keys) as shapes and dtypes: tokens and targets (frames for
+        the audio family, patch embeddings for the vlm) for train and
+        prefill; one token a row for decode, whose cache is
+        `decode_state_specs`."""
+        s = SHAPES[shape] if isinstance(shape, str) else shape
         b, sl = s["global_batch"], s["seq_len"]
         if s["kind"] not in ("train", "prefill"):
             return {"tokens": ShapeDtype((b,), torch.int32)}

@@ -342,14 +342,22 @@ def _mamba_train(p, x: torch.Tensor, cfg: ModelConfig,
     cmat = proj[..., dtr + ds:].float()
     a = -torch.exp(mine(p["a_log"], "a_log")[c])
     xf = x1.float()
-    h = torch.zeros((b, xf.shape[-1], ds), dtype=torch.float32,
-                    device=x.device)
-    ys = []
-    for t in range(s):
-        h = (torch.exp(dt[:, t, :, None] * a[None]) * h
-             + (dt[:, t] * xf[:, t])[..., None] * bmat[:, t, None, :])
-        ys.append(torch.einsum("bds,bs->bd", h, cmat[:, t]))
-    y = torch.stack(ys, dim=1) + mine(p["d_skip"], "d_skip")[c] * xf
+    if xf.is_meta:
+        # the dry run: every step's update at once, the scan's shapes and
+        # graph without its S host-side steps
+        h = (torch.exp(dt[..., None] * a) * (dt * xf)[..., None]
+             * bmat[:, :, None, :])
+        y = torch.einsum("btds,bts->btd", h, cmat)
+    else:
+        h = torch.zeros((b, xf.shape[-1], ds), dtype=torch.float32,
+                        device=x.device)
+        ys = []
+        for t in range(s):
+            h = (torch.exp(dt[:, t, :, None] * a[None]) * h
+                 + (dt[:, t] * xf[:, t])[..., None] * bmat[:, t, None, :])
+            ys.append(torch.einsum("bds,bs->bd", h, cmat[:, t]))
+        y = torch.stack(ys, dim=1)
+    y = y + mine(p["d_skip"], "d_skip")[c] * xf
     return tp.pl.rows_in(y.to(x.dtype) * F.silu(z), p["out_proj"], entry,
                          local=True, tag="out_proj")
 

@@ -207,14 +207,23 @@ def _layer_train(p, x: torch.Tensor, cfg: ModelConfig,
     xa = rms_norm(x, p["ln1"])
     r, k, v, g, w = _time_mix(p, xa, _shifted(xa), lay)
     r, k, v, w = (t.reshape(b, s, h, hd).float() for t in (r, k, v, w))
-    st = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
-    outs = []
-    for t in range(s):
-        kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
-        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
-                                 st + p["u"][None, :, :, None] * kv))
-        st = w[:, t, ..., None] * st + kv
-    att = _time_mix_out(p, torch.stack(outs, dim=1).reshape(b, s, d), g, lay)
+    if k.is_meta:
+        # the dry run: every step's update at once, the scan's shapes and
+        # graph without its S host-side steps
+        kv = torch.einsum("bthk,bthv->bthkv", k, v)
+        wkv = torch.einsum("bthk,bthkv->bthv", r, w[..., None] * kv
+                           + p["u"][None, None, :, :, None] * kv)
+    else:
+        st = torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                         device=x.device)
+        outs = []
+        for t in range(s):
+            kv = torch.einsum("bhk,bhv->bhkv", k[:, t], v[:, t])
+            outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
+                                     st + p["u"][None, :, :, None] * kv))
+            st = w[:, t, ..., None] * st + kv
+        wkv = torch.stack(outs, dim=1)
+    att = _time_mix_out(p, wkv.reshape(b, s, d), g, lay)
     x = x + att.to(x.dtype)
     xc = rms_norm(x, p["ln2"])
     return x + _channel_mix_step(p, xc, _shifted(xc), lay).to(x.dtype)

@@ -103,6 +103,9 @@ def drawer(generator: torch.Generator, device, dtype: torch.dtype,
     a rank never holds more than its blocks and one layer's draw."""
 
     def one(shape, scale, dt, path):
+        if torch.device(device).type == "meta":     # shapes only: no draw
+            x = torch.empty(shape, dtype=dt, device="meta")
+            return x if block is None or path is None else block(path, x)
         x = torch.randn(shape, generator=generator,
                         device=device).mul_(scale).to(dt)
         return x if block is None or path is None else block(path, x)

@@ -179,9 +179,10 @@ def _span(p: torch.Tensor) -> int:
     memory, zeroed page by page on first touch, where a slice's is
     reused; on the card the whole leaf, since the caching allocator
     reuses whole-leaf temporaries and slices there cost step time
-    (`tools/ab_adamw_slices.py`, PERF.md §6 on training). Any span gives
-    the same bits."""
-    return p.numel() if p.is_cuda else _CPU_SLICE
+    (`tools/ab_adamw_slices.py`, PERF.md §6 on training); on the meta
+    device (the dry run) the whole leaf too, as nothing is allocated. Any
+    span gives the same bits."""
+    return p.numel() if p.is_cuda or p.is_meta else _CPU_SLICE
 
 
 def _update_slice(g, m, v, p, scale, lr, bc1, bc2, cfg: AdamWConfig) -> None:

@@ -56,7 +56,7 @@ Without autograd (decode) each is its plain forward, bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -520,6 +520,116 @@ class Mesh(AbstractMesh):
     def barrier(self) -> None:
         import torch.distributed as dist
         dist.barrier()
+
+
+# the collective ops of XLA's HLO, as the JAX package's dry run counts them
+HLO_COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter",
+                   "all-to-all", "collective-permute")
+
+
+class _ShadowAxis(MeshAxis):
+    """One axis of a `ShadowMesh`: `size` ranks of which this is `rank`,
+    and no process group. Each collective is billed as the live axis
+    bills it (`SeqGroup._count`: the call and the bytes of the input)
+    and returns a tensor of the shape and dtype the live collective
+    returns, built from this rank's input alone: a sum, maximum or
+    minimum is the input, a gather tiles it, an all_to_all sends each
+    block back to itself. `ops` counts the same calls by the HLO
+    collective each is (calls and the bytes of its result)."""
+
+    def __init__(self, name: str, size: int, rank: int, *, device):
+        super().__init__(name, None, device=device)
+        self.size, self.rank, self.backend = size, rank, "shadow"
+        self.ops: Dict[str, Dict[str, int]] = {}
+
+    def _op(self, kind: str, tag: str, t, out):
+        self._count(tag, t)
+        op = self.ops.setdefault(kind, {"count": 0, "bytes": 0})
+        op["count"] += 1
+        op["bytes"] += out.numel() * out.element_size()
+        return out
+
+    def _reduce(self, t, op, tag):
+        return self._op("all-reduce", tag, t, t.clone())
+
+    def _psum_float(self, t, tag):
+        return self._op("all-reduce", tag, t, t.clone())
+
+    def _gather(self, t, dim, tiled, tag):
+        parts = [t] * self.size
+        return self._op("all-gather", tag, t, torch.cat(parts, dim) if tiled
+                        else torch.stack(parts, dim))
+
+    def _all_to_all(self, t, split_axis, concat_axis, tiled, tag):
+        got = t.chunk(self.size, split_axis)
+        out = (torch.cat(got, concat_axis) if tiled else torch.stack(
+            [g.squeeze(split_axis) for g in got], concat_axis))
+        return self._op("all-to-all", tag, t, out)
+
+    def reset_bill(self) -> None:
+        super().reset_bill()
+        self.ops.clear()
+
+    def barrier(self) -> None:
+        pass
+
+
+class ShadowMesh(Mesh):
+    """One rank of a mesh, with no process group: the dry run's stand-in
+    for the mesh a step runs on (`launch.dryrun`). It has `Mesh`'s API
+    (`axis(name)`, `index`, `coords`, `rank`, `device`, `bill`,
+    `reset_bill`, `barrier`) for the rank at `coords` (rank 0 by
+    default), and its axes bill every collective exactly as a live mesh
+    does, but move no data: each returns a tensor of the live result's
+    shape and dtype made from this rank's own input (`_ShadowAxis`). So
+    the values that pass through a collective are NOT the mesh's values;
+    a step run under it checks shapes, bytes and the collective bill, not
+    results. Nothing but the dry run builds one."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str], *,
+                 coords: Optional[Dict[str, int]] = None, device="meta"):
+        AbstractMesh.__init__(self, shape, axes)
+        coords = dict(coords or {})
+        if set(coords) - set(self.axis_names):
+            raise ValueError(f"coords {coords} name axes the mesh "
+                             f"{self.shape} lacks")
+        self.coords = {a: int(coords.get(a, 0)) for a in self.axis_names}
+        for a, c in self.coords.items():
+            if not 0 <= c < self.shape[a]:
+                raise ValueError(f"coordinate {c} outside axis {a!r} of "
+                                 f"extent {self.shape[a]}")
+        self.rank = 0
+        for a in self.axis_names:
+            self.rank = self.rank * self.shape[a] + self.coords[a]
+        self.backend = "shadow"
+        self.device = torch.device(device)
+        self._axes = {a: _ShadowAxis(a, self.shape[a], self.coords[a],
+                                     device=self.device)
+                      for a in self.axis_names}
+
+    def axis(self, name: str) -> _ShadowAxis:
+        """The axis `name`; one the mesh lacks is a line of one rank."""
+        if name not in self._axes:
+            self._axes[name] = _ShadowAxis(name, 1, 0, device=self.device)
+        return self._axes[name]
+
+    def collectives(self) -> Dict[str, Any]:
+        """The calls since the last reset by HLO collective: {name:
+        {"count", "bytes"}} (bytes of each result) for every name of
+        `HLO_COLLECTIVES`, "total_bytes" and "total_count", the fields of
+        the JAX package's `parse_collectives`."""
+        out = {n: {"count": 0, "bytes": 0} for n in HLO_COLLECTIVES}
+        for ax in self._axes.values():
+            for kind, op in ax.ops.items():
+                out[kind]["count"] += op["count"]
+                out[kind]["bytes"] += op["bytes"]
+        out["total_bytes"] = sum(v["bytes"] for v in out.values())
+        out["total_count"] = sum(v["count"] for v in out.values()
+                                 if isinstance(v, dict))
+        return out
+
+    def barrier(self) -> None:
+        pass
 
 
 def stacked(specs):

@@ -112,8 +112,15 @@ def sp_dsa_decode_local(q, kc, vc, ikc, h, idx_params, prev_topk, lengths,
 def _write_owned(pairs, pos: torch.Tensor, off: int) -> None:
     """Write each new row (B, ...) into its cache (B, Nl, ...) at global
     position pos (B,), in place, on the rank whose span [off, off + Nl)
-    holds it."""
+    holds it. On the meta device (the dry run) only the shapes are
+    checked: which rank holds a row is data."""
     nl = pairs[0][0].shape[1]
+    if pos.is_meta:
+        for cache, new in pairs:
+            if cache.shape[:1] + cache.shape[2:] != new.shape:
+                raise ValueError(f"a row {tuple(new.shape)} does not fit "
+                                 f"the cache {tuple(cache.shape)}")
+        return
     rel = pos - off
     rows = ((rel >= 0) & (rel < nl)).nonzero()[:, 0]
     for cache, new in pairs:

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: every `repro_torch` module imports with
-`jax` and the JAX package (`repro`) blocked, no port source or
-`chip_smoke.py` names either, and the entry points refuse to fall back to
+`jax` and the JAX package (`repro`) blocked, no port source,
+`chip_smoke.py` or example of the port (`examples/torch/`) names either, and the entry points refuse to fall back to
 the CPU silently."""
 
 import re
@@ -43,7 +43,9 @@ def test_every_port_module_imports_without_jax():
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
                                         list(PORT.rglob("*.py"))
-                                        + [ROOT / "chip_smoke.py"]))
+                                        + [ROOT / "chip_smoke.py"]
+                                        + list((ROOT / "examples" / "torch")
+                                               .glob("*.py"))))
 def test_no_source_imports_jax_or_the_jax_package(path):
     text = (ROOT / path).read_text()
     bad = re.findall(r"^\s*(?:import|from)\s+(jax\w*|repro)\b", text, re.M)

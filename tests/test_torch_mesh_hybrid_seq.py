@@ -60,3 +60,43 @@ def test_sequence_sharded_on_four_data_ranks_bills_the_sequence_axis(runs):
         bill = run["ticks"][0]["bill"]
         assert set(bill) == {"data"}, bill
         assert {"combine", "feedback"} <= set(bill["data"]), bill
+
+
+LOOP_CAPS = {"secant": 12, "hist": 10, "snap": 32, "fallback": 1}
+
+
+def test_sequence_sharded_shadow_bill_equals_live(runs):
+    """The dry run's shadow step (`launch.dryrun.shadow_step` on the meta
+    device under a `ShadowMesh`) at this file's mesh, config and shapes:
+    on every rank, each tag whose count does not depend on the data bills
+    the live first tick's calls and bytes; SP-GVR's data-dependent loops
+    (secant, histogram, snap rounds and the fallback gather) bill their
+    cap a layer, at least the live count."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel.sharding import AbstractMesh, make_rules
+    _, ranks = runs
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b", smoke=True),
+                              n_kv_heads=2)
+    mesh = AbstractMesh((4, 1), ("data", "model"))
+    model = build_model(cfg, device="meta")
+    cell = {"kind": "decode", "seq_len": 64, "global_batch": 1,
+            "seq_sharded": True}
+    n_attn = cfg.n_layers // cfg.attn_every
+    for r, res in enumerate(ranks):
+        shadow = dryrun.shadow_step(model, cell, mesh, make_rules(mesh),
+                                    coords={"data": r})["bill"]
+        live = res["sp4/4x1sp"]["ticks"][0]["bill"]
+        assert set(shadow) == set(live) == {"data"}
+        got, want = shadow["data"], live["data"]
+        assert set(LOOP_CAPS) <= set(got) and set(want) <= set(got)
+        for tag, bill in got.items():
+            if tag in LOOP_CAPS:
+                assert bill["calls"] == n_attn * LOOP_CAPS[tag], tag
+                live_bill = want.get(tag, {"calls": 0, "bytes": 0})
+                assert bill["calls"] >= live_bill["calls"], tag
+                assert bill["bytes"] >= live_bill["bytes"], tag
+            else:
+                assert bill == want[tag], (r, tag)

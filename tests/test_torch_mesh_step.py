@@ -204,3 +204,25 @@ def test_all_to_all_as_lax(runs):
                 want = np.stack([b.squeeze(split) for b in blocks], axis=concat)
             np.testing.assert_array_equal(out.numpy(), want,
                                           err_msg=str((split, concat, tiled)))
+
+
+@pytest.mark.parametrize("c", list(CASES))
+def test_mesh_step_shadow_bill_equals_live(runs, c):
+    """The dry run's shadow step (`launch.dryrun.shadow_step`: rank r's
+    step on the meta device under a `ShadowMesh`) at this file's mesh,
+    config and shapes bills each rank's first tick exactly: every tag's
+    calls and bytes (no tag of the decode step depends on the data)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel.sharding import AbstractMesh, make_rules
+    _, ranks = runs
+    cfg = get_config(CASES[c], smoke=True)
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+    model = build_model(cfg, device="meta")
+    cell = {"kind": "decode", "seq_len": N, "global_batch": len(LENGTHS)}
+    for r, res in enumerate(ranks):
+        shadow = dryrun.shadow_step(model, cell, mesh, make_rules(mesh),
+                                    coords={"data": r // 2, "model": r % 2})
+        assert shadow["bill"] == res[f"{c}/2x2"]["ticks"][0]["bill"], r
+        assert shadow["outputs"][0] == [2, cfg.vocab]

@@ -210,3 +210,30 @@ def test_mesh_train_bill(runs):
     moe = ranks[0]["moonshot"]["bill"]["model"]
     assert {"ep_dispatch", "ep_return", "ep_tokens", "ep_dispatch_grad",
             "ep_router_grad"} <= set(moe), moe
+
+
+UPDATE_TAGS = {"norm", "zero1"}     # adamw.update's; the rest loss_and_grads'
+
+
+@pytest.mark.parametrize("c", list(CASES))
+def test_mesh_train_shadow_bill_equals_live(runs, c):
+    """The dry run's shadow train step (`launch.dryrun.shadow_step`: rank
+    0's ZeRO-1 step on the meta device under a `ShadowMesh`) at this
+    file's mesh, config and batch bills what rank 0 billed: its run is
+    STEPS + 1 `loss_and_grads` and STEPS steps, each a `loss_and_grads`
+    and an `adamw.update`, so every tag of the update is billed STEPS
+    times the shadow's and every other 2 STEPS + 1 times, calls and
+    bytes."""
+    from repro_torch.launch import dryrun
+    _, _, ranks = runs
+    model = build_model(get_config(CASES[c], smoke=True), device="meta")
+    cell = {"kind": "train", "seq_len": S, "global_batch": B}
+    shadow = dryrun.shadow_step(model, cell, MESH, make_rules(MESH))["bill"]
+    live = ranks[0][c]["bill"]
+    assert set(shadow) == set(live)
+    for axis, tags in live.items():
+        assert set(tags) == set(shadow[axis]), axis
+        for tag, got in tags.items():
+            n = STEPS if tag in UPDATE_TAGS else 2 * STEPS + 1
+            want = {k: n * v for k, v in shadow[axis][tag].items()}
+            assert got == want, (axis, tag)
