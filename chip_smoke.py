@@ -148,8 +148,18 @@ Phases (any failure exits non-zero; no exception is swallowed):
                     sequence-sharded on (2, 2) at max_len 524288 (SP-DSA
                     over "data", the rest over "model"), then a cell at
                     max_len 4096 = dsa.min_n (the dense attention over
-                    the sequence shards). The same ranks then run:
-                    [train-mesh] ([tp]'s ranks) llama3.2-1b at 2 layers,
+                    the sequence shards). [tp] and [ep] then run the
+                    paged forms (`serve_step_paged` /
+                    `serve_step_spec_paged(mesh=, rules=)`) in the same
+                    ranks over the same cache (page 64, a shuffled
+                    table), fed the dense mesh ticks' inputs: fused/token,
+                    gather and every live verify position (scan and mq on
+                    [tp], mq on [ep]) equal the rank's own dense mesh
+                    ticks bit for bit, mq == scan, page granularity (B10)
+                    and the fallback at max_len 4096 (B4) within
+                    [layouts]' rule; B2, B3, B4, B7, B8, B9 and B10 on a
+                    rank's first inputs against their plain versions.
+                    The same ranks then run: [train-mesh] ([tp]'s ranks) llama3.2-1b at 2 layers,
                     f32, (2, 2), B = 4, S = 512, 2 AdamW steps with
                     ZeRO-1 moments against the one-device steps (loss,
                     every gradient and parameter leaf; ZeRO-1 bit-equal
@@ -3986,14 +3996,15 @@ def mesh_state(model, n, lengths, seed):
 
 
 def _mesh_ticks(model, params, st, ticks, *, feed=None, mesh=None,
-                rules=None, seq=False):
+                rules=None, seq=False, step=None):
     """`ticks` steps from tokens 1..B: greedy, or fed `feed[t]` at tick t
     > 0 (the single-device step's greedy tokens, so that a rank's logits
     are held against the reference's on the same inputs every tick). Per
     tick the step's host wall, its rows' logits and feedback (CPU), its
     argmax over all rows, the f32 router logits of every `moe_route` call
     in call order (the dense fallback's rows, or this EP rank's token
-    slice) and (on a mesh) the collective bill by axis and tag."""
+    slice) and (on a mesh) the collective bill by axis and tag. `step`
+    (state, tokens) -> (logits, state) replaces `model.serve_step`."""
     import torch
     from repro_torch.models import layers
     b = st["length"].shape[0]
@@ -4009,7 +4020,7 @@ def _mesh_ticks(model, params, st, ticks, *, feed=None, mesh=None,
     try:
         for t in range(ticks):
             out.append(_mesh_tick(model, params, st, tok, t, feed, mesh, rules,
-                                  seq, entry))
+                                  seq, entry, step))
             st, tok = out[-1].pop("state"), out[-1].pop("next")
             out[-1]["router"] = list(routed)
             routed.clear()
@@ -4018,7 +4029,8 @@ def _mesh_ticks(model, params, st, ticks, *, feed=None, mesh=None,
     return out, st
 
 
-def _mesh_tick(model, params, st, tok, t, feed, mesh, rules, seq, entry):
+def _mesh_tick(model, params, st, tok, t, feed, mesh, rules, seq, entry,
+               step=None):
     """One tick of `_mesh_ticks`; the record also holds the new state and
     the next token ("state", "next")."""
     import torch
@@ -4028,7 +4040,9 @@ def _mesh_tick(model, params, st, tok, t, feed, mesh, rules, seq, entry):
         mesh.reset_bill()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if mesh is None:
+    if step is not None:
+        logits, st = step(st, tok)
+    elif mesh is None:
         logits, st = model.serve_step(params, st, tok)
     else:
         logits, st = model.serve_step(params, st, tok, mesh=mesh,
@@ -4149,6 +4163,253 @@ def _ep_overflow(model, params, mesh, rules, g):
                                 ep=mesh.shape["model"])
     return {"x": x.cpu(), "router": router.cpu(), "drops": drops,
             "finite": bool(torch.isfinite(y).all()), "shape": list(y.shape)}
+
+
+# ---------------------- the paged forms on the mesh -----------------------
+# [tp] and [ep] go on in the same ranks with the same parameters: a paged
+# state over the dense ticks' start cache (the same seeded rows in pages of
+# PAGED_MESH_PAGE positions, one per (slot, logical page), their ids a
+# seeded permutation), placed by `paged_state_specs`. Each form is fed the
+# inputs of the rank's own dense mesh ticks (tokens 1..B, then the single-
+# device step's greedy tokens), and the rank holds it against those ticks:
+# fused/token, gather and every live verify position bit for bit (on the
+# card B2 == B5, B3 == B6 and B8 == B3 on the folded rows), page
+# granularity as [layouts] holds it (B10 sums in page order). The fallback
+# runs at max_len = dsa.min_n against the dense mesh step there.
+PAGED_MESH_PAGE = 64
+PAGED_MESH_SEED = 28
+PAGED_MESH = {"tp": dict(token=8, page=2, gather=2, fallback=2,
+                         verify=("scan", "mq")),
+              "ep": dict(token=2, page=0, gather=0, fallback=0,
+                         verify=("mq",))}
+PAGED_MESH_VERIFY = dict(ticks=2, depth=2)
+PAGED_MESH_FALLBACK = dict(n=4096, lengths=[1000, 2100, 3200, 4000])
+PAGED_MESH_KERNELS = {"B2": "paged_indexer_scores",
+                      "B3": "paged_sparse_decode_attn",
+                      "B4": "paged_dense_decode_attn", "B7": "paged_gather",
+                      "B8": "paged_sparse_decode_attn_mq",
+                      "B9": "paged_indexer_scores_mq",
+                      "B10": "paged_sparse_decode_attn_pg"}
+
+
+def paged_from_dense(model, dense, seed):
+    """The paged state over `dense`'s cache rows (a `mesh_state`): slot
+    b's logical page j at id perm[b, j] of a seeded permutation, page
+    PAGED_MESH_PAGE; lengths and feedback leaves copied."""
+    import torch
+    b, n = dense["k"].shape[1], dense["k"].shape[2]
+    mp = n // PAGED_MESH_PAGE
+    st = model.init_paged_decode_state(b, n, num_pages=b * mp,
+                                       page_size=PAGED_MESH_PAGE)
+    perm = torch.randperm(b * mp, generator=torch.Generator().manual_seed(
+        seed)).to(model.device)
+    st["page_table"] = perm.reshape(b, mp).int()
+    for src, dst in (("k", "k_pages"), ("v", "v_pages"), ("idx_k", "idx_k_pages")):
+        for i in range(dense[src].shape[0]):
+            st[dst][i][perm] = dense[src][i].reshape(
+                (b * mp, PAGED_MESH_PAGE) + dense[src].shape[3:])
+    for key in ("length", "prev_topk", "topk_valid", "sel_gvr"):
+        st[key] = dense[key].clone()
+    return st
+
+
+def _shard_paged(model, full, mesh, rules):
+    from repro_torch import bridge
+    b, n = full["length"].shape[0], full["page_table"].shape[1] * PAGED_MESH_PAGE
+    return bridge.shard_tree(full, model.paged_state_specs(
+        rules, batch=b, max_len=n, num_pages=full["k_pages"].shape[1] - 1,
+        page_size=PAGED_MESH_PAGE), mesh)
+
+
+def _verify_ticks(model, params, st, vk, seq, mesh, rules, entry):
+    """PAGED_MESH_VERIFY's ticks of `vk`, every row drafting `depth`
+    tokens: position j of row r is fed seq[s_r + j, r] (the dense ticks'
+    inputs, s_r the steps the row has emitted), so each live position
+    stands for dense tick s_r + j. Per tick: s, the rank's rows' logits,
+    accept lengths and out tokens, the rolled-back Top-K, host wall, bill."""
+    import torch
+    b = seq.shape[1]
+    depth = PAGED_MESH_VERIFY["depth"]
+    dl = torch.full((b,), depth, dtype=torch.int32, device=model.device)
+    s = torch.zeros(b, dtype=torch.long)
+    recs = []
+    for _ in range(PAGED_MESH_VERIFY["ticks"]):
+        idx = s[:, None] + torch.arange(depth + 1)
+        inputs = seq.gather(0, idx.T).T.contiguous().to(model.device)
+        mesh.reset_bill()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, a, logits, _, st = model.serve_step_spec_paged(
+            params, st, inputs, draft_len=dl, max_accept=dl,
+            verify_kernel=vk, mesh=mesh, rules=rules)
+        torch.cuda.synchronize()
+        rec = {"wall_ms": (time.perf_counter() - t0) * 1e3, "s": s.clone(),
+               "bill": mesh.bill(), "logits": logits.float().cpu(),
+               "accept": a.cpu(), "out": out.cpu(),
+               "prev_topk": st["prev_topk"].cpu()}
+        if entry is not None:
+            a = mesh.axis(entry).all_gather(a, dim=0, tiled=True)
+        s = s + a.cpu().long() + 1
+        recs.append(rec)
+    return recs
+
+
+def _verify_vs_dense(recs, dense, rows):
+    """(bit-equal, max |logit difference|): every live position's logits
+    against the dense tick it stands for, and the rolled-back Top-K
+    against the dense tick at the accepted step, row by row."""
+    import torch
+    same, worst = True, 0.0
+    for rec in recs:
+        for i, row in enumerate(range(rows.start, rows.stop)):
+            s = int(rec["s"][row])
+            for j in range(rec["logits"].shape[1]):
+                want = dense[s + j]["logits"][i]
+                worst = max(worst, float((rec["logits"][i, j] - want).abs().max()))
+                same &= torch.equal(rec["logits"][i, j], want)
+            a = int(rec["accept"][i])
+            same &= torch.equal(rec["prev_topk"][:, i],
+                                dense[s + a]["prev_topk"][:, i])
+    return same, worst
+
+
+def _ticks_vs_dense(got, want):
+    """(bit-equal, max |logit difference|) of ticks against dense ticks:
+    logits, Top-K and next tokens."""
+    import torch
+    same, worst = True, 0.0
+    for g, w in zip(got, want):
+        worst = max(worst, float((g["logits"] - w["logits"]).abs().max()))
+        same &= (torch.equal(g["logits"], w["logits"])
+                 and torch.equal(g["prev_topk"], w["prev_topk"])
+                 and torch.equal(g["tokens"], w["tokens"]))
+    return same, worst
+
+
+def _paged_kernels_vs_plain(seen):
+    """Each paged kernel on the first inputs the rank gave it, against its
+    plain version: scoring rows (B2, B9) with equal NEG masks within 1e-4
+    of their scale, attention (B3, B4, B8, B10) allclose at atol = rtol =
+    1e-4 as in [kernels], B7 exact."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    plain = {"B2": ref.paged_indexer_scores_ref,
+             "B3": ref.paged_sparse_attn_ref, "B4": ref.paged_dense_attn_ref,
+             "B7": ref.paged_gather_ref, "B8": ref.paged_sparse_attn_mq_ref,
+             "B9": ref.paged_indexer_scores_mq_ref,
+             "B10": ref.paged_sparse_attn_pg_ref}
+    res = {}
+    for short, name in PAGED_MESH_KERNELS.items():
+        if name not in seen:
+            continue
+        args, kw = seen[name]
+        if "scale" in kw and kw["scale"] is None:
+            kw = dict(kw, scale=args[0].shape[-1] ** -0.5)
+        got, want = getattr(ops, name)(*args, **kw), plain[short](*args, **kw)
+        if short in ("B2", "B9"):
+            live = want > -1e38
+            err = float((got - want)[live].abs().max()) if live.any() else 0.0
+            ok = (torch.equal(live, got > -1e38) and err <= 1e-4 * float(
+                want[live].abs().max() if live.any() else 0.0))
+            short += " scoring"
+        elif short == "B7":
+            err, ok = 0.0 if torch.equal(got, want) else float("inf"), torch.equal(got, want)
+        else:
+            err = float((got - want).abs().max())
+            ok = torch.allclose(got, want, atol=1e-4, rtol=1e-4)
+        res[short] = {"err": err, "ok": bool(ok), "shape": list(args[0].shape)}
+    return res
+
+
+def paged_mesh_cells(model, params, mesh, rules, phase, feed, dense):
+    """The paged forms of `phase` on this rank (see above). `dense` are
+    the rank's dense mesh ticks, `feed` their inputs after tick 0.
+    Returns per form the equality with the dense ticks (or [layouts]'
+    numbers), host walls, the token form's bill, the launches of all the
+    forms and each paged kernel on its first inputs against its plain
+    version."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.kernels import ops
+    from repro_torch.models.tensor_parallel import Placement
+    spec, cells = MESH_PHASES[phase], PAGED_MESH[phase]
+    b = len(spec["lengths"])
+    rows = Placement(mesh, rules, b).rows
+    entry = rules.spec("batch", sizes=(b,))[0]
+    t0 = time.perf_counter()
+    full = paged_from_dense(model, mesh_state(model, spec["n"], spec["lengths"],
+                                              MESH_SEED), PAGED_MESH_SEED)
+    start = _shard_paged(model, full, mesh, rules)
+    del full
+    torch.cuda.synchronize()
+    out = {"setup_s": time.perf_counter() - t0}
+
+    def fresh():
+        return {k: v.clone() for k, v in start.items()}
+
+    def step(**kw):
+        return lambda st, tok: model.serve_step_paged(
+            params, st, tok, mesh=mesh, rules=rules, **kw)
+
+    ops.reset_launch_counts()
+    seen, restore = _capture(ops, list(PAGED_MESH_KERNELS.values()))
+    t1 = time.perf_counter()
+    try:
+        ticks, _ = _mesh_ticks(model, params, fresh(), cells["token"],
+                               feed=feed, mesh=mesh, rules=rules, step=step())
+        same, diff = _ticks_vs_dense(ticks, dense)
+        out["token"] = {"equal": same, "diff": diff, "bill": ticks[-1]["bill"],
+                        "wall_ms": [t["wall_ms"] for t in ticks]}
+        if cells["gather"]:
+            ticks, _ = _mesh_ticks(model, params, fresh(), cells["gather"],
+                                   feed=feed, mesh=mesh, rules=rules,
+                                   step=step(paged_attn="gather"))
+            same, diff = _ticks_vs_dense(ticks, dense)
+            out["gather"] = {"equal": same, "diff": diff}
+        if cells["page"]:
+            ticks, _ = _mesh_ticks(model, params, fresh(), cells["page"],
+                                   feed=feed, mesh=mesh, rules=rules,
+                                   step=step(gather_granularity="page"))
+            out["page"] = {
+                "rel": [_rel(g["logits"], w["logits"]) for g, w in zip(ticks, dense)],
+                "argmax": [float((g["logits"].argmax(-1) == w["logits"].argmax(-1))
+                                 .float().mean()) for g, w in zip(ticks, dense)],
+                "agree": [_topk_agreement(g["prev_topk"], w["prev_topk"])
+                          for g, w in zip(ticks, dense)]}
+        seq = torch.stack([torch.arange(1, b + 1, dtype=torch.int32)]
+                          + [f.cpu() for f in feed[1:]])
+        for vk in cells["verify"]:
+            recs = _verify_ticks(model, params, fresh(), vk, seq, mesh, rules,
+                                 entry)
+            same, diff = _verify_vs_dense(recs, dense, rows)
+            out[vk] = {"equal": same, "diff": diff, "recs": recs}
+        del start
+        if cells["fallback"]:
+            fb = PAGED_MESH_FALLBACK
+            full = mesh_state(model, fb["n"], fb["lengths"], MESH_SEED + 3)
+            paged = _shard_paged(model, paged_from_dense(model, full,
+                                                         PAGED_MESH_SEED + 1),
+                                 mesh, rules)
+            st = bridge.shard_tree(full, model.state_specs(
+                rules, batch=b, max_len=fb["n"]), mesh)
+            del full
+            want, _ = _mesh_ticks(model, params, st, cells["fallback"],
+                                  mesh=mesh, rules=rules)
+            got, _ = _mesh_ticks(model, params, paged, cells["fallback"],
+                                 feed=[None] + [w["tokens"] for w in want],
+                                 mesh=mesh, rules=rules, step=step())
+            out["fallback"] = {
+                "rel": [_rel(g["logits"], w["logits"]) for g, w in zip(got, want)],
+                "argmax": [float((g["logits"].argmax(-1) == w["logits"].argmax(-1))
+                                 .float().mean()) for g, w in zip(got, want)]}
+            del st, paged
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    out["cells_s"] = time.perf_counter() - t1
+    out["counts"] = ops.launch_counts()
+    out["kernels"] = _paged_kernels_vs_plain(seen)
+    return out
 
 
 # ---------------------- training and the other families on the mesh ------
@@ -4556,6 +4817,12 @@ def mesh_child(argv) -> int:
     if phase == "ep":
         res["overflow"] = _ep_overflow(model, params, mesh, rules, torch.Generator(
             device=mesh.device).manual_seed(MESH_SEED))
+    if phase in PAGED_MESH:
+        del st
+        torch.cuda.empty_cache()
+        res["paged"] = paged_mesh_cells(model, params, mesh, rules, phase,
+                                        feed, res["ticks"])
+        st = None
     extra = time.perf_counter()
     if phase == "hybrid-sp":
         del st
@@ -4745,6 +5012,88 @@ def _check_train(tag, spec, ref, ranks):
             f"(deterministic algorithms)")
 
 
+def _check_paged_mesh(tag, phase, ranks):
+    """The paged cells' verdicts on every rank (`paged_mesh_cells`): fail
+    unless fused/token, gather and every live verify position equal the
+    rank's dense mesh ticks bit for bit, mq == scan where both ran, page
+    granularity and the fallback within [layouts]' rule, every paged
+    kernel of the phase's forms launched on every rank and each equal to
+    its plain version. Logs them; returns the launches over the ranks."""
+    import torch
+    cells = PAGED_MESH[phase]
+    need = ["B2", "B3", "B8", "B9"] + (["B10"] if cells["page"] else []) + (
+        ["B7"] if cells["gather"] else []) + (["B4"] if cells["fallback"] else [])
+    for r, res in enumerate(ranks):
+        p = res["paged"]
+        for form in ("token", "gather") + tuple(cells["verify"]):
+            if form in p and not p[form]["equal"]:
+                fail(f"{tag} rank {r}: the paged {form} ticks differ from the "
+                     f"rank's dense mesh ticks (max |logit difference| "
+                     f"{p[form]['diff']})")
+        if "scan" in p and "mq" in p:
+            for a, c in zip(p["scan"]["recs"], p["mq"]["recs"]):
+                if not all(torch.equal(a[k], c[k]) for k in (
+                        "logits", "accept", "out", "prev_topk")):
+                    fail(f"{tag} rank {r}: mq differs from scan")
+        for form in ("page", "fallback"):
+            if form not in p:
+                continue
+            if max(p[form]["rel"]) > 5e-2:
+                fail(f"{tag} rank {r}: paged {form} logits rel L2 "
+                     f"{p[form]['rel']} > 5e-2 against the dense mesh ticks")
+            if form == "page" and any(a[0] != 1.0 or min(a) < 0.99
+                                      for a in p[form]["agree"]):
+                fail(f"{tag} rank {r}: page-granular Top-K agreement "
+                     f"{p[form]['agree']}")
+        bad = {k: v for k, v in p["kernels"].items() if not v["ok"]}
+        if bad:
+            fail(f"{tag} rank {r}: paged kernels against their plain versions: {bad}")
+        zero = [k for k in need if not p["counts"][PAGED_MESH_KERNELS[k]]]
+        if zero:
+            fail(f"{tag} rank {r}: no launch of {zero} on the paged forms")
+    p0 = ranks[0]["paged"]
+    verify = {vk: [rec["accept"].tolist() for rec in p0[vk]["recs"]]
+              for vk in cells["verify"]}
+    log(f"{tag} paged (page {PAGED_MESH_PAGE}, a shuffled table, the dense "
+        f"ticks' start cache; every rank): fused/token {cells['token']} ticks"
+        + (f", gather {cells['gather']}" if cells["gather"] else "")
+        + f" and {PAGED_MESH_VERIFY['ticks']} verify ticks of depth "
+        f"{PAGED_MESH_VERIFY['depth']} by {' and '.join(cells['verify'])} "
+        f"(every live position) equal the rank's own dense mesh ticks bit "
+        f"for bit (logits, Top-K, tokens)"
+        + (", mq == scan bit for bit" if len(cells["verify"]) == 2 else "")
+        + f"; rank 0's accept lengths by tick {verify}")
+    if cells["page"]:
+        log(f"{tag} paged page granularity (B10), {cells['page']} ticks, "
+            f"against the dense mesh ticks on rank 0: logits rel L2 "
+            f"{[f'{x:.3e}' for x in p0['page']['rel']]}, argmax agreement "
+            f"{p0['page']['argmax']}, per-layer Top-K agreement "
+            f"{p0['page']['agree']}; worst over the ranks "
+            f"{max(max(res['paged']['page']['rel']) for res in ranks):.3e}")
+    if cells["fallback"]:
+        fb = PAGED_MESH_FALLBACK
+        log(f"{tag} paged fallback (B4) at max_len {fb['n']} = dsa.min_n, "
+            f"lengths {fb['lengths']}, {cells['fallback']} ticks, against the "
+            f"dense mesh step there: logits rel L2 "
+            f"{[f'{x:.3e}' for x in p0['fallback']['rel']]} on rank 0 (worst "
+            f"{max(max(res['paged']['fallback']['rel']) for res in ranks):.3e}), "
+            f"argmax agreement {p0['fallback']['argmax']}")
+    counts = {k: sum(res["paged"]["counts"][k] for res in ranks)
+              for k in p0["counts"]}
+    per_rank = [{k: res["paged"]["counts"][PAGED_MESH_KERNELS[k]] for k in need}
+                for res in ranks]
+    walls = p0["token"]["wall_ms"][1:] or p0["token"]["wall_ms"]
+    log(f"{tag} paged launches per rank: {per_rank}; rank 0's first inputs "
+        f"against the plain versions: {p0['kernels']}; one fused/token tick's "
+        f"collectives on rank 0 (calls/bytes): {_bill_line(p0['token']['bill'])}"
+        f"; host wall a fused/token tick {np.median(walls):.3f} ms (dense "
+        f"mesh tick {np.median([t['wall_ms'] for t in ranks[0]['ticks'][1:]]):.3f}"
+        f"); a verify tick {[round(rec['wall_ms'], 3) for vk in cells['verify'] for rec in p0[vk]['recs']]} ms; "
+        f"setup {max(res['paged']['setup_s'] for res in ranks):.3f} s, cells "
+        f"{max(res['paged']['cells_s'] for res in ranks):.3f} s")
+    return counts
+
+
 def phase_mesh(phase):
     """[tp] / [ep] / [hybrid-sp]: the single-device step here, then the
     ranks; tokens equal every tick (or a near-tie), logits within the
@@ -4820,6 +5169,11 @@ def phase_mesh(phase):
     if "kernels" in r0:
         log(f"{tag} rank 0's first B5 scoring / B1 / B6 inputs against the "
             f"plain versions: {r0['kernels']}")
+    checks = dict(r0.get("kernels", {}))
+    if phase in PAGED_MESH:
+        paged = _check_paged_mesh(tag, phase, ranks)
+        counts = {k: counts[k] + paged[k] for k in counts}
+        checks.update(r0["paged"]["kernels"])
     if phase == "ep":
         from repro_torch.models import layers
         o = r0["overflow"]
@@ -4895,7 +5249,7 @@ def phase_mesh(phase):
         log(f"[phase] {phase} new cells: {extra_s:.3f} s (the one-device "
             f"references {ref_s:.3f} s, the ranks' own at most "
             f"{max(res['extra_s'] for res in ranks):.3f} s)")
-    return counts, r0.get("kernels", {}), family_counts
+    return counts, checks, family_counts
 
 
 def main() -> int:
@@ -5174,16 +5528,23 @@ def main() -> int:
                           (kernels[5], "sparse_decode_attn", "B6")):
         r["sp_launches"] = int(sp_counts[key])
         r["sp_max_abs_err"] = sp_kernels[short]["err"]
-    # launches on the mesh paths ([tp], [ep]: every rank, B5 -> B1 -> B6 at
-    # its rows and heads), and each against its plain version there
+    # launches on the mesh paths ([tp], [ep]: every rank, B5 -> B1 -> B6 in
+    # the dense ticks, the paged forms' B2/B3/B4/B7/B8/B9/B10 at its rows and
+    # heads), and each against its plain version there
+    mesh_keys = dict(PAGED_MESH_KERNELS, B1="gvr_topk", B5="indexer_scores",
+                     B6="sparse_decode_attn")
+    for r in kernels:
+        short = r["name"].split()[0]
+        for phase in ("tp", "ep"):
+            counts, checks, _ = mesh_counts[phase]
+            r[f"{phase}_launches"] = int(counts[mesh_keys[short]])
+            chk = checks.get(short, checks.get(short + " scoring"))
+            if chk is not None:
+                r[f"{phase}_max_abs_err"] = chk["err"]
+    # [family-mesh]: whisper's step on (2, 2), every rank
     for r, key, short in ((kernels[0], "gvr_topk", "B1"),
                           (kernels[4], "indexer_scores", "B5 scoring"),
                           (kernels[5], "sparse_decode_attn", "B6")):
-        for phase in ("tp", "ep"):
-            counts, checks, _ = mesh_counts[phase]
-            r[f"{phase}_launches"] = int(counts[key])
-            r[f"{phase}_max_abs_err"] = checks[short]["err"]
-        # [family-mesh]: whisper's step on (2, 2), every rank
         fam = mesh_counts["tp"][2]
         r["family_mesh_launches"] = int(fam[key])
         r["family_mesh_max_abs_err"] = fam["kernels"][short]["err"]

@@ -55,6 +55,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _mesh_kw(mesh, rules) -> Dict[str, Any]:
+    """A step's mesh keywords: none without a mesh, else the live mesh
+    (`require_live`) and its rules."""
+    if mesh is None:
+        return {}
+    require_live(mesh)
+    return {"mesh": mesh, "rules": rules}
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
@@ -93,6 +102,15 @@ class Model:
         """The spec of every leaf of `init_decode_state(batch, max_len)`."""
         return self.mod.state_specs(self.cfg, rules, batch=batch,
                                     max_len=max_len, seq_sharded=seq_sharded)
+
+    def paged_state_specs(self, rules, *, batch, max_len, num_pages,
+                          page_size):
+        """The spec of every leaf of `init_paged_decode_state(...)`: the
+        pools by KV head and global over the batch axes, the table and
+        `length` replicated, the feedback leaves by batch."""
+        return self._hook("paged_state_specs", "paged decode state")(
+            self.cfg, rules, batch=batch, max_len=max_len,
+            num_pages=num_pages, page_size=page_size)
 
     def input_specs(self, shape) -> Dict[str, ShapeDtype]:
         """The inputs of a shape cell (a `SHAPES` name, or a dict of the
@@ -196,33 +214,39 @@ class Model:
         gets the logits of its own batch rows. `seq_sharded` reaches the
         hybrid step alone, as in the reference's facade."""
         kw = {} if min_write_pos is None else {"min_write_pos": min_write_pos}
-        if mesh is not None:
-            require_live(mesh)
-            kw.update(mesh=mesh, rules=rules)
+        kw.update(_mesh_kw(mesh, rules))
         if self.cfg.family == "hybrid":
             kw["seq_sharded"] = seq_sharded
         return self.mod.serve_step(params, state, tokens, self.cfg, **kw)
 
     def serve_step_paged(self, params, state, tokens, *, min_write_pos=None,
-                         paged_attn="fused", gather_granularity="token"):
-        """One paged decode step (see transformer.serve_step_paged)."""
+                         paged_attn="fused", gather_granularity="token",
+                         mesh=None, rules=None):
+        """One paged decode step (see transformer.serve_step_paged). Under
+        a `mesh` and its `rules` each rank passes its blocks of the
+        parameters and of the paged state (`paged_state_specs`) and the
+        global tokens, and gets the logits of its own batch rows; only
+        the transformer family has paged forms, as in the reference."""
         return self._hook("serve_step_paged", "paged serve_step")(
             params, state, tokens, self.cfg, min_write_pos=min_write_pos,
-            paged_attn=paged_attn, gather_granularity=gather_granularity)
+            paged_attn=paged_attn, gather_granularity=gather_granularity,
+            **_mesh_kw(mesh, rules))
 
     def serve_step_spec_paged(self, params, state, tokens, *, draft_len,
                               max_accept, eos_id=-1, min_write_pos=None,
                               paged_attn="fused", verify_kernel="scan",
-                              gather_granularity="token"):
+                              gather_granularity="token", mesh=None,
+                              rules=None):
         """One speculative verify tick over the paged layout (see
-        transformer.serve_step_spec_paged)."""
+        transformer.serve_step_spec_paged); under a `mesh`, as
+        `serve_step_paged`."""
         return self._hook("serve_step_spec_paged",
                           "speculative paged serve_step")(
             params, state, tokens, self.cfg, draft_len=draft_len,
             max_accept=max_accept, eos_id=eos_id,
             min_write_pos=min_write_pos, paged_attn=paged_attn,
             verify_kernel=verify_kernel,
-            gather_granularity=gather_granularity)
+            gather_granularity=gather_granularity, **_mesh_kw(mesh, rules))
 
 
     # ---- sequence-sharded paged decode (the SP-GVR serving path) --------

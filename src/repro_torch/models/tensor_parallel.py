@@ -29,6 +29,15 @@ A float `psum` is the rank-order sum of the gathered partials
 (`sharding.SeqGroup`), so the ranks of an axis hold the same bits and
 select the same Top-K.
 
+The paged forms keep the page pools global: K/V pools by KV head as the
+dense cache (replicated over the batch axes, since a shared-prefix page
+may be read by slots on any data rank), the indexer-K pool, the block
+table and `length` replicated. So each rank computes its own rows' new
+K/V (at its KV heads) and indexer-K, all-gathers them over the batch
+axes (`batch_gather`, one call a layer) and scatters every row, and
+every replica of a pool stays the pool of one device. Selection and
+attention then run on the rank's rows through their block-table rows.
+
 With no mesh a `Placement()` is the identity: every spec entry is None
 (`NO_MESH`), every product the plain one, so the one-device step runs
 the same lines.
@@ -116,6 +125,19 @@ class Placement:
                  else self.batch_axes)
         for a in reversed(names):
             t = self.mesh.axis(a).psum(t, tag)
+        return t
+
+    def batch_gather(self, t: torch.Tensor, tag: str) -> torch.Tensor:
+        """The rows of every rank of the batch axes, t (B_l, ...) being
+        this rank's: all-gathered along dim 0 axis by axis, the last
+        first, so the rows come out in global order; t itself where the
+        rows are not sharded."""
+        if self.mesh is None or self.batch_axes is None:
+            return t
+        names = ((self.batch_axes,) if isinstance(self.batch_axes, str)
+                 else self.batch_axes)
+        for a in reversed(names):
+            t = self.mesh.axis(a).all_gather(t, dim=0, tiled=True, tag=tag)
         return t
 
     def enter(self, x: torch.Tensor, entry, tag: str = "enter") -> torch.Tensor:

@@ -39,6 +39,15 @@ exceeds `dsa.min_n`, else dense attention over the whole extent.
   (`tensor_parallel`): the rank's heads, `d_ff` or experts
   (`layers.moe_mlp_ep`) and vocab over "model", its batch rows over
   "data"; B5/B1/B6 on its rows and heads.
+* `serve_step_paged` / `serve_step_spec_paged(..., mesh=, rules=)` — the
+  paged forms on one rank of that mesh, placed by `paged_state_specs`:
+  the pools by KV head and global over the batch axes, so each layer
+  all-gathers the rows' new K/V/indexer-K over the batch axes and every
+  rank writes every row (`_write_rows`); selection and attention on the
+  rank's rows through their table rows and at its heads (B2/B1/B3, B10,
+  B7 then B5/B1/B6, B4; B9/B8 in the mq verify body). The verify tick
+  accepts on the rank's rows and gathers the accept lengths for the
+  global `length`.
 
 Caches and pools are updated IN PLACE — copying a multi-GB cache per tick
 is what JAX's functional update costs and what this port avoids; a row
@@ -78,6 +87,9 @@ from .layers import (apply_rotary, blockwise_causal_attention, cross_entropy,
                      decode_attention, decode_attention_paged, moe_mlp_ep,
                      remat_call, rms_norm, swiglu_mlp)
 from .tensor_parallel import NO_MESH, Heads, Placement, axis_of, heads_of
+
+# the per-slot GVR feedback leaves: under a mesh, the rank's batch rows
+_FEEDBACK = ("prev_topk", "topk_valid", "sel_gvr")
 
 # min_write_pos sentinel larger than any position: the row never writes.
 # Rows whose write is masked (inactive slots, shared-prefix replay over
@@ -477,6 +489,30 @@ def paged_state_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
     return axes
 
 
+def paged_state_specs(cfg: ModelConfig, rules: MeshRules, *, batch: int,
+                      max_len: int, num_pages: int,
+                      page_size: int) -> Dict[str, Any]:
+    """The specs of `init_paged_decode_state`'s leaves under `rules`, the
+    placement XLA gives the reference's paged state: the K/V pools by KV
+    head over the dense cache's entry (`state_specs(...)["k"][3]`) and
+    replicated over the batch axes (pools are global: a shared-prefix
+    page may be read by slots on any data rank); the indexer-K pool, the
+    block table and `length` replicated; the feedback leaves by batch,
+    as `state_specs` has them."""
+    dense = state_specs(cfg, rules, batch=batch, max_len=max_len)
+    specs = {
+        "k_pages": P(None, None, None, dense["k"][3], None),
+        "v_pages": P(None, None, None, dense["v"][3], None),
+        "page_table": P(None, None),
+        "length": P(None),
+    }
+    if cfg.dsa.enabled:
+        specs["idx_k_pages"] = P(None, None, None, None)
+        for key in ("prev_topk", "topk_valid", "sel_gvr"):
+            specs[key] = dense[key]
+    return specs
+
+
 def reset_slot_state(cfg: ModelConfig, state: Dict[str, torch.Tensor], slot,
                      seq_len_hint: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Slot admission: zero the slot's length and re-seed its GVR feedback
@@ -734,10 +770,44 @@ def check_paged_options(paged_attn: str, gather_granularity: str) -> None:
                          f"(expected 'token' or 'page')")
 
 
+def _paged_dest(table: torch.Tensor, positions: torch.Tensor,
+                writable: torch.Tensor, page_size: int, sink: int):
+    """(page, offset) each row's token at `positions` (B,) or (B, Q)
+    writes: its mapped page where `writable` allows the write, else the
+    sink page."""
+    mp = table.shape[1]
+    lp = (positions // page_size).long()
+    phys = table.gather(1, lp.clamp(0, mp - 1).reshape(table.shape[0], -1))
+    phys = phys.reshape(positions.shape)
+    writable = writable & (phys >= 0) & (lp < mp)
+    dest = torch.where(writable, phys, torch.full_like(phys, sink)).long()
+    return dest, (positions % page_size).long()
+
+
+def _write_rows(lay: _Layout, dest, off, writes) -> None:
+    """Scatter new rows into the pools in place: `writes` pairs a pool
+    (P+1, ps, ...) with the rank's rows (B_l, ...) of what it takes at
+    (`dest`, `off`), both of the global batch. Under a mesh whose batch
+    rows are sharded the pools are replicated over the batch axes, so
+    the rows are all-gathered there first (one call, billed
+    "paged_write") and every rank scatters every row."""
+    news = [new.to(pool.dtype) for pool, new in writes]
+    if lay.pl.mesh is not None and lay.pl.batch_axes is not None:
+        b = news[0].shape[0]
+        flat = lay.pl.batch_gather(
+            torch.cat([x.reshape(b, -1) for x in news], 1), "paged_write")
+        sizes = [x[0].numel() for x in news]
+        news = [part.reshape((flat.shape[0],) + x.shape[1:]) for part, x
+                in zip(flat.split(sizes, 1), news)]
+    for (pool, _), new in zip(writes, news):
+        pool[dest, off] = new
+
+
 def serve_step_paged(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
                      min_write_pos: Optional[torch.Tensor] = None,
                      paged_attn: str = "fused",
-                     gather_granularity: str = "token"):
+                     gather_granularity: str = "token", mesh=None,
+                     rules: Optional[MeshRules] = None):
     """One paged decode step. tokens: (B,) int. Returns (logits (B, V) f32,
     new_state).
 
@@ -757,36 +827,44 @@ def serve_step_paged(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
     fused sparse gather's shape: "token" reads one row per Top-K entry
     (B3), "page" each distinct touched page whole (B10; on the card it sums
     in page order, so it agrees with "token" to rounding).
+
+    Under a `mesh` and its `rules` the step runs on one rank, its state
+    placed by `paged_state_specs` (`bridge.shard_tree`): tokens, `length`,
+    the block table and `min_write_pos` are global, the logits and the
+    feedback leaves the rank's rows. Each rank projects its rows at its
+    heads (as `serve_step`'s mesh form), all-gathers the new K/V and
+    indexer-K rows over the batch axes and writes every row into its
+    pools (`_write_rows`), then selects and attends on its rows through
+    their block-table rows at its heads: B2 -> B1 -> B3 (B10 at page
+    granularity), B7 then B5 -> B1 -> B6 for "gather", B4 below the DSA
+    gate.
     """
     check_paged_options(paged_attn, gather_granularity)
-    positions = state["length"]
-    new_len = positions + 1
     table = state["page_table"]
     page_size = state["k_pages"].shape[2]
     sink = state["k_pages"].shape[1] - 1
-    mp = table.shape[1]
-    n = mp * page_size
-
-    lp = (positions // page_size).long()
-    off = (positions % page_size).long()
-    phys = table.gather(1, lp.clamp(0, mp - 1)[:, None])[:, 0]
-    writable = (phys >= 0) & (lp < mp)
+    n = table.shape[1] * page_size
+    lay = _layout(cfg, mesh, rules, batch=tokens.shape[0], max_len=n)
+    rows = lay.pl.rows
+    writable = torch.ones_like(state["length"], dtype=torch.bool)
     if min_write_pos is not None:
-        writable &= positions >= min_write_pos
-    dest = torch.where(writable, phys, torch.full_like(phys, sink)).long()
+        writable = state["length"] >= min_write_pos
+    dest, off = _paged_dest(table, state["length"], writable, page_size, sink)
+    positions = state["length"][rows]
+    new_len = positions + 1
+    table = table[rows]
     use_dsa = cfg.dsa.enabled and n > cfg.dsa.min_n
 
     def attend(i, p, h, q, kn, vn):
         kp, vp = state["k_pages"][i], state["v_pages"][i]
-        kp[dest, off] = kn.to(kp.dtype)
-        vp[dest, off] = vn.to(vp.dtype)
+        writes = [(kp, kn), (vp, vn)]
         idx_kp = None
         if use_dsa:
             idx_kp = state["idx_k_pages"][i]
-            ik = dsa_mod.indexer_k(p["indexer"], h, positions,
-                                   dim=cfg.dsa.indexer_dim,
-                                   rope_base=cfg.rope_base)
-            idx_kp[dest, off] = ik.to(idx_kp.dtype)
+            writes.append((idx_kp, dsa_mod.indexer_k(
+                p["indexer"], h, positions, dim=cfg.dsa.indexer_dim,
+                rope_base=cfg.rope_base)))
+        _write_rows(lay, dest, off, writes)
         if paged_attn == "gather":
             kc, vc = ops.paged_gather(kp, table), ops.paged_gather(vp, table)
             idx_kc = ops.paged_gather(idx_kp, table) if use_dsa else None
@@ -803,7 +881,7 @@ def serve_step_paged(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
                                       scale=cfg.hd ** -0.5,
                                       window=cfg.swa_window), None
 
-    return _decode_layers(params, state, tokens, cfg, attend)
+    return _decode_layers(params, state, tokens, cfg, attend, lay)
 
 
 # --------------------------------------------------------------------------
@@ -824,19 +902,22 @@ def serve_step_paged(params, state, tokens: torch.Tensor, cfg: ModelConfig, *,
 def _spec_verify_scan(step_fn: Callable, state, tokens: torch.Tensor,
                       draft_len: torch.Tensor, max_accept: torch.Tensor,
                       eos_id: int, base_mwp: torch.Tensor,
-                      axes: Dict[str, int], dsa_enabled: bool):
+                      axes: Dict[str, int], dsa_enabled: bool,
+                      pl: Optional[Placement] = None):
     """The scan verify body: d+1 single-token paged steps, one per
     position. step_fn(state, tok (B,), mwp (B,)) -> (logits (B, V),
     new_state). tokens (B, D+1): column 0 is the last emitted token,
     columns 1..D the draft; a row verifies positions 0..draft_len, and a
     frozen position (j > draft_len) keeps the row's state and writes the
     sink page. The pools are written in place and never merged: only the
-    per-slot leaves of `axes` take the frozen rows' old values. Returns
-    `_spec_accept_rollback`'s 5-tuple."""
+    per-slot leaves of `axes` take the frozen rows' old values. Under a
+    mesh (`pl`) the feedback leaves and the logits are the rank's rows,
+    everything else global. Returns `_spec_accept_rollback`'s 5-tuple."""
+    pl = pl or Placement()
     d1 = tokens.shape[1]
     length0 = state["length"]
     never = torch.full_like(base_mwp, PAGED_NEVER_WRITE)
-    keys = ("prev_topk", "topk_valid", "sel_gvr") if dsa_enabled else ()
+    keys = _FEEDBACK if dsa_enabled else ()
     ys = {"logits": [], **{k: [] for k in keys}}
     st = state
     for j in range(d1):
@@ -851,7 +932,8 @@ def _spec_verify_scan(step_fn: Callable, state, tokens: torch.Tensor,
                 continue
             shape = [1] * arr.dim()
             shape[ax] = arr.shape[ax]
-            merged[key] = torch.where(live.reshape(shape), arr, st[key])
+            rows = live[pl.rows] if key in _FEEDBACK else live
+            merged[key] = torch.where(rows.reshape(shape), arr, st[key])
         ys["logits"].append(logits)
         for key in keys:
             # raw per-position entries: entry j is only read for rows whose
@@ -860,13 +942,13 @@ def _spec_verify_scan(step_fn: Callable, state, tokens: torch.Tensor,
         st = merged
     ys = {key: torch.stack(v) for key, v in ys.items()}
     return _spec_accept_rollback(length0, st, ys, tokens, draft_len,
-                                 max_accept, eos_id, dsa_enabled)
+                                 max_accept, eos_id, dsa_enabled, pl)
 
 
 def _spec_accept_rollback(length0: torch.Tensor, end_state, ys,
                           tokens: torch.Tensor, draft_len: torch.Tensor,
                           max_accept: torch.Tensor, eos_id: int,
-                          dsa_enabled: bool):
+                          dsa_enabled: bool, pl: Optional[Placement] = None):
     """Greedy acceptance and exact rollback from the per-position stacks,
     shared by both verify bodies: ys["logits"] (D+1, B, V) and, with DSA
     state, "prev_topk" (D+1, L, B, K), "topk_valid" / "sel_gvr" (D+1, L, B).
@@ -874,10 +956,17 @@ def _spec_accept_rollback(length0: torch.Tensor, end_state, ys,
     draft_len and every earlier draft was accepted; acceptance is capped by
     `max_accept` and stops at (and includes) the first eos argmax.
 
+    Under a mesh (`pl`) the stacks hold the rank's rows and so do the
+    outputs; the accept lengths are all-gathered over the batch axes
+    (billed "accept") for the global `length`.
+
     Returns (out_tokens (B, D+1) int32 — position j's argmax, accept_len
     (B,) int32, logits (B, D+1, V) f32, sel_gvr_pos (B, D+1) bool — layer
     0's GVR path per position, new_state with length L0 + a + 1 and the
     feedback leaves of position a)."""
+    pl = pl or Placement()
+    tokens, draft_len = tokens[pl.rows], draft_len[pl.rows]
+    max_accept = max_accept[pl.rows]
     b, d1 = tokens.shape
     dev = tokens.device
     logits_all = ys["logits"]
@@ -895,7 +984,7 @@ def _spec_accept_rollback(length0: torch.Tensor, end_state, ys,
     a = torch.where(is_eos.any(0), torch.minimum(a, first_eos), a)
 
     new_state = dict(end_state)
-    new_state["length"] = length0 + a + 1
+    new_state["length"] = length0 + pl.batch_gather(a, "accept") + 1
     if dsa_enabled:
         al = a.long()
         pt = ys["prev_topk"]
@@ -913,7 +1002,7 @@ def _spec_accept_rollback(length0: torch.Tensor, end_state, ys,
 
 def _paged_verify_mq(params, state, tokens: torch.Tensor, cfg: ModelConfig,
                      *, draft_len: torch.Tensor, base_mwp: torch.Tensor,
-                     paged_attn: str, gather_granularity: str):
+                     paged_attn: str, gather_granularity: str, lay: _Layout):
     """The mq verify body: one forward of all (B, d+1) positions. Per
     layer every position's K/V/indexer-K rows are written first (position
     j at L0 + j; frozen and masked rows to the sink page), then selection
@@ -928,56 +1017,59 @@ def _paged_verify_mq(params, state, tokens: torch.Tensor, cfg: ModelConfig,
     over the folded rows (B4 with the table repeated, or the plain
     attention over the repeated views).
 
+    Under a mesh (`lay`) the body runs on the rank's rows and heads as
+    the mesh paged step does: the embedding, projections, `wo`, the
+    feed-forward and the head through the placement, every position's new
+    rows gathered over the batch axes before the write (`_write_rows`).
+
     Position j's consumers all mask beyond its own extent L0 + j + 1, so
     the rows later positions have already written are invisible to it, and
     each position computes what the scan computes. Frozen positions compute
     garbage whose stack entries are never selected. Returns (ys, state) in
     the scan's stack format, for `_spec_accept_rollback`."""
-    b, d1 = tokens.shape
-    hd = cfg.hd
-    length0 = state["length"]
+    d1 = tokens.shape[1]
+    hd, hl, kvl = cfg.hd, lay.heads.hl, lay.heads.kvl
+    rows = lay.pl.rows
     table = state["page_table"]
     page_size = state["k_pages"].shape[2]
     sink = state["k_pages"].shape[1] - 1
-    mp = table.shape[1]
-    n = mp * page_size
+    n = table.shape[1] * page_size
     use_dsa = cfg.dsa.enabled and n > cfg.dsa.min_n
     fused = paged_attn == "fused"
     dev = tokens.device
 
     jj = torch.arange(d1, dtype=torch.int32, device=dev)
-    positions = length0[:, None] + jj[None, :]             # (B, Q)
+    positions = state["length"][:, None] + jj[None, :]     # (B, Q) global
+    live = ((jj[None, :] <= draft_len[:, None])
+            & (positions >= base_mwp[:, None]))
+    dest, off = _paged_dest(table, positions, live, page_size, sink)
+    positions, table = positions[rows], table[rows]        # the rank's rows
+    b = positions.shape[0]
     lengths_q = positions + 1                              # causal extents
-    live = jj[None, :] <= draft_len[:, None]
     flat_pos = positions.reshape(b * d1)
-    lp = (positions // page_size).long()
-    off = (positions % page_size).long()
-    phys = table.gather(1, lp.clamp(0, mp - 1))
-    writable = (live & (phys >= 0) & (lp < mp)
-                & (positions >= base_mwp[:, None]))
-    dest = torch.where(writable, phys, torch.full_like(phys, sink)).long()
 
     def repeat(x):
         return x.repeat_interleave(d1, dim=0)
 
-    x = params["embed"][tokens.long()]                     # (B, Q, D)
+    x = lay.pl.embed(params["embed"], lay.embed, tokens[rows])  # (B, Q, D)
     sel_idx, sel_gvr = [], []
     for i in range(cfg.n_layers):
         p = layer_params(params["layers"], i)
         kp, vp = state["k_pages"][i], state["v_pages"][i]
         h = rms_norm(x, p["ln1"])
         hf = h.reshape(b * d1, -1)
-        q, kn, vn = _project_qkv(p, hf, b * d1, flat_pos, cfg)
-        q = q.reshape(b, d1, cfg.n_heads, hd)
+        q, kn, vn = _project_qkv(p, hf, b * d1, flat_pos, cfg, lay)
+        q = q.reshape(b, d1, hl, hd)
         # every position writes before anything attends (see docstring)
-        kp[dest, off] = kn.reshape(b, d1, cfg.n_kv_heads, hd).to(kp.dtype)
-        vp[dest, off] = vn.reshape(b, d1, cfg.n_kv_heads, hd).to(vp.dtype)
+        writes = [(kp, kn.reshape(b, d1, kvl, hd)),
+                  (vp, vn.reshape(b, d1, kvl, hd))]
         if use_dsa:
             idx_kp = state["idx_k_pages"][i]
-            ik = dsa_mod.indexer_k(p["indexer"], hf, flat_pos,
-                                   dim=cfg.dsa.indexer_dim,
-                                   rope_base=cfg.rope_base)
-            idx_kp[dest, off] = ik.reshape(b, d1, -1).to(idx_kp.dtype)
+            writes.append((idx_kp, dsa_mod.indexer_k(
+                p["indexer"], hf, flat_pos, dim=cfg.dsa.indexer_dim,
+                rope_base=cfg.rope_base).reshape(b, d1, -1)))
+        _write_rows(lay, dest, off, writes)
+        if use_dsa:
             kw = _dsa_kw(cfg, state, i)
             kw.pop("scale")
             prev = state["prev_topk"][i]
@@ -991,26 +1083,26 @@ def _paged_verify_mq(params, state, tokens: torch.Tensor, cfg: ModelConfig,
             else:
                 idx_kc = ops.paged_gather(idx_kp, table)
                 valid = kw.pop("prev_valid")
-                rows, gvrs = [], []
+                sels, gvrs = [], []
                 for j in range(d1):
                     sel = dsa_mod.dsa_select(p["indexer"], h[:, j], idx_kc,
                                              prev, lengths_q[:, j],
                                              prev_valid=valid, **kw)
-                    rows.append(sel.indices)
+                    sels.append(sel.indices)
                     gvrs.append(sel.gvr_rows)
                     prev = sel.indices
                     valid = None if valid is None else torch.ones_like(valid)
-                idx_q, gvr_q = torch.stack(rows, 1), torch.stack(gvrs, 1)
+                idx_q, gvr_q = torch.stack(sels, 1), torch.stack(gvrs, 1)
                 kc = repeat(ops.paged_gather(kp, table))
                 vc = repeat(ops.paged_gather(vp, table))
                 attn = dsa_mod.dsa_sparse_attention(
-                    q.reshape(b * d1, cfg.n_heads, hd), kc, vc,
+                    q.reshape(b * d1, hl, hd), kc, vc,
                     idx_q.reshape(b * d1, -1), lengths_q.reshape(b * d1),
                     scale=hd ** -0.5)
             sel_idx.append(idx_q.int())                    # (B, Q, K)
             sel_gvr.append(gvr_q)                          # (B, Q)
         else:
-            qf = q.reshape(b * d1, cfg.n_heads, hd)
+            qf = q.reshape(b * d1, hl, hd)
             lf = lengths_q.reshape(b * d1)
             if fused:
                 attn = decode_attention_paged(qf, kp, vp,
@@ -1022,16 +1114,18 @@ def _paged_verify_mq(params, state, tokens: torch.Tensor, cfg: ModelConfig,
                                         repeat(ops.paged_gather(vp, table)),
                                         lf, scale=hd ** -0.5,
                                         window=cfg.swa_window)
-        attn = attn.reshape(b, d1, cfg.n_heads * hd).to(x.dtype)
-        x = x + attn @ p["wo"]
+        attn = attn.reshape(b, d1, hl * hd).to(x.dtype)
+        x = x + lay.pl.rows_in(attn, p["wo"], lay.layer["wo"][0],
+                               local=lay.heads.axis is not None, tag="wo")
         h2 = rms_norm(x, p["ln2"])
         if cfg.moe.num_experts:
             # one call per position, as the scan makes it (see the header)
-            x = x + torch.stack([_mlp(p, h2[:, j], cfg) for j in range(d1)], 1)
+            x = x + torch.stack([_mlp(p, h2[:, j], cfg, lay)
+                                 for j in range(d1)], 1)
         else:
-            x = x + swiglu_mlp(h2, p["w_gate"], p["w_up"], p["w_down"])
+            x = x + _mlp(p, h2, cfg, lay)
 
-    logits = _lm_head(params, x, cfg)                      # (B, Q, V)
+    logits = _lm_head(params, x, cfg, lay)                 # (B, Q, V)
     ys = {"logits": logits.transpose(0, 1)}                # (Q, B, V)
     if cfg.dsa.enabled:
         if sel_idx:
@@ -1057,7 +1151,8 @@ def serve_step_spec_paged(params, state, tokens: torch.Tensor,
                           min_write_pos: Optional[torch.Tensor] = None,
                           paged_attn: str = "fused",
                           verify_kernel: str = "scan",
-                          gather_granularity: str = "token"):
+                          gather_granularity: str = "token", mesh=None,
+                          rules: Optional[MeshRules] = None):
     """Speculative verify tick over the paged layout: score all d+1 draft
     positions, accept the longest greedy-matching prefix and roll the
     per-slot state back to it on the device. tokens (B, D+1) int; draft_len
@@ -1069,6 +1164,11 @@ def serve_step_spec_paged(params, state, tokens: torch.Tensor,
     arithmetic: "scan" — d+1 `serve_step_paged` calls, each position
     exactly the non-speculative step; "mq" — one forward of the (B, d+1)
     rows (`_paged_verify_mq`). The pools are written in place.
+
+    Under a `mesh` and its `rules` the tick runs on one rank as
+    `serve_step_paged` does (its state placed by `paged_state_specs`):
+    tokens, draft_len, max_accept and min_write_pos are global, the
+    outputs but the state the rank's rows, and the new `length` global.
 
     Returns (out_tokens (B, D+1), accept_len (B,), logits (B, D+1, V),
     sel_gvr_pos (B, D+1), new_state)."""
@@ -1083,23 +1183,27 @@ def serve_step_spec_paged(params, state, tokens: torch.Tensor,
     max_accept = torch.as_tensor(max_accept, dtype=torch.int32, device=dev)
     base_mwp = (min_write_pos if min_write_pos is not None
                 else torch.zeros((b,), dtype=torch.int32, device=dev))
+    lay = _layout(cfg, mesh, rules, batch=b, max_len=(
+        state["page_table"].shape[1] * state["k_pages"].shape[2]))
     if verify_kernel == "mq":
         ys, end_state = _paged_verify_mq(
             params, state, tokens, cfg, draft_len=draft_len,
             base_mwp=base_mwp, paged_attn=paged_attn,
-            gather_granularity=gather_granularity)
+            gather_granularity=gather_granularity, lay=lay)
         return _spec_accept_rollback(state["length"], end_state, ys, tokens,
                                      draft_len, max_accept, int(eos_id),
-                                     cfg.dsa.enabled)
+                                     cfg.dsa.enabled, lay.pl)
 
     def step_fn(st, tok, mwp):
         return serve_step_paged(params, st, tok, cfg, min_write_pos=mwp,
                                 paged_attn=paged_attn,
-                                gather_granularity=gather_granularity)
+                                gather_granularity=gather_granularity,
+                                mesh=mesh, rules=rules)
 
     return _spec_verify_scan(step_fn, state, tokens, draft_len, max_accept,
                              int(eos_id), base_mwp,
-                             paged_state_batch_axes(cfg), cfg.dsa.enabled)
+                             paged_state_batch_axes(cfg), cfg.dsa.enabled,
+                             lay.pl)
 
 
 # --------------------------------------------------------------------------

@@ -249,7 +249,9 @@ def task_mesh(mesh, inp):
 TASKS = {"gvr": task_gvr, "dsa": task_dsa, "step": task_step,
          "engine": task_engine, "mesh": task_mesh}
 from _mesh_train_tasks import TASKS as _TRAIN_TASKS  # noqa: E402
+from _mesh_paged_tasks import TASKS as _PAGED_TASKS  # noqa: E402
 TASKS.update(_TRAIN_TASKS)
+TASKS.update(_PAGED_TASKS)
 
 
 def main(argv) -> int:

@@ -15,6 +15,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs.registry import get_config as jax_config
@@ -31,6 +32,19 @@ from repro_torch.tree import flatten_with_paths, leaves, unflatten
 
 LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op thread for the port's steps while a module runs: at
+    smoke sizes more threads gain nothing, and under the test workers
+    they oversubscribe the cores (six such processes at the default
+    eight threads each ran the jamba case ~20x slower than one does
+    alone; at one thread each, 1.5x)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def perturbed(tree, seed):

@@ -1116,17 +1116,25 @@ def test_mesh_step_on_card_matches_the_single_device_step(dev, phase):
     as near-ties their margin shows, B5, B1 and B6
     launched on every rank and equal to their plain versions at the
     rank's shapes, and ([ep]) the drops of an overflowing `moe_mlp_ep`
-    call equal to the CPU's count. The same ranks then run the cells the
-    phase carries ([tp]: [train-mesh] and [family-mesh]; [ep]:
-    [ep-train]), each failing the phase on its own checks."""
+    call equal to the CPU's count. The same ranks then run the paged
+    forms over the same cache (fused/token, gather and every live verify
+    position equal to the rank's dense mesh ticks bit for bit, mq ==
+    scan; B2, B3, B8, B9 and on [tp] B4, B7, B10 launched and equal to
+    their plain versions) and the cells the phase carries ([tp]:
+    [train-mesh] and [family-mesh]; [ep]: [ep-train]), each failing the
+    phase on its own checks."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import chip_smoke as cs
     counts, checks, _ = cs.phase_mesh(phase)
+    paged = {"tp": ("B2", "B3", "B4", "B7", "B8", "B9", "B10"),
+             "ep": ("B2", "B3", "B8", "B9")}[phase]
     assert min(counts[k] for k in ("indexer_scores", "gvr_topk",
                                    "sparse_decode_attn")) > 0
-    assert set(checks) == {"B5 scoring", "B1", "B6"}
+    assert min(counts[cs.PAGED_MESH_KERNELS[k]] for k in paged) > 0
+    assert set(checks) == {"B5 scoring", "B1", "B6"} | {
+        k + " scoring" if k in ("B2", "B9") else k for k in paged}
 
 
 @pytest.mark.cuda

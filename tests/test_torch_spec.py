@@ -413,9 +413,9 @@ def test_mq_logits_differ_from_scan_only_in_the_head(models, monkeypatch):
     for s, j in live:
         torch.testing.assert_close(mq[2][s, j], scan[2][s, j], rtol=1e-6, atol=1e-5)
     head = transformer._lm_head
-    monkeypatch.setattr(transformer, "_lm_head", lambda p, x, cfg: torch.stack(
-        [head(p, x[:, j], cfg) for j in range(x.shape[1])], 1)
-        if x.dim() == 3 else head(p, x, cfg))
+    monkeypatch.setattr(transformer, "_lm_head", lambda p, x, cfg, *lay: torch.stack(
+        [head(p, x[:, j], cfg, *lay) for j in range(x.shape[1])], 1)
+        if x.dim() == 3 else head(p, x, cfg, *lay))
     mq_rows = tm.serve_step_spec_paged(tparams, _clone(st), _t(tokens),
                                        verify_kernel="mq", **args)
     for s, j in live:

@@ -43,7 +43,10 @@ from repro_torch.optim import adamw
 from repro_torch.runtime import fault_tolerance as ft
 from repro_torch.tree import flatten_with_paths, leaves, tree_map, unflatten
 
-from _train_common import assert_loss_grads_match, setup, state_to_port
+from _train_common import (assert_loss_grads_match, one_thread,  # noqa: F401
+                           setup, state_to_port)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 RNG = np.random.default_rng(24)
 

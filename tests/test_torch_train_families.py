@@ -25,7 +25,10 @@ from repro_torch import bridge
 from repro_torch.optim import adamw
 from repro_torch.tree import flatten_with_paths
 
-from _train_common import assert_loss_grads_match, jax_loss_grads, setup
+from _train_common import (assert_loss_grads_match, jax_loss_grads,
+                           one_thread, setup)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 FAMILY_ARCHS = ["whisper-medium", "rwkv6-3b", "jamba-1.5-large-398b"]
 

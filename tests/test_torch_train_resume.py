@@ -19,7 +19,9 @@ from repro_torch.launch.train import make_train_step
 from repro_torch.optim import adamw
 from repro_torch.tree import flatten_with_paths, tree_map
 
-from _train_common import setup
+from _train_common import setup, one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = Path(__file__).resolve().parent.parent
 

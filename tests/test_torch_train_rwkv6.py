@@ -7,7 +7,10 @@ within 1e-4 of JAX's losses, falling; each step from JAX's state within
 
 import pytest
 
-from _train_common import assert_train_steps_match_jax
+from _train_common import (assert_train_steps_match_jax,
+                           one_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b"])

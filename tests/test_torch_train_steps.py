@@ -7,7 +7,10 @@ its loss and 1e-4 of its next parameters and moments
 
 import pytest
 
-from _train_common import assert_train_steps_match_jax
+from _train_common import (assert_train_steps_match_jax,
+                           one_thread)  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "granite-moe-1b-a400m"])
